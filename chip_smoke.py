@@ -8,21 +8,36 @@ checks, on the card:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
   2. build   — every kernel source, one ``nvcc`` per source, in parallel;
-  3. kernels — K1 (closure) and K2 (fused frontier step) against their
-     plain PyTorch versions on seeded inputs, bit for bit, including
-     widths whose shared memory needs more than 48 KB, up to ``MAX_W``;
-  4. main path — MRGanter+ (local pruning) and MRCbo on the full-scale
-     mushroom context (8124 x 125) at min_support=406 through
+  3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
+     map) and K4 (multi-shard filter) against their plain PyTorch versions
+     on seeded inputs, bit for bit: widths whose shared memory needs more
+     than 48 KB up to ``MAX_W``, K1 and K3 over k ∈ {1, 2, 8} shards in one
+     launch, K4 under all four (iceberg, cbo) flag pairs;
+  4. main path, one shard — MRGanter+ (local pruning) and MRCbo on the
+     full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
      reference's, concept sets equal the ``backend="torch"`` run's, and
      every kernel of the path was launched; one more kernel run keeps a
      copy of the operands of every launch;
-  5. full lattice — MRGanter+ and MRCbo on mushroom at scale 0.01, and all
-     three drivers on the paper's example and a seeded synthetic context,
-     against the NextClosure / CloseByOne oracles;
-  6. times — each kernel on every chunk phase 4 gave it (CUDA events,
+  5. main path, k object shards — the same two drivers through
+     ``ClosureEngine(ctx, n_parts=k, reduce_impl=...)`` for every
+     AND-allreduce schedule at k = 8 and for rsag at k = 2 and 4: the same
+     counts, the reference's modeled wire bytes, concept sets equal the
+     ``backend="torch"`` run's at the same plan, K3 and K4 launched and K2
+     not; MRCbo at k = 8 through ``backend="matmul"``; census-income at its
+     published shape (103,950 x 133) at k = 8, rsag, against the
+     reference's counts and bytes; one more kernel run of the k = 8 rsag
+     plans keeps a copy of the operands of every K3/K4 launch;
+  6. full lattice — MRGanter+ and MRCbo on mushroom at scale 0.01, and all
+     three drivers on the paper's example and a seeded synthetic context
+     (on one shard and on 8 shards), against the NextClosure / CloseByOne
+     oracles;
+  7. times — each kernel on every chunk phases 4 and 5 gave it (CUDA
+     events behind a spin kernel, so that they bracket device work alone;
      median of 25 after warm-up): the sum over the run and its bound, and
-     the costliest chunk beside its plain version and its bound.
+     the costliest chunk beside its plain version, its bound, and its time
+     without the spin kernel (``unqueued_ms``, the host's launch path
+     included).
 
 Any failed check raises and the script exits non-zero.  The second-to-last
 line is the card's name and power limit; the last line is
@@ -53,12 +68,36 @@ LATTICE_EXPECTED = {
     "synthetic": {"concepts": 1751, "iterations": {"mrganter": 1751, "mrganter+": 7, "mrcbo": 8}},
     "mushroom-0.01": {"concepts": 4440, "iterations": {"mrganter+": 7, "mrcbo": 10}},
 }
+# The multi-shard main path (phase 5): the reference's modeled wire bytes
+# per plan and driver (the JAX package, backend="jnp", same context and
+# threshold); counts are those of MAIN_EXPECTED on every plan.
+MULTI_BYTES = {
+    (8, "allgather"): {"mrganter+": 165_272_576, "mrcbo": 131_783_680},
+    (8, "rsag"): {"mrganter+": 41_318_144, "mrcbo": 32_945_920},
+    (8, "pmin"): {"mrganter+": 5_164_768_000, "mrcbo": 4_118_240_000},
+    (8, "auto"): {"mrganter+": 41_409_536, "mrcbo": 33_037_312},
+    (2, "rsag"): {"mrganter+": 5_902_592, "mrcbo": 4_706_560},
+    (4, "rsag"): {"mrganter+": 17_707_776, "mrcbo": 14_119_680},
+}
+# census-income at its published shape, MRGanter+ with local pruning at 5 %
+# (ceil(0.05 * 103,950)), k = 8, rsag (the same reference; k = 1 gives the
+# same counts and 0 bytes).
+CENSUS_SHAPE = (103_950, 133, 5)  # objects, attributes, words
+CENSUS_PADDED = 104_448  # a multiple of 8 shards x 256-row blocks
+CENSUS_MIN_SUPPORT = 5198
+# The kernels each main path runs: K1 and K2 on one shard; K1 (the ∅''
+# round), K3 and K4 on k > 1 shards, where K2 must not launch.
+ONE_SHARD_KERNELS = ("closure", "fused_step")
+MULTI_SHARD_KERNELS = ("closure", "map_closure", "filter_step")
+CENSUS_EXPECTED = {"concepts": 104, "iterations": 4, "closures": 7_286,
+                   "bytes": 2_941_120}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer add/compare/bitwise results per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput table); times the SM count and the maximum SM clock.
 INT32_OPS_PER_CLK_PER_SM = 64
 TIMING_REPS = 25
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's SM clock: longer than any wrapper's host path
 
 
 def emit(record: dict) -> None:
@@ -73,8 +112,14 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` on the card, by CUDA events."""
+def cuda_time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3, queued: bool = True) -> float:
+    """Median milliseconds of ``fn()`` on the card, by CUDA events.
+
+    ``queued``: a spin kernel (``torch.cuda._sleep``, ~1 ms) runs first, so
+    the host has enqueued the start event, ``fn``'s launches and the end
+    event before the card reaches them, and the events bracket the device
+    work alone.  Without it the events also hold whatever time the host
+    takes to reach each launch (Python, argument checks, allocation)."""
     import torch
 
     for _ in range(warmup):
@@ -84,6 +129,8 @@ def cuda_time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -220,38 +267,98 @@ def check_kernels(device) -> list[dict]:
     return records
 
 
-def drive_main_path(ctx, backend: str, algorithm: str, device):
-    """One phase-4 run through the port's entry points; launch counts are
-    set to 0 just before it and read just after."""
+def check_sharded_kernels(device) -> list[dict]:
+    """Phase 3, multi-shard half: K1 and K3 over k shards in one launch, and
+    K4 under every (iceberg, cbo) flag pair, against their plain versions,
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import closure as k1
+    from repro_torch.kernels import frontier as fk
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(20121014)
+    records = []
+    for W in (4, 33, 2000):
+        n = 256 if W == 2000 else 1024  # rows per shard
+        n_attrs = W * 32 - 5
+        mask = ops.attr_mask_tensor(n_attrs, W, device)[None, :]
+        for k in (1, 2, 8):
+            rows_np = bitsets(rng, k * n, W, 0.7)
+            rows_np[k * n - 40:] = 0xFFFFFFFF  # all-ones pad rows in the last shard
+            rows = device_bits(rows_np, device)
+            # k = 1 as a process-group rank holds it ([N, W]); else [k, N/k, W]
+            rows = rows if k == 1 else rows.reshape(k, n, W)
+            for B in (8, 8192):
+                cands = device_bits(candidates(rng, rows_np, B), device)
+                got = fk.map_closure(rows, cands, mask)
+                want = fk.map_closure_plain(rows, cands, mask)
+                require_equal(f"K3 k={k} W={W} n={n} B={B}", got, want)
+                if W != 2000:
+                    require_equal(f"K1 k={k} W={W} n={n} B={B}", k1.closure(rows, cands),
+                                  k1.closure_plain(rows, cands))
+                records.append({"kernel": "map_closure", "k": k, "W": W, "n": n, "B": B,
+                                "max_support": int(want[1].max())})
+        for B in (8, 8192):
+            gc = device_bits(bitsets(rng, B, W, 0.6), device) & mask
+            gs = torch.from_numpy(rng.integers(0, 2000, size=B).astype(np.int32)).to(device)
+            parent_np = bitsets(rng, B, W, 0.6)
+            parent = device_bits(parent_np, device) & gc  # mostly canonical
+            lowrow = device_bits(bitsets(rng, B, W, 0.002), device) & mask
+            for iceberg in (False, True):
+                for cbo in (False, True):
+                    for sc in ((B, 1, 0, 0), (B - B // 3, 900, 7, 0), (B // 2 + 1, 3, 1, B // 4)):
+                        kw = dict(iceberg=iceberg, cbo=cbo)
+                        if cbo:
+                            kw.update(parent=parent, lowrow=lowrow)
+                        got = fk.filter_step(gc, gs, fk.pack_scalars(*sc), **kw)
+                        want = fk.filter_step_plain(gc, gs, fk.pack_scalars(*sc), **kw)
+                        require_equal(f"K4 iceberg={iceberg} cbo={cbo} W={W} B={B} {sc}",
+                                      got, want)
+                        records.append({"kernel": "filter_step", "iceberg": iceberg,
+                                        "cbo": cbo, "W": W, "B": B, "scalars": list(sc),
+                                        "kept": int(want[1].sum())})
+    return records
+
+
+def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | None = None,
+                    min_support: int = MAIN_MIN_SUPPORT):
+    """One run of a main path through the port's entry points; launch
+    counts are set to 0 just before it and read just after.  ``plan_kw``
+    (``n_parts``, ``reduce_impl``) selects the object shards."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.core import ClosureEngine, mrcbo, mrganter_plus
 
-    eng = ClosureEngine(ctx, backend=backend, device=device)
+    eng = ClosureEngine(ctx, backend=backend, device=device, **(plan_kw or {}))
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if algorithm == "mrganter+":
-        res = mrganter_plus(ctx, eng, local_prune=True, min_support=MAIN_MIN_SUPPORT)
+        res = mrganter_plus(ctx, eng, local_prune=True, min_support=min_support)
     else:
-        res = mrcbo(ctx, eng, min_support=MAIN_MIN_SUPPORT)
+        res = mrcbo(ctx, eng, min_support=min_support)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     return res, eng, wall, launches
 
 
-def capture_launches(ctx, algorithm: str, device):
-    """One more kernel-backend run of the main path that keeps a copy of the
-    operands of every kernel launch, so that phase 6 times and bounds the
+def capture_launches(ctx, algorithm: str, device, plan_kw: dict | None = None,
+                     min_support: int = MAIN_MIN_SUPPORT):
+    """One more kernel-backend run of a main path that keeps a copy of the
+    operands of every kernel launch, so that phase 7 times and bounds the
     chunks the path really gave each kernel."""
     import torch
 
     from repro_torch.kernels import closure as k1
-    from repro_torch.kernels import frontier as k2
+    from repro_torch.kernels import frontier as fk
 
-    real = {"closure": k1.closure, "fused_step": k2.fused_step}
+    modules = {"closure": k1, "fused_step": fk, "map_closure": fk, "filter_step": fk}
+    real = {name: getattr(mod, name) for name, mod in modules.items()}
     chunks = {name: [] for name in real}
 
     def recorder(name):
@@ -267,11 +374,13 @@ def capture_launches(ctx, algorithm: str, device):
         return call
 
     recorders = {name: recorder(name) for name in real}
-    k1.closure, k2.fused_step = recorders["closure"], recorders["fused_step"]
+    for name, mod in modules.items():
+        setattr(mod, name, recorders[name])
     try:
-        res, _, _, _ = drive_main_path(ctx, "kernel", algorithm, device)
+        res, _, _, _ = drive_main_path(ctx, "kernel", algorithm, device, plan_kw, min_support)
     finally:
-        k1.closure, k2.fused_step = real["closure"], real["fused_step"]
+        for name, mod in modules.items():
+            setattr(mod, name, real[name])
     for name, rec in recorders.items():
         if len(chunks[name]) != rec.launches:
             raise AssertionError(
@@ -284,19 +393,22 @@ def intent_set(intents) -> set:
 
 
 def run_main_path(device) -> tuple[dict, dict]:
-    """Phase 4: full-scale mushroom, iceberg at 5 %, both drivers."""
+    """Phase 4: full-scale mushroom on one shard, iceberg at 5 %, both
+    drivers."""
     from repro_torch.data import fca_datasets
 
     ctx, spec = fca_datasets.load("mushroom", scale=1.0)
     if (ctx.n_objects, ctx.n_attrs) != (8124, 125):
         raise AssertionError(f"mushroom context is {ctx.n_objects} x {ctx.n_attrs}")
-    launches = {"closure": 0, "fused_step": 0}
-    chunks = {"closure": [], "fused_step": []}
+    launches = {name: 0 for name in ONE_SHARD_KERNELS}
+    chunks = {name: [] for name in ONE_SHARD_KERNELS}
     report = {}
     for algorithm, want in MAIN_EXPECTED.items():
         # kernel, torch, torch, kernel: the first run of each backend is cold
         runs = [drive_main_path(ctx, backend, algorithm, device)
                 for backend in ("kernel", "torch", "torch", "kernel")]
+        if any(n for r in runs[1:3] for n in r[3].values()):
+            raise AssertionError(f"main path {algorithm}: the torch backend launched a kernel")
         captured_res, captured = capture_launches(ctx, algorithm, device)
         res, eng, _, counts = runs[0]
         for run_res in [r[0] for r in runs] + [captured_res]:
@@ -308,11 +420,14 @@ def run_main_path(device) -> tuple[dict, dict]:
                 raise AssertionError(f"main path {algorithm}: kernel and torch concept sets differ")
         if runs[3][3] != counts or {k: len(v) for k, v in captured.items()} != counts:
             raise AssertionError(f"main path {algorithm}: launch counts differ between runs")
-        missing = [k for k, n in counts.items() if n == 0]
+        missing = [k for k in ONE_SHARD_KERNELS if counts[k] == 0]
         if missing:
             raise AssertionError(f"main path {algorithm}: kernels never launched: {missing}")
-        for k, n in counts.items():
-            launches[k] += n
+        stray = [k for k, n in counts.items() if n and k not in ONE_SHARD_KERNELS]
+        if stray:
+            raise AssertionError(f"main path {algorithm}: multi-shard kernels launched: {stray}")
+        for k in ONE_SHARD_KERNELS:
+            launches[k] += counts[k]
             chunks[k] += [(algorithm, args, kw) for args, kw in captured[k]]
         report[algorithm] = dict(
             got, launches=counts, rounds=eng.stats.rounds,
@@ -327,8 +442,116 @@ def run_main_path(device) -> tuple[dict, dict]:
     return report, launches, chunks
 
 
+def check_run(name: str, res, want: dict, want_bytes: int | None = None) -> dict:
+    got = {"concepts": res.n_concepts, "iterations": res.n_iterations,
+           "closures": res.n_closures_computed}
+    if got != want:
+        raise AssertionError(f"{name}: {got} != reference {want}")
+    if want_bytes is not None and res.modeled_comm_bytes != want_bytes:
+        raise AssertionError(
+            f"{name}: modeled bytes {res.modeled_comm_bytes} != reference {want_bytes}")
+    return got
+
+
+def check_multi_shard_counts(name: str, counts: dict) -> None:
+    missing = [k for k in MULTI_SHARD_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched: {missing}")
+    if counts["fused_step"]:
+        raise AssertionError(f"{name}: K2 launched {counts['fused_step']} times on k > 1")
+
+
+def run_multi_shard_path(device):
+    """Phase 5: the main path over k object shards, every schedule, both
+    drivers, plus the matmul backend and census-income at its published
+    shape.  Returns the report, the summed launch counts of the kernel
+    runs, and the K3/K4 chunks of one more kernel run of each k = 8 rsag
+    plan."""
+    from repro_torch.data import fca_datasets
+
+    ctx, spec = fca_datasets.load("mushroom", scale=1.0)
+    launches = {name: 0 for name in MULTI_SHARD_KERNELS}
+    report = {}
+    for (k, impl), want_bytes in MULTI_BYTES.items():
+        plan_kw = {"n_parts": k, "reduce_impl": impl}
+        for algorithm, want in MAIN_EXPECTED.items():
+            name = f"multi-shard {algorithm} k={k} {impl}"
+            res, eng, wall, counts = drive_main_path(ctx, "kernel", algorithm, device, plan_kw)
+            tres, _, twall, tcounts = drive_main_path(ctx, "torch", algorithm, device, plan_kw)
+            got = check_run(name, res, want, want_bytes[algorithm])
+            check_run(name + " torch", tres, want, want_bytes[algorithm])
+            if intent_set(tres.intents) != intent_set(res.intents):
+                raise AssertionError(f"{name}: kernel and torch concept sets differ")
+            check_multi_shard_counts(name, counts)
+            if any(tcounts.values()):
+                raise AssertionError(f"{name}: the torch backend launched a kernel")
+            for kname in MULTI_SHARD_KERNELS:
+                launches[kname] += counts[kname]
+            report[f"{algorithm}/k={k}/{impl}"] = dict(
+                got, modeled_comm_bytes=res.modeled_comm_bytes,
+                reduce_rounds=eng.stats.reduce_rounds, launches=counts,
+                kernel_wall_s=wall, torch_wall_s=twall,
+            )
+    # warm repeats of the k = 8 rsag plans, kernel then torch
+    for algorithm in MAIN_EXPECTED:
+        plan_kw = {"n_parts": 8, "reduce_impl": "rsag"}
+        key = f"{algorithm}/k=8/rsag"
+        res, _, wall, counts = drive_main_path(ctx, "kernel", algorithm, device, plan_kw)
+        tres, _, twall, _ = drive_main_path(ctx, "torch", algorithm, device, plan_kw)
+        if counts != report[key]["launches"]:
+            raise AssertionError(f"multi-shard {key}: launch counts differ between runs")
+        report[key]["kernel_wall_s"] = {"cold": report[key]["kernel_wall_s"], "warm": wall}
+        report[key]["torch_wall_s"] = {"cold": report[key]["torch_wall_s"], "warm": twall}
+    # the matmul backend, MRCbo at k = 8
+    mres, _, mwall, mcounts = drive_main_path(
+        ctx, "matmul", "mrcbo", device, {"n_parts": 8, "reduce_impl": "rsag"})
+    check_run("multi-shard mrcbo k=8 rsag matmul", mres, MAIN_EXPECTED["mrcbo"],
+              MULTI_BYTES[(8, "rsag")]["mrcbo"])
+    base, _, _, _ = drive_main_path(ctx, "torch", "mrcbo", device,
+                                    {"n_parts": 8, "reduce_impl": "rsag"})
+    if intent_set(mres.intents) != intent_set(base.intents):
+        raise AssertionError("multi-shard mrcbo k=8: matmul and torch concept sets differ")
+    report["mrcbo/k=8/rsag/matmul"] = {"wall_s": mwall, "launches": mcounts}
+    emit({"phase": "multi_shard_path", "dataset": spec.name, "objects": ctx.n_objects,
+          "attributes": ctx.n_attrs, "min_support": MAIN_MIN_SUPPORT, "runs": report})
+
+    # census-income at its published shape
+    cctx, cspec = fca_datasets.load("census-income", scale=1.0)
+    if (cctx.n_objects, cctx.n_attrs, cctx.W) != CENSUS_SHAPE:
+        raise AssertionError(f"census-income context is {cctx.n_objects} x {cctx.n_attrs}")
+    plan_kw = {"n_parts": 8, "reduce_impl": "rsag"}
+    want = {k: v for k, v in CENSUS_EXPECTED.items() if k != "bytes"}
+    runs = [drive_main_path(cctx, "kernel", "mrganter+", device, plan_kw, CENSUS_MIN_SUPPORT)
+            for _ in range(2)]
+    for res, eng, _, counts in runs:
+        check_run("census-income k=8 rsag", res, want, CENSUS_EXPECTED["bytes"])
+        check_multi_shard_counts("census-income k=8 rsag", counts)
+    if runs[0][1].N_padded != CENSUS_PADDED or runs[0][1].rows.shape[1] != CENSUS_PADDED // 8:
+        raise AssertionError(f"census-income padded to {runs[0][1].N_padded} rows")
+    for kname in MULTI_SHARD_KERNELS:
+        launches[kname] += runs[0][3][kname]
+    census = dict(check_run("census", runs[0][0], want),
+                  modeled_comm_bytes=runs[0][0].modeled_comm_bytes,
+                  launches=runs[0][3], kernel_wall_s={"cold": runs[0][2], "warm": runs[1][2]},
+                  n_padded=runs[0][1].N_padded)
+    emit({"phase": "multi_shard_census", "dataset": cspec.name, "objects": cctx.n_objects,
+          "attributes": cctx.n_attrs, "min_support": CENSUS_MIN_SUPPORT, "n_parts": 8,
+          "reduce_impl": "rsag", **census})
+
+    # K3/K4 chunks: one more kernel run of each k = 8 rsag plan
+    chunks = {"map_closure": [], "filter_step": []}
+    captures = [("mrganter+", ctx, MAIN_MIN_SUPPORT), ("mrcbo", ctx, MAIN_MIN_SUPPORT),
+                ("census", cctx, CENSUS_MIN_SUPPORT)]
+    for label, c, ms in captures:
+        algorithm = "mrganter+" if label == "census" else label
+        _, captured = capture_launches(c, algorithm, device, plan_kw, ms)
+        for kname in chunks:
+            chunks[kname] += [(label, args, kw) for args, kw in captured[kname]]
+    return report, census, launches, chunks
+
+
 def run_full_lattices(device) -> dict:
-    """Phase 5: full lattices against the centralized oracles."""
+    """Phase 6: full lattices against the centralized oracles."""
     from repro_torch.core import (
         ClosureEngine, FormalContext, all_closures, close_by_one,
         mrcbo, mrganter, mrganter_plus, paper_context,
@@ -352,18 +575,23 @@ def run_full_lattices(device) -> dict:
         oracle_set = intent_set(oracle(ctx))
         if len(oracle_set) != want["concepts"]:
             raise AssertionError(f"{name}: oracle has {len(oracle_set)} concepts")
-        for algorithm, n_iter in want["iterations"].items():
-            eng = ClosureEngine(ctx, backend="kernel", device=device)
-            t0 = time.perf_counter()
-            res = drivers[algorithm](ctx, eng)
-            wall = time.perf_counter() - t0
-            if res.n_concepts != want["concepts"] or intent_set(res.intents) != oracle_set:
-                raise AssertionError(f"{name} {algorithm}: concept set differs from the oracle")
-            if res.n_iterations != n_iter:
-                raise AssertionError(f"{name} {algorithm}: {res.n_iterations} iterations != {n_iter}")
-            report[f"{name}/{algorithm}"] = {"concepts": res.n_concepts,
-                                             "iterations": res.n_iterations,
-                                             "wall_s": wall}
+        # one shard, and 8 shards under the auto schedule (K1 over shards
+        # for the MRGanter walks, K3/K4 for the batched steps)
+        for n_parts in (1,) if name == "mushroom-0.01" else (1, 8):
+            for algorithm, n_iter in want["iterations"].items():
+                eng = ClosureEngine(ctx, backend="kernel", device=device, n_parts=n_parts,
+                                    reduce_impl="auto")
+                t0 = time.perf_counter()
+                res = drivers[algorithm](ctx, eng)
+                wall = time.perf_counter() - t0
+                run = f"{name} {algorithm} k={n_parts}"
+                if res.n_concepts != want["concepts"] or intent_set(res.intents) != oracle_set:
+                    raise AssertionError(f"{run}: concept set differs from the oracle")
+                if res.n_iterations != n_iter:
+                    raise AssertionError(f"{run}: {res.n_iterations} iterations != {n_iter}")
+                report[f"{name}/{algorithm}/k={n_parts}"] = {
+                    "concepts": res.n_concepts, "iterations": res.n_iterations,
+                    "wall_s": wall}
     emit({"phase": "full_lattice", "runs": report})
     return report
 
@@ -382,13 +610,14 @@ def needed_word_ops(rows, cands, kw: dict | None) -> int:
     match count per (candidate, row), the AND-accumulate of every word of
     every matching row, and, for K2 (``kw`` given), ~3 operations per
     closure word for the mask and the support test, and 3 more for CbO's
-    canonicity test."""
+    canonicity test.  Rows ``[k, n, W]`` count as their k·n rows."""
     import torch
 
+    W = rows.shape[-1]
+    rows = rows.reshape(-1, W)
     test = 0
     acc = 0
     B, N = cands.shape[0], rows.shape[0]
-    W = rows.shape[1]
     step = max(1, (1 << 24) // max(1, N * W))
     for lo in range(0, B, step):
         c = cands[lo: lo + step]
@@ -402,8 +631,8 @@ def needed_word_ops(rows, cands, kw: dict | None) -> int:
 
 
 def moved_bytes(rows, cands, kw: dict | None) -> int:
-    """Each input read once and each output written once."""
-    (N, W), B = rows.shape, cands.shape[0]
+    """Each input read once and each output written once (K1/K2)."""
+    W, N, B = rows.shape[-1], rows.numel() // rows.shape[-1], cands.shape[0]
     nbytes = (N * W + B * W) * 4 + B * (W + 1) * 4  # rows, cands; closures, supports
     if kw is not None:
         nbytes += W * 4 + 4 * 4 + B  # mask, scalars; keep
@@ -412,56 +641,110 @@ def moved_bytes(rows, cands, kw: dict | None) -> int:
     return nbytes
 
 
+def closure_bound(args, kw):
+    """K1 and K2: (ops, bytes, census ops, chunk shape)."""
+    rows, cands = args[0], args[1]
+    epi = kw if len(args) > 2 else None  # K2 carries mask and scalars
+    W, N, B = rows.shape[-1], rows.numel() // rows.shape[-1], cands.shape[0]
+    census = 4 * B * N * W + B * N + (3 * B * W if epi is not None else 0)
+    return (needed_word_ops(rows, cands, epi), moved_bytes(rows, cands, epi), census,
+            {"B": B, "N": N, "W": W})
+
+
+def map_bound(args, kw):
+    """K3: K1's data-dependent census over all k shards, plus the mask AND
+    of every closure word; bytes: rows, candidates and mask in, k closure
+    blocks and k support vectors out."""
+    rows, cands = args[0], args[1]
+    k = rows.shape[0] if rows.dim() == 3 else 1
+    W, N, B = rows.shape[-1], rows.numel() // rows.shape[-1], cands.shape[0]
+    ops = needed_word_ops(rows, cands, None) + k * B * W
+    nbytes = (N * W + B * W + W) * 4 + k * B * (W + 1) * 4
+    census = 4 * B * N * W + B * N + k * B * W
+    return ops, nbytes, census, {"k": k, "B": B, "N": N, "W": W}
+
+
+def filter_bound(args, kw):
+    """K4: per row the pad subtraction, the validity test and (iceberg) the
+    support test; for CbO, 3 operations per word up to each row's first
+    non-canonical word, only for rows still kept.  Bytes: the supports in
+    and out and the keep bytes; for CbO also gc, parent and lowrow."""
+    import torch
+
+    from repro_torch.kernels import frontier as fk
+
+    gc, gs, sc = args
+    B, W = gc.shape
+    ops = 2 * B + (B if kw.get("iceberg") else 0)
+    nbytes = B * 4 * 2 + B + 4 * 4
+    census = ops
+    if kw.get("cbo"):
+        _, live = fk.filter_step_plain(gc, gs, sc, iceberg=kw.get("iceberg", False))
+        bad = ((gc ^ kw["parent"]) & kw["lowrow"]) != 0  # [B, W]
+        first = torch.where(bad.any(-1), bad.int().argmax(-1) + 1, W)
+        ops += 3 * int(first[live].sum())
+        census += 3 * B * W
+        nbytes += 3 * B * W * 4
+    return ops, nbytes, census, {"B": B, "W": W, "scalars": list(sc)}
+
+
 def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
-    """Phase 6: each kernel on the chunks the main path gave it (captured
-    in phase 4), beside its plain version and its bound.
+    """Phase 7: each kernel on the chunks its main path gave it (captured
+    in phases 4 and 5), beside its plain version and its bound.
 
     Every captured chunk is replayed and timed alone (CUDA events, median
     of TIMING_REPS after warm-up); ``run_ms`` and ``run_bound_ms`` are the
-    sums over all of a kernel's launches in the phase-4 runs, and ``ms``,
-    ``plain_ms`` and ``bound_ms`` are those of its costliest chunk."""
+    sums over all of a kernel's captured launches, and ``ms``, ``plain_ms``
+    and ``bound_ms`` are those of its costliest chunk.  K1 and K2 time
+    their phase-4 chunks (one shard); K3 and K4 the chunks of the k = 8
+    rsag runs of phase 5 (both mushroom drivers and census-income)."""
     from repro_torch.kernels import closure as k1
-    from repro_torch.kernels import frontier as k2
+    from repro_torch.kernels import frontier as fk
 
     rate = int32_ops_per_s(device)
-    wrappers = {
+    specs = {
         "closure": (k1.closure, k1.closure_plain, "src/repro_torch/csrc/closure.cu",
-                    "src/repro/kernels/closure.py:99"),
-        "fused_step": (k2.fused_step, k2.fused_step_plain, "src/repro_torch/csrc/frontier.cu",
-                       "src/repro/kernels/frontier.py:173"),
+                    "src/repro/kernels/closure.py:99", closure_bound),
+        "fused_step": (fk.fused_step, fk.fused_step_plain, "src/repro_torch/csrc/frontier.cu",
+                       "src/repro/kernels/frontier.py:173", closure_bound),
+        "map_closure": (fk.map_closure, fk.map_closure_plain,
+                        "src/repro_torch/csrc/frontier.cu",
+                        "src/repro/kernels/frontier.py:273", map_bound),
+        "filter_step": (fk.filter_step, fk.filter_step_plain,
+                        "src/repro_torch/csrc/frontier.cu",
+                        "src/repro/kernels/frontier.py:341", filter_bound),
     }
     out = []
-    for name, (kern, plain, source, replaces) in wrappers.items():
+    for name, (kern, plain, source, replaces, bound) in specs.items():
         timed = []
-        for algorithm, args, kw in chunks[name]:
-            rows, cands = args[0], args[1]
-            epi = kw if name == "fused_step" else None
+        for label, args, kw in chunks[name]:
             ms = cuda_time_ms(lambda: kern(*args, **kw))
-            t_ops = needed_word_ops(rows, cands, epi) / rate * 1e3
-            t_bytes = moved_bytes(rows, cands, epi) / HBM_BYTES_PER_S * 1e3
-            timed.append((ms, t_ops, t_bytes, algorithm, args, kw))
-        ms, t_ops, t_bytes, algorithm, args, kw = max(timed, key=lambda t: t[0])
+            ops, nbytes, census, shape = bound(args, kw)
+            timed.append((ms, ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3, label, args,
+                          kw, census, shape))
+        ms, t_ops, t_bytes, label, args, kw, census, shape = max(timed, key=lambda t: t[0])
         err = require_equal(f"{name} on its costliest main-path chunk",
                             kern(*args, **kw), plain(*args, **kw))
         plain_ms = cuda_time_ms(lambda: plain(*args, **kw))
-        rows, cands = args[0], args[1]
-        B, (N, W) = cands.shape[0], rows.shape
-        census = 4 * B * N * W + B * N + (3 * B * W if name == "fused_step" else 0)
+        unqueued_ms = cuda_time_ms(lambda: kern(*args, **kw), queued=False)
+        scalars = {"fused_step": 3, "filter_step": 2}.get(name)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
-            "chunk": {"algorithm": algorithm, "B": B, "N": N, "W": W,
+            "unqueued_ms": unqueued_ms,
+            "chunk": {"run": label, **shape,
                       "variant": {k: v for k, v in kw.items() if isinstance(v, bool)},
-                      "scalars": list(args[3]) if name == "fused_step" else None},
+                      "scalars": list(args[scalars]) if scalars else None},
             "census_bound_ms": max(census / rate * 1e3, t_bytes),
             "run_launches": len(timed),
             "run_ms": sum(t[0] for t in timed),
             "run_bound_ms": sum(max(t[1], t[2]) for t in timed),
-            "run_ms_by_algorithm": {
-                a: sum(t[0] for t in timed if t[3] == a) for a in MAIN_EXPECTED
+            "run_ms_by_run": {
+                a: sum(t[0] for t in timed if t[3] == a) for a in dict.fromkeys(
+                    t[3] for t in timed)
             },
             "int32_ops_per_s": rate,
         })
@@ -496,12 +779,24 @@ def main() -> int:
         print(f"ptxas {name}: {rec['ptxas']}", flush=True)
 
     t0 = time.perf_counter()
-    records = check_kernels(device)
+    records = check_kernels(device) + check_sharded_kernels(device)
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
+          "by_kernel": {k: sum(r["kernel"] == k for r in records)
+                        for k in dict.fromkeys(r["kernel"] for r in records)},
           "bit_exact": True})
 
+    t0 = time.perf_counter()
     _, launches, chunks = run_main_path(device)
+    emit({"phase": "main_path_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, _, multi_launches, multi_chunks = run_multi_shard_path(device)
+    emit({"phase": "multi_shard_seconds", "seconds": time.perf_counter() - t0,
+          "launches": multi_launches})
+    launches.update({k: multi_launches[k] for k in ("map_closure", "filter_step")})
+    chunks.update(multi_chunks)
+    t0 = time.perf_counter()
     run_full_lattices(device)
+    emit({"phase": "full_lattice_seconds", "seconds": time.perf_counter() - t0})
     emit({"kernels": time_kernels(device, launches, chunks)})
 
     print(nvidia_smi("name,power.limit"), flush=True)

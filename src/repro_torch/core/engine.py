@@ -1,22 +1,27 @@
 """The closure engine — the MapReduce substrate for the MR* miners.
 
-The engine owns the *static data*: the padded context rows, resident on
-the device across every round (Twister's defining feature), and executes
-the paper's map/reduce round:
+The engine owns the *static data*: the object-partitioned context rows,
+resident on the device across every round (Twister's defining feature),
+and executes the paper's map/reduce round:
 
-    map    : batched closure of a candidate block against the rows
-             (K1 for ``backend="kernel"``, the plain oracle for
-             ``backend="torch"``)
-    reduce : the bitwise-AND all-reduce of local closures across object
-             shards (paper Theorem 2) — the identity on one shard, which
-             is the only geometry this slice runs
+    map    : per-shard batched closure (K1 for ``backend="kernel"``, the
+             plain oracle for ``backend="torch"``, complement-plane matrix
+             products for ``backend="matmul"``)
+    reduce : bitwise-AND all-reduce of the local closures across the
+             object partition + the sum of supports   (paper Theorem 2)
+
+Every round goes through the engine's :class:`repro_torch.dist.ShardPlan`,
+whose ``spmd`` primitive runs the shard body over a simulated shard
+dimension on one device or over a ``torch.distributed`` group, one shard
+per rank — same body, same collectives, bit-identical arithmetic.
 
 ``spmd_step`` builds one round, optionally followed by a *post* stage
 (canonicity, feasibility, dedupe, iceberg cut) that consumes the global
 closures; ``spmd_step_fused`` builds the same rounds for the frontier
-step variants out of K2, which computes closure → support → driver filter
-in one pass.  Supports are corrected globally: all-ones padding rows match
-every candidate, so ``supports -= n_pad``.
+step variants out of the fused kernels: K2 (closure → support → driver
+filter in one pass) on one shard, K3 → AND-allreduce → K4 on k > 1.
+Supports are corrected globally: all-ones padding rows match every
+candidate, so ``supports -= n_pad`` after the sum.
 """
 
 from __future__ import annotations
@@ -28,12 +33,13 @@ import torch
 
 from repro_torch.core.context import FormalContext
 from repro_torch.device import device_bits, host_bits, resolve_device
-from repro_torch.dist.plan import ShardPlan
+from repro_torch.dist import collectives
+from repro_torch.dist.shardplan import AUTO_IMPLS, ShardPlan
 from repro_torch.kernels import frontier as fkern
 from repro_torch.kernels import ops
 from repro_torch.obs import StatsBase
 
-BACKENDS = ("kernel", "torch")
+BACKENDS = ("kernel", "torch", "matmul")
 
 
 @dataclasses.dataclass
@@ -62,16 +68,45 @@ class ClosureEngine:
         self,
         ctx: FormalContext,
         *,
+        plan: ShardPlan | None = None,
+        n_parts: int | None = None,
         backend: str = "kernel",
+        reduce_impl: str | None = None,
+        block_n: int | None = None,
+        max_batch: int | None = None,
         device=None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose {BACKENDS}")
-        plan = ShardPlan()  # one object shard: the geometry of this slice
+        # Geometry (n_parts) conflicts with an explicit plan and raises; the
+        # scalar knobs (reduce_impl/block_n/max_batch) override the plan's
+        # values when passed.
+        if plan is None:
+            plan = ShardPlan.simulated(n_parts or 1, reduce_impl=reduce_impl or "rsag")
+        elif n_parts is not None:
+            raise ValueError("pass either plan= or the n_parts= geometry, not both")
+        overrides = {
+            k: v
+            for k, v in (
+                ("reduce_impl", reduce_impl),
+                ("block_n", block_n),
+                ("max_batch", max_batch),
+            )
+            if v is not None
+        }
+        if overrides:
+            plan = dataclasses.replace(plan, **overrides)
+        if plan.device is not None:  # a process-group plan fixes the device
+            if device is not None and torch.device(device) != plan.device:
+                raise ValueError(
+                    f"device={device!r} differs from the plan's device {plan.device}"
+                )
+            device = plan.device
         self.device = resolve_device(device)
         self.plan = plan
         self.ctx = ctx
         self.backend = backend
+        self.reduce_impl = plan.reduce_impl
         self.block_n = plan.block_n
         self.max_batch = plan.max_batch
         self.n_parts = plan.n_parts
@@ -80,99 +115,213 @@ class ClosureEngine:
             hop_calibrated=plan.hop_calibrated,
         )
 
+        # Pad rows so every shard is block-aligned: N % (k * block_n) == 0.
         rows, n_pad = ctx.padded_rows(plan.row_alignment)
         self.n_pad_rows = n_pad
+        self.N_padded = rows.shape[0]
         self.mask = device_bits(ctx.attr_mask(), self.device)  # [W]
         self.rows = plan.place_rows(rows, self.device)
 
         self._step = self.spmd_step(with_supports=True)
 
-    # -- the one execution path ----------------------------------------------
+    # -- the one partitioned execution path ------------------------------------
 
     def _local_closure(self, rows_local, cands):
-        """Map phase for the configured backend: masked closures + raw
-        local supports (the global pad is corrected by the caller)."""
+        """Per-shard map phase for the configured backend: masked local
+        closures + raw local supports (the global pad is corrected after
+        the support sum)."""
+        n_local = rows_local.shape[-2]
+        if self.backend == "matmul":
+            return ops.closure_matmul(
+                rows_local, cands, self.ctx.n_attrs, n_valid_rows=n_local
+            )
         return ops.batched_closure(
             rows_local,
             cands,
             self.ctx.n_attrs,
-            n_valid_rows=rows_local.shape[0],
+            n_valid_rows=n_local,
             block_n=self.block_n,
             use_kernel=self.backend == "kernel",
             mask=self.mask,
         )
 
+    def _dispatch(self, make):
+        """One step per schedule: the fixed one, or — for ``auto`` — every
+        schedule of ``AUTO_IMPLS``, resolved per round from the padded
+        batch size (every schedule is bit-identical, so the choice only
+        moves wire cost; ``charge_round`` ledgers the same choice)."""
+        plan, ctx = self.plan, self.ctx
+        if plan.reduce_impl != "auto":
+            return make(plan.reduce_impl)
+        steps = {impl: make(impl) for impl in AUTO_IMPLS}
+
+        def dispatch(rows, cands, *extras):
+            impl = plan.resolve_impl(cands.shape[0], ctx.W, ctx.n_attrs)
+            return steps[impl](rows, cands, *extras)
+
+        return dispatch
+
     def spmd_step(self, post=None, *, with_supports: bool = False, n_extra: int = 0):
-        """Build one round: map → AND-allreduce [→ post].
+        """Build one plan round: map → AND-allreduce [→ post].
 
-        The returned callable is ``step(rows, cands, *extras)``.  Without
-        ``post`` it returns the masked global closures, plus pad-corrected
-        supports when ``with_supports``; with ``post`` it returns
-        ``post(gc[, gs], *extras)``.  ``n_extra`` is the number of extras
-        ``post`` takes.
+        The returned callable is ``step(rows, cands, *extras)``.  Each
+        shard computes local closures, the reduce runs the plan's
+        collective schedule, and — when given — ``post`` consumes the
+        *global* closures (masked to real attributes), plus pad-corrected
+        supports when ``with_supports``, plus the ``n_extra`` replicated
+        extras.  Without ``post`` the step returns the masked global
+        closures, plus the supports when ``with_supports``.
         """
-        n_pad = self.n_pad_rows
+        axes = self.plan.reduce_axes
+        n_attrs, mask, n_pad = self.ctx.n_attrs, self.mask, self.n_pad_rows
 
-        def step(rows, cands, *extras):
-            if len(extras) != (n_extra if post is not None else 0):
-                raise TypeError(f"step takes {n_extra} extra operands, got {len(extras)}")
-            gc, ls = self._local_closure(rows, cands)
-            # one shard: the AND-allreduce and the support sum are identities
-            outs = (gc, ls - n_pad) if with_supports else (gc,)
-            if post is None:
-                return outs if with_supports else gc
-            return post(*outs, *extras)
+        def make(impl):
+            def body(rows_local, cands):
+                lc, ls = self._local_closure(rows_local, cands)
+                gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=n_attrs) & mask
+                if with_supports:
+                    return gc, collectives.sum_allreduce(ls, axes) - n_pad
+                return gc
 
-        return step
+            run = self.plan.spmd(body, n_rep=1, post=post, n_post_rep=n_extra)
+
+            def step(rows, cands, *extras):
+                if len(extras) != (n_extra if post is not None else 0):
+                    raise TypeError(
+                        f"step takes {n_extra} extra operands, got {len(extras)}"
+                    )
+                return run(rows, cands, *extras)
+
+            return step
+
+        return self._dispatch(make)
 
     # -- fused-kernel step builders (backend="kernel") -------------------------
     #
-    # On one object shard the local closure IS the global closure, so K2
-    # computes closure → support → driver filter in one pass.  Survivor
-    # compaction stays in torch and consumes only the keep mask: identical
-    # masks in, identical order out, which is what makes the fused steps
-    # bit-identical to the ``spmd_step`` + post builders.  Call signatures
-    # match those builders, so DeviceFrontier routes by name alone.
+    # Two placements, chosen by plan geometry:
+    #
+    #   n_parts == 1 — the local closure IS the global closure, so K2
+    #     computes closure → support → driver filter in one pass; no
+    #     collective runs (the size-1 AND-allreduce is the identity).
+    #   n_parts > 1 — the filter needs the *global* closure, which exists
+    #     only after the AND-allreduce, so the round is K3 (the attribute
+    #     mask folded in: masked locals AND-reduce to the masked global) →
+    #     the collectives → K4 (the keep mask; the supports arrive already
+    #     corrected, so K4 runs with n_pad = 0).
+    #
+    # Survivor compaction stays in torch and consumes only the keep mask:
+    # identical masks in, identical order out, which is what makes the
+    # fused steps bit-identical to the ``spmd_step`` + post builders.  Call
+    # signatures match those builders, so DeviceFrontier routes by name
+    # alone.
 
     def spmd_step_fused(self, variant: str, LOW: torch.Tensor):
-        """K2 step for ``variant`` ∈ ``fkern.VARIANTS`` on one shard."""
+        """Fused-kernel step for ``variant`` ∈ ``fkern.VARIANTS``."""
         from repro_torch.core.frontier import _compact, _sort_unique
 
         iceberg, cbo, unique = fkern.VARIANTS[variant]
+        plan, ctx = self.plan, self.ctx
         mask = self.mask[None, :]
         n_pad = self.n_pad_rows
 
-        if variant == "plain":
-
-            def plain(rows, cands):
-                gc, _, _ = fkern.fused_step(
-                    rows, cands, mask, fkern.pack_scalars(0, 0, n_pad, 0)
-                )
-                return gc
-
-            return plain
-
-        if cbo:
-
-            def cbo_step(rows, cands, parents, gens, n_valid, *ms):
-                sc = fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
-                gc, _, keep = fkern.fused_step(
-                    rows, cands, mask, sc,
-                    parent=parents, lowrow=LOW[gens.long()],
-                    iceberg=iceberg, cbo=True,
-                )
-                n, gc, gens = _compact(keep, gc, gens)
-                return gc, gens, n
-
-            return cbo_step
-
-        def filter_step(rows, cands, n_valid, *ms):
-            sc = fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
-            gc, _, keep = fkern.fused_step(rows, cands, mask, sc, iceberg=iceberg)
+        def compact_out(keep, gc):
             n, gc = _sort_unique(gc, keep) if unique else _compact(keep, gc)
             return gc, n
 
-        return filter_step
+        if plan.n_parts == 1:
+            W = ctx.W
+
+            def k2(rows, cands, sc, **kw):
+                # one shard: a simulated [1, N, W] or a group rank's [N, W]
+                return fkern.fused_step(rows.reshape(-1, W), cands, mask, sc, **kw)
+
+            if variant == "plain":
+
+                def plain(rows, cands):
+                    gc, _, _ = k2(rows, cands, fkern.pack_scalars(0, 0, n_pad, 0))
+                    return gc
+
+                return plain
+
+            if cbo:
+
+                def cbo_step(rows, cands, parents, gens, n_valid, *ms):
+                    sc = fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
+                    gc, _, keep = k2(
+                        rows, cands, sc, parent=parents, lowrow=LOW[gens.long()],
+                        iceberg=iceberg, cbo=True,
+                    )
+                    n, gc, gens = _compact(keep, gc, gens)
+                    return gc, gens, n
+
+                return cbo_step
+
+            def filter_step(rows, cands, n_valid, *ms):
+                sc = fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
+                gc, _, keep = k2(rows, cands, sc, iceberg=iceberg)
+                return compact_out(keep, gc)
+
+            return filter_step
+
+        # multi-shard: K3 → collectives → K4
+        axes = plan.reduce_axes
+
+        def make(impl):
+            def body(rows_local, cands):
+                lc, ls = fkern.map_closure(rows_local, cands, mask)
+                gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=ctx.n_attrs)
+                if iceberg:
+                    return gc, collectives.sum_allreduce(ls, axes) - n_pad
+                return gc
+
+            if variant == "plain":
+                return plan.spmd(body, n_rep=1)
+
+            if cbo:
+                if iceberg:
+
+                    def post(gc, gs, parents, gens, n_valid, min_sup):
+                        _, keep = fkern.filter_step(
+                            gc, gs, fkern.pack_scalars(n_valid, min_sup, 0, 0),
+                            parent=parents, lowrow=LOW[gens.long()],
+                            iceberg=True, cbo=True,
+                        )
+                        n, gc, gens = _compact(keep, gc, gens)
+                        return gc, gens, n
+
+                    n_extra = 4
+                else:
+
+                    def post(gc, parents, gens, n_valid):
+                        _, keep = fkern.filter_step(
+                            gc, torch.zeros(gc.shape[0], dtype=torch.int32, device=gc.device),
+                            fkern.pack_scalars(n_valid, 0, 0, 0),
+                            parent=parents, lowrow=LOW[gens.long()], cbo=True,
+                        )
+                        n, gc, gens = _compact(keep, gc, gens)
+                        return gc, gens, n
+
+                    n_extra = 3
+            elif iceberg:
+
+                def post(gc, gs, n_valid, min_sup):
+                    _, keep = fkern.filter_step(
+                        gc, gs, fkern.pack_scalars(n_valid, min_sup, 0, 0), iceberg=True
+                    )
+                    return compact_out(keep, gc)
+
+                n_extra = 2
+            else:  # unique — its keep mask is validity alone: no K4
+
+                def post(gc, n_valid):
+                    keep = torch.arange(gc.shape[0], device=gc.device) < n_valid
+                    return compact_out(keep, gc)
+
+                n_extra = 1
+
+            return plan.spmd(body, n_rep=1, post=post, n_post_rep=n_extra)
+
+        return self._dispatch(make)
 
     # -- stats accounting -------------------------------------------------------
 

@@ -12,10 +12,13 @@ the device.  Every iteration runs
                      ──►  compacted survivors
 
 and only the surviving closures and their counts cross to the host.  On
-``backend="kernel"`` engines the step variants run K2 (closure, support
-and filter in one kernel pass); on ``backend="torch"`` they run the plain
-closure followed by the same filters as torch ops.  Both give the same
-rows in the same order.
+``backend="kernel"`` engines the step variants run the fused kernels — K2
+(closure, support and filter in one pass) on one object shard, K3 →
+AND-allreduce → K4 on k > 1; on the other backends they run the plain
+round followed by the same filters as torch ops.  All give the same rows
+in the same order.  Tables and frontier buffers are replicated through
+the engine's plan, so on a process group every rank holds its own copy
+and expands partition-locally.
 
 Every sort that orders rows sorts on unsigned keys (``x ^ INT32_MIN`` on
 the int32 view) and is stable, so the row order matches the reference's
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lectic
-from repro_torch.device import device_bits, host_bits, unsigned_key
+from repro_torch.device import host_bits, unsigned_key
 from repro_torch.kernels import frontier as fkern
 from repro_torch.kernels import ops
 
@@ -200,8 +203,8 @@ class DeviceFrontier:
     def _build_cache(engine) -> dict:
         t = lectic.LecticTables(engine.ctx.n_attrs)
         n_attrs = engine.ctx.n_attrs
-        LOW = device_bits(t.LOW, engine.device)
-        BIT = device_bits(t.BIT, engine.device)
+        LOW = engine.plan.replicate(t.LOW, engine.device)
+        BIT = engine.plan.replicate(t.BIT, engine.device)
         mask = engine.mask
 
         def post_cbo(gc, parents, gens, n_valid):
@@ -258,10 +261,10 @@ class DeviceFrontier:
                 post_ganter_iceberg, with_supports=True, n_extra=3
             ),
         }
-        # backend="kernel": every batched step variant runs K2 (closure →
-        # support → driver filter in one pass).  The single-intent ganter
-        # walks keep the spmd_step builders — their map runs K1, and their
-        # argmax-select has no batch filter to fuse.
+        # backend="kernel": every batched step variant runs the fused
+        # kernels (K2 on one shard, K3 → reduce → K4 on k > 1).  The
+        # single-intent ganter walks keep the spmd_step builders — their
+        # map runs K1, and their argmax-select has no batch filter to fuse.
         if engine.backend == "kernel":
             for v in fkern.VARIANTS:
                 builders[v] = lambda v=v: engine.spmd_step_fused(v, LOW)
@@ -286,15 +289,15 @@ class DeviceFrontier:
         cap = ops.bucket_size(max(1, n))
         buf = np.zeros((cap, self.W), np.uint32)
         buf[:n] = intents
-        dev = self.engine.device
-        self._frontier = device_bits(buf, dev)
+        plan, dev = self.engine.plan, self.engine.device
+        self._frontier = plan.replicate(buf, dev)
         st = self.engine.stats
         st.h2d_transfers += 1
         st.h2d_bytes += buf.nbytes
         if gens is not None:
             gbuf = np.zeros((cap,), np.int32)
             gbuf[:n] = gens
-            self._gens = torch.from_numpy(gbuf).to(dev)
+            self._gens = plan.replicate(gbuf, dev)
             st.h2d_transfers += 1
             st.h2d_bytes += gbuf.nbytes
         self._n = n

@@ -1,4 +1,6 @@
 // K1 — batched bitset closure, hand-written for Hopper (sm_90a).
+// Over K object shards at once (grid.y = shard), as the simulated plans'
+// unfused rounds need it.
 //
 // Replaces: src/repro/kernels/closure.py:closure_pallas (body
 // _closure_kernel, _tree_and).  Per candidate b it computes
@@ -30,6 +32,12 @@ closure_kernel(const uint32_t* __restrict__ rows,
                int N, int B, int W)
 {
     extern __shared__ uint32_t smem[];
+    // blockIdx.y is the object shard: one launch covers every shard of a
+    // simulated plan's [K, N, W] rows and writes [K, B, W] / [K, B].
+    const size_t shard = blockIdx.y;
+    rows += shard * N * W;
+    out_c += shard * B * W;
+    out_s += shard * B;
     const int b0 = blockIdx.x * CLOSURE_GROUP;
     const int G = min(CLOSURE_GROUP, B - b0);
     ClosureSmem s = closure_setup(smem, cands, b0, G, W);
@@ -40,16 +48,16 @@ closure_kernel(const uint32_t* __restrict__ rows,
         out_s[b0 + i] = (int)s.sup[i];
 }
 
-// rows [N, W], cands [B, W] → out_c [B, W], out_s [B]; B >= 1.
+// rows [K, N, W], cands [B, W] → out_c [K, B, W], out_s [K, B]; K, B >= 1.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int closure_launch(const void* rows, const void* cands,
                               void* out_c, void* out_s,
-                              int N, int B, int W, void* stream)
+                              int K, int N, int B, int W, void* stream)
 {
     const size_t smem = closure_smem_bytes(W);
     cudaError_t err = closure_smem_attr(closure_kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int grid = (B + CLOSURE_GROUP - 1) / CLOSURE_GROUP;
+    const dim3 grid((B + CLOSURE_GROUP - 1) / CLOSURE_GROUP, K);
     closure_kernel<<<grid, CLOSURE_THREADS, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)rows, (const uint32_t*)cands,
         (uint32_t*)out_c, (int*)out_s, N, B, W);

@@ -1,7 +1,8 @@
-"""Distribution substrate of the port: the one-shard plan and the wire
-cost model of the reduce phase.  Multi-shard plans and collectives over
-``torch.distributed`` come with a later slice."""
+"""Distribution substrate of the port: the object-sharded ``ShardPlan``
+(simulated shards on one device, or one shard per rank of a
+``torch.distributed`` group), the AND-allreduce schedules and their wire
+cost model."""
 
-from repro_torch.dist.plan import ShardPlan
+from repro_torch.dist.shardplan import ShardPlan
 
 __all__ = ["ShardPlan"]

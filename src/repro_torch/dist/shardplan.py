@@ -1,0 +1,446 @@
+"""ShardPlan — the partition-aware execution layer of the MR* rounds
+(paper §3).
+
+Every MR* round is the same program: per-shard local closure over the
+object-partitioned context, then a bitwise-AND all-reduce (Theorem 2) plus
+whatever per-round filter rides along (dedupe, canonicity, feasibility).
+``ShardPlan`` owns
+
+  * **partition geometry** — the object-axis shard count ``n_parts``, the
+    block alignment ``block_n`` and the frontier-batch chunk cap
+    ``max_batch``;
+  * **placement** — ``place_rows`` shards the context, ``replicate`` puts
+    frontier and table state on every shard;
+  * **the collective schedule** — which AND-allreduce
+    (``allgather`` / ``rsag`` / ``pmin``, :mod:`repro_torch.dist.collectives`)
+    the reduce phase runs, and its analytic wire-byte model.  With
+    ``reduce_impl="auto"``, ``resolve_impl`` picks allgather or rsag per
+    round by the α-β cost of that round's padded batch.
+
+Two kinds of plan run the same shard body:
+
+  * **simulated** (:meth:`ShardPlan.simulated`) — k shards on one device
+    as the leading dimension of ``[k, N/k, W]`` rows.  ``spmd`` runs the
+    body once over the whole shard dimension (the kernels take it as a
+    grid axis) and keeps shard 0's replicated outputs, as the reference's
+    named ``vmap`` does;
+  * **process group** (:meth:`ShardPlan.over_group`) — one shard per rank
+    of a ``torch.distributed`` group.  Every rank runs the whole driver;
+    the body sees this rank's ``[N/k, W]`` slice and the collectives run
+    over the group, so every replicated output, and every survivor count
+    the host loop branches on, is the same on every rank.
+
+The AND semigroup is associative, commutative and idempotent over the
+words, so both kinds and every schedule agree bit for bit.  2-D candidate
+sharding (``cand_parts > 1``) and object-sharded outputs (``out_shard=``)
+are not ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from repro_torch.dist import collectives
+from repro_torch.dist.collectives import SIM_AXIS
+
+# Schedules the autotuner arbitrates between.  ``pmin`` is excluded: its
+# unpacked-lane volume is strictly dominated for every batch size.
+AUTO_IMPLS = ("allgather", "rsag")
+
+# The process-group backend each device type runs on.  There is no
+# fallback: a plan whose group does not match its device raises.
+GROUP_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """Partition geometry + placement + collective schedule for one run."""
+
+    n_parts: int = 1
+    reduce_impl: str = "rsag"
+    block_n: int = 256
+    max_batch: int = 8192
+    cand_parts: int = 1
+    # latency term of the "auto" schedule model: bandwidth-equivalent byte
+    # cost of one ring step per device (collectives.modeled_cost_bytes).
+    # The 4096 B default is replaced by a measured value when the plan is
+    # built with ``calibrate_hops=True`` (see :func:`probe_hop_bytes`).
+    auto_hop_bytes: int = 4096
+    hop_calibrated: bool = False
+    # process-group plans: the group and the device its collectives run on
+    group: object = None
+    device: torch.device | None = None
+
+    def __post_init__(self):
+        if (
+            self.reduce_impl != "auto"
+            and self.reduce_impl not in collectives.IMPLS
+        ):
+            raise ValueError(
+                f"unknown reduce schedule {self.reduce_impl!r}; "
+                f"choose {collectives.IMPLS + ('auto',)}"
+            )
+        if self.n_parts < 1:
+            raise ValueError(f"n_parts must be >= 1, got {self.n_parts}")
+        if self.cand_parts < 1:
+            raise ValueError(
+                f"cand_parts must be >= 1, got {self.cand_parts}"
+            )
+        if self.cand_parts > 1:
+            raise NotImplementedError(
+                f"cand_parts={self.cand_parts}: 2-D candidate sharding is not "
+                "ported yet; it comes with the 2-D candidate-sharding slice"
+            )
+        if self.block_n < 1 or self.max_batch < 1:
+            raise ValueError("block_n and max_batch must be >= 1")
+        if self.group is not None and self.n_parts != dist.get_world_size(self.group):
+            raise ValueError(
+                f"n_parts ({self.n_parts}) does not match the group's size "
+                f"({dist.get_world_size(self.group)})"
+            )
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def simulated(
+        cls,
+        n_parts: int = 1,
+        *,
+        cand_parts: int = 1,
+        reduce_impl: str = "rsag",
+        block_n: int = 256,
+        max_batch: int = 8192,
+        calibrate_hops: bool = False,
+        device=None,
+    ) -> "ShardPlan":
+        """``n_parts`` object shards on one device (a leading shard
+        dimension).  ``device`` is where a ``calibrate_hops`` probe runs
+        (CUDA unless the caller says so)."""
+        plan = cls(
+            n_parts=n_parts,
+            reduce_impl=reduce_impl,
+            block_n=block_n,
+            max_batch=max_batch,
+            cand_parts=cand_parts,
+        )
+        return plan.calibrate_hops(device) if calibrate_hops else plan
+
+    @classmethod
+    def over_group(
+        cls,
+        group=None,
+        device=None,
+        *,
+        reduce_impl: str = "rsag",
+        block_n: int = 256,
+        max_batch: int = 8192,
+        calibrate_hops: bool = False,
+    ) -> "ShardPlan":
+        """One object shard per rank of ``group`` (the default group when
+        None), with collectives on ``device``: NCCL for a CUDA device,
+        gloo only when the caller passes ``device="cpu"``."""
+        if not dist.is_initialized():
+            raise RuntimeError("over_group needs an initialized torch.distributed group")
+        group = dist.group.WORLD if group is None else group
+        device = resolve_device(device)
+        want = GROUP_BACKENDS.get(device.type)
+        got = dist.get_backend(group)
+        if got != want:
+            raise ValueError(
+                f"a plan on {device.type} runs its collectives over {want!r}; "
+                f"the group's backend is {got!r}"
+            )
+        plan = cls(
+            n_parts=dist.get_world_size(group),
+            reduce_impl=reduce_impl,
+            block_n=block_n,
+            max_batch=max_batch,
+            group=group,
+            device=device,
+        )
+        return plan.calibrate_hops() if calibrate_hops else plan
+
+    @classmethod
+    def auto(
+        cls, n_parts: int = 8, *, reduce_impl: str = "rsag", device=None, **kw
+    ) -> "ShardPlan":
+        """A process-group plan over the default group when
+        ``torch.distributed`` is initialized with more than one rank, else
+        a simulated ``n_parts``-way plan on one device."""
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            return cls.over_group(None, device, reduce_impl=reduce_impl, **kw)
+        return cls.simulated(n_parts, reduce_impl=reduce_impl, device=device, **kw)
+
+    def calibrate_hops(self, device=None) -> "ShardPlan":
+        """This plan with ``auto_hop_bytes`` measured, not defaulted.
+
+        Runs :func:`probe_hop_bytes` (one-shot per plan geometry, cached at
+        module level).  ``hop_calibrated`` stays False when the probe hit
+        its noise floor and fell back to the default — the stats never
+        claim a measurement that did not happen.
+        """
+        hop, measured = probe_hop_bytes(self, device)
+        return dataclasses.replace(
+            self, auto_hop_bytes=hop, hop_calibrated=measured
+        )
+
+    # -- geometry ----------------------------------------------------------
+
+    @property
+    def is_simulated(self) -> bool:
+        return self.group is None
+
+    @property
+    def reduce_axes(self):
+        """The axis the shard body's collectives reduce over."""
+        return SIM_AXIS if self.group is None else self.group
+
+    @property
+    def row_alignment(self) -> int:
+        """Context rows must pad to a multiple of this (shards block-align)."""
+        return self.n_parts * self.block_n
+
+    def shard_index(self) -> int:
+        """This process's shard (the group rank; 0 on a simulated plan,
+        whose shards all live in one process)."""
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+    # -- placement ---------------------------------------------------------
+
+    def place_rows(self, rows: np.ndarray, device) -> torch.Tensor:
+        """Shard padded context rows ``[N, W]`` (uint32) onto ``device``.
+
+        Simulated plan: ``[k, N/k, W]``.  Process-group plan: this rank's
+        ``[N/k, W]`` slice.  Both are int32 views of the words.
+        """
+        if rows.shape[0] % self.n_parts:
+            raise ValueError(
+                f"rows ({rows.shape[0]}) not divisible by n_parts ({self.n_parts})"
+            )
+        n = rows.shape[0] // self.n_parts
+        if self.group is None:
+            local = rows.reshape(self.n_parts, n, *rows.shape[1:])
+        else:
+            i = self.shard_index()
+            local = rows[i * n : (i + 1) * n]
+        return self.replicate(local, device)
+
+    def replicate(self, arr, device) -> torch.Tensor:
+        """Dynamic per-round state (frontier, tables) on ``device``, whole
+        on every shard: each rank of a group holds its own copy, so
+        expansion and pruning run partition-locally.  uint32 words become
+        their int32 view; other integer arrays keep their values."""
+        a = np.asarray(arr)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    # -- execution ---------------------------------------------------------
+
+    def spmd(
+        self,
+        body,
+        *,
+        n_rep: int,
+        post=None,
+        n_post_rep: int = 0,
+        out_shard: tuple[bool, ...] | None = None,
+    ):
+        """Wrap ``body(rows_local, *replicated)`` for per-shard execution.
+
+        The first argument is the object-sharded context; the following
+        ``n_rep`` arguments are replicated.  ``body`` may call collectives
+        over ``self.reduce_axes``; its outputs must be shard-invariant
+        (globally reduced, or computed from replicated operands).
+
+        Simulated plan: ``body`` runs once over the whole ``[k, N/k, W]``
+        shard dimension, every output carries a leading shard dimension,
+        and shard 0's copy is kept.  Process-group plan: ``body`` runs on
+        this rank's slice and its outputs are already replicated.
+
+        ``post(*body_outputs, *post_replicated)`` is an optional stage that
+        consumes the shard-invariant outputs (canonicity, feasibility,
+        dedupe); it runs once on a simulated plan and on every rank of a
+        group.  The returned callable takes
+        ``(rows, *replicated, *post_replicated)``.
+        """
+        if out_shard is not None:
+            raise NotImplementedError(
+                "out_shard= (object-sharded outputs) is not ported yet; it "
+                "comes with the query slice"
+            )
+        simulated = self.group is None
+
+        def run(rows, *rep):
+            outs = body(rows, *rep[:n_rep])
+            tup = isinstance(outs, tuple)
+            if simulated:
+                outs = tuple(o[0] for o in outs) if tup else outs[0]
+            if post is None:
+                return outs
+            return post(*(outs if tup else (outs,)), *rep[n_rep:])
+
+        return run
+
+    # -- accounting --------------------------------------------------------
+
+    def resolve_impl(
+        self, batch: int, W: int, n_attrs: int | None = None
+    ) -> str:
+        """The schedule one reduce round of ``batch`` candidates runs.
+
+        A fixed ``reduce_impl`` is returned as-is; ``"auto"`` picks the
+        α-β-cheapest of :data:`AUTO_IMPLS` for this round's padded batch
+        (allgather's single ring pass wins latency-bound small batches,
+        rsag's 2(k-1)/k volume wins bandwidth-bound large ones).
+        Deterministic in the batch size, so every rank of a group resolves
+        the same schedule.
+        """
+        if self.reduce_impl != "auto":
+            return self.reduce_impl
+        return min(
+            AUTO_IMPLS,
+            key=lambda impl: collectives.modeled_cost_bytes(
+                impl, self.n_parts, batch, W, n_attrs,
+                hop_bytes=self.auto_hop_bytes,
+            ),
+        )
+
+    def modeled_reduce_bytes(
+        self, batch: int, W: int, n_attrs: int | None = None
+    ) -> int:
+        """Analytic wire bytes one reduce round of ``batch`` candidates
+        costs under this plan's schedule."""
+        return collectives.modeled_comm_bytes(
+            self.resolve_impl(batch, W, n_attrs), self.n_parts, batch, W, n_attrs
+        )
+
+    def modeled_latency_split(
+        self, batch: int, W: int, n_attrs: int | None = None
+    ) -> tuple[int, int]:
+        """``(dispatch_bytes, collective_bytes)`` — the α-β split of one
+        reduce round's modeled cost: the per-hop latency
+        (``n_parts × ring_steps × auto_hop_bytes``) and the wire volume
+        (what :meth:`modeled_reduce_bytes` reports)."""
+        impl = self.resolve_impl(batch, W, n_attrs)
+        vol = collectives.modeled_comm_bytes(
+            impl, self.n_parts, batch, W, n_attrs
+        )
+        hops = (
+            self.n_parts
+            * collectives.ring_steps(impl, self.n_parts)
+            * self.auto_hop_bytes
+        )
+        return hops, vol
+
+    def describe(self) -> dict:
+        """JSON-friendly summary for launcher output."""
+        return {
+            "mode": "simulated" if self.group is None else "group",
+            "n_parts": self.n_parts,
+            "axes": [SIM_AXIS] if self.group is None else ["rank"],
+            "backend": None if self.group is None else dist.get_backend(self.group),
+            "cand_parts": self.cand_parts,
+            "reduce_impl": self.reduce_impl,
+            "block_n": self.block_n,
+            "max_batch": self.max_batch,
+            "auto_hop_bytes": self.auto_hop_bytes,
+            "hop_calibrated": self.hop_calibrated,
+        }
+
+
+# ---------------------------------------------------------------------------
+# interconnect probe (auto_hop_bytes calibration)
+# ---------------------------------------------------------------------------
+
+# One-shot per plan geometry: plans with the same shard count over the same
+# device (and, for a group, the same ranks) share a measurement; a value
+# never leaks between geometries.  Values are (hop_bytes, measured);
+# measured=False marks a noise-floor fallback to the default.
+_HOP_PROBE_CACHE: dict[tuple, tuple[int, bool]] = {}
+
+_PROBE_W = 4  # packed words per probe row — scale-free, cancels in the ratio
+
+
+def _probe_cache_key(plan: ShardPlan, device: torch.device) -> tuple:
+    if plan.group is None:
+        ranks = None
+    else:
+        ranks = (dist.get_backend(plan.group), dist.get_world_size(plan.group))
+    return (plan.n_parts, plan.cand_parts, str(device), ranks)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def probe_hop_bytes(plan: ShardPlan, device=None) -> tuple[int, bool]:
+    """Measure the plan's per-ring-step latency as equivalent wire bytes.
+
+    Times the plan's own allgather AND-reduce (the collective the "auto"
+    schedule arbitrates) at a tiny and a large batch: ``t(B) ≈ α + β·B``
+    separates the per-round fixed cost α from the per-row cost β, and the
+    bandwidth-equivalent hop cost is ``hop_bytes = (α/β) · W · 4``.
+    Best-of-3 timings.  On a process group every rank takes rank 0's
+    result, so all ranks resolve the same schedules.  Returns
+    ``(hop_bytes, measured)``; ``measured=False`` means the probe saw no
+    per-byte slope (noise floor) and fell back to the 4096 B default.
+    """
+    device = plan.device if plan.group is not None else resolve_device(device)
+    key = _probe_cache_key(plan, device)
+    cached = _HOP_PROBE_CACHE.get(key)
+    if cached is not None:
+        return cached
+
+    axes = plan.reduce_axes
+
+    def body(rows_local, cands):
+        lc = rows_local[..., :1, :] & cands  # touch the sharded operand
+        return collectives.and_allreduce(
+            lc, axes, impl="allgather", n_attrs=_PROBE_W * 32
+        )
+
+    fn = plan.spmd(body, n_rep=1)
+    rows = plan.place_rows(
+        np.full((plan.n_parts, _PROBE_W), 0xFFFFFFFF, np.uint32), device
+    )
+
+    def timed(batch: int) -> float:
+        cands = torch.full((batch, _PROBE_W), -1, dtype=torch.int32, device=device)
+        fn(rows, cands)  # warm
+        _sync(device)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(rows, cands)
+            _sync(device)
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    b_small, b_large = 8, 4096
+    t_small, t_large = timed(b_small), timed(b_large)
+    slope = t_large - t_small
+    if slope <= 0:
+        # Noise floor: the large batch measured no slower than the tiny
+        # one, so the per-byte term is unobservable — keep the default.
+        result = (4096, False)
+    else:
+        beta = slope / (b_large - b_small)
+        alpha = max(t_small - beta * b_small, 0.0)
+        # bound at 16 MiB: beyond that the "latency term" would just mean
+        # the probe was swamped by noise
+        hop = min(1 << 24, max(1, int(round(alpha / beta * _PROBE_W * 4))))
+        result = (hop, True)
+    if plan.group is not None:
+        agreed = torch.tensor([result[0], int(result[1])], dtype=torch.int64, device=device)
+        dist.broadcast(agreed, src=dist.get_global_rank(plan.group, 0), group=plan.group)
+        result = (int(agreed[0]), bool(agreed[1]))
+    _HOP_PROBE_CACHE[key] = result
+    return result

@@ -1,16 +1,17 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-``closure.closure`` (K1, ``csrc/closure.cu``) and ``frontier.fused_step``
-(K2, ``csrc/frontier.cu``) launch their kernel for CUDA tensors and run
-their plain version (``closure_plain`` / ``fused_step_plain``) for CPU
-tensors.  Each wrapper counts its launches in a plain ``launches``
-attribute.
+``closure.closure`` (K1, ``csrc/closure.cu``) and, in ``csrc/frontier.cu``,
+``frontier.fused_step`` (K2), ``frontier.map_closure`` (K3) and
+``frontier.filter_step`` (K4) launch their kernel for CUDA tensors and run
+their plain version (``closure_plain``, ``fused_step_plain``,
+``map_closure_plain``, ``filter_step_plain``) for CPU tensors.  Each
+wrapper counts its launches in a plain ``launches`` attribute.
 """
 
 from repro_torch.kernels import closure as _k1
-from repro_torch.kernels import frontier as _k2
+from repro_torch.kernels import frontier as _fr
 
-KERNELS = (_k1.closure, _k2.fused_step)
+KERNELS = (_k1.closure, _fr.fused_step, _fr.map_closure, _fr.filter_step)
 
 
 def reset_launches() -> None:

@@ -11,7 +11,10 @@ raw: not masked to the real attributes, not corrected for all-ones padding
 rows (``ops.batched_closure`` does both).  :func:`closure` launches the
 CUDA kernel in ``csrc/closure.cu`` for CUDA tensors and runs
 :func:`closure_plain` for CPU tensors; any shape ``N >= 0``, ``B >= 0``
-and ``1 <= W <= MAX_W`` is taken as it is.
+and ``1 <= W <= MAX_W`` is taken as it is.  Rows ``[K, N, W]`` hold K
+object shards (a simulated plan's context): each shard's closures and
+supports come back separately, ``[K, B, W]`` and ``[K, B]``, from one
+launch.
 """
 
 from __future__ import annotations
@@ -52,7 +55,11 @@ def and_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
 def closure_plain(
     rows: torch.Tensor, cands: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of K1: raw closures [B, W], supports [B]."""
+    """The plain PyTorch version of K1: raw closures [B, W], supports [B]
+    (``[K, B, W]`` and ``[K, B]`` for rows ``[K, N, W]``)."""
+    if rows.dim() == 3:
+        parts = [closure_plain(r, cands) for r in rows]
+        return (torch.stack([c for c, _ in parts]), torch.stack([s for _, s in parts]))
     B, W = cands.shape
     N = rows.shape[0]
     out_c = torch.empty((B, W), dtype=torch.int32, device=cands.device)
@@ -67,25 +74,33 @@ def closure_plain(
     return out_c, out_s
 
 
-def check_bitsets(name: str, t: torch.Tensor, shape: tuple | None = None):
-    """Raise unless ``t`` is a contiguous int32 bitset block of ``shape``."""
+def check_bitsets(name: str, t: torch.Tensor, shape: tuple | None = None,
+                  *, ndims: tuple[int, ...] = (2,)):
+    """Raise unless ``t`` is a contiguous int32 bitset block of ``shape``
+    (2-D ``[rows, W]``, or 3-D ``[shards, rows, W]`` where ``ndims``
+    allows it)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.dtype != torch.int32:
         raise TypeError(f"{name} must be int32 bitset words, got {t.dtype}")
-    if t.dim() != 2:
-        raise ValueError(f"{name} must be 2-D [rows, W], got shape {tuple(t.shape)}")
+    if t.dim() not in ndims:
+        raise ValueError(
+            f"{name} must be {' or '.join(f'{d}-D' for d in ndims)} "
+            f"[..., rows, W], got shape {tuple(t.shape)}"
+        )
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_closure_operands(rows: torch.Tensor, cands: torch.Tensor) -> None:
-    """The checks K1 and K2 share: types, shapes, width, device."""
-    check_bitsets("rows", rows)
+def check_closure_operands(rows: torch.Tensor, cands: torch.Tensor,
+                           *, sharded: bool = False) -> None:
+    """The checks K1, K2 and K3 share: types, shapes, width, device.
+    ``sharded`` admits rows ``[K, N, W]``."""
+    check_bitsets("rows", rows, ndims=(2, 3) if sharded else (2,))
     check_bitsets("cands", cands)
-    W = rows.shape[1]
+    W = rows.shape[-1]
     if cands.shape[1] != W:
         raise ValueError(f"word-width mismatch: rows W={W}, cands W={cands.shape[1]}")
     if W < 1:
@@ -98,14 +113,15 @@ def check_closure_operands(rows: torch.Tensor, cands: torch.Tensor) -> None:
         raise ValueError(
             f"W={W} exceeds the kernel's shared-memory limit MAX_W={MAX_W}"
         )
-    if max(rows.shape[0], cands.shape[0]) * W >= 2**31:
+    K = rows.shape[0] if rows.dim() == 3 else 1
+    if max(rows.numel(), K * cands.numel()) >= 2**31:
         raise ValueError("operands exceed the kernel's 32-bit index range")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("closure")
-    lib.closure_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    lib.closure_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p
     ]
     lib.closure_launch.restype = ctypes.c_int
@@ -115,24 +131,28 @@ def _lib() -> ctypes.CDLL:
 def closure(
     rows: torch.Tensor, cands: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: raw closures ``[B, W]`` and supports ``[B]`` (int32).
+    """K1: raw closures ``[B, W]`` and supports ``[B]`` (int32); for rows
+    ``[K, N, W]`` (K object shards) ``[K, B, W]`` and ``[K, B]``, from one
+    launch whose grid's y axis is the shard.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     :func:`closure_plain`.  ``closure.launches`` counts kernel launches.
     """
-    check_closure_operands(rows, cands)
+    check_closure_operands(rows, cands, sharded=True)
     if rows.device.type == "cpu":
         return closure_plain(rows, cands)
-    N, W = rows.shape
+    lead = rows.shape[:-2]
+    K = rows.shape[0] if lead else 1
+    N, W = rows.shape[-2:]
     B = cands.shape[0]
-    out_c = torch.empty((B, W), dtype=torch.int32, device=rows.device)
-    out_s = torch.empty((B,), dtype=torch.int32, device=rows.device)
-    if B == 0:
+    out_c = torch.empty((*lead, B, W), dtype=torch.int32, device=rows.device)
+    out_s = torch.empty((*lead, B), dtype=torch.int32, device=rows.device)
+    if B == 0 or K == 0:
         return out_c, out_s
     with torch.cuda.device(rows.device):
         rc = _lib().closure_launch(
             rows.data_ptr(), cands.data_ptr(), out_c.data_ptr(),
-            out_s.data_ptr(), N, B, W,
+            out_s.data_ptr(), K, N, B, W,
             torch.cuda.current_stream(rows.device).cuda_stream,
         )
     if rc != 0:

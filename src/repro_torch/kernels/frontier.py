@@ -1,5 +1,8 @@
-"""K2: the fused frontier step — closure, support and driver filter in one
-pass (single-object-shard plans).
+"""The frontier-step kernels: K2, the fused step of one-shard plans, and
+its two halves on multi-shard plans, K3 (map) and K4 (filter).
+
+K2 — closure, support and driver filter in one pass (single-object-shard
+plans).
 
 Per candidate ``b`` of a chunk it computes
 
@@ -16,6 +19,20 @@ launch, so no threshold or window forces a rebuild.  CbO's ``LOW[gen]``
 gather stays with the caller (``lowrow``).  Survivor compaction stays in
 torch (:mod:`repro_torch.core.frontier`): it consumes only the keep mask
 and the closures.
+
+On k > 1 object shards the filter needs the *global* closure, which
+exists only after the AND-allreduce, so the step splits in two around the
+collective (:meth:`repro_torch.core.engine.ClosureEngine.spmd_step_fused`):
+
+    K3 :func:`map_closure`  per shard: (AND of matching local rows) & mask
+                            and the raw local support — rows [K, N/K, W]
+                            give [K, B, W] / [K, B] from one launch
+    K4 :func:`filter_step`  after the reduce: support − n_pad and the keep
+                            mask above, one thread per candidate
+
+The mask folds into K3 because AND distributes over it: masked local
+closures AND-reduce to the masked global closure.  No pad correction
+happens in K3; the engine corrects the summed supports once.
 """
 
 from __future__ import annotations
@@ -85,6 +102,14 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.fused_step_launch.restype = ctypes.c_int
+    lib.map_closure_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.map_closure_launch.restype = ctypes.c_int
+    lib.filter_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    )
+    lib.filter_launch.restype = ctypes.c_int
     return lib
 
 
@@ -147,3 +172,139 @@ def fused_step(
 
 
 fused_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the map half of a multi-shard round
+# ---------------------------------------------------------------------------
+
+
+def map_closure_plain(rows, cands, mask):
+    """The plain PyTorch version of K3: masked local closures and raw local
+    supports."""
+    closures, supports = closure_plain(rows, cands)
+    return closures & mask, supports
+
+
+def map_closure(
+    rows: torch.Tensor, cands: torch.Tensor, mask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: masked local closures and raw local supports (int32).
+
+    rows ``[K, N, W]`` (K object shards) or ``[N, W]`` (one shard, a
+    process-group rank's slice), cands ``[B, W]``, mask ``[1, W]`` →
+    ``[K, B, W]`` / ``[K, B]`` (``[B, W]`` / ``[B]`` for 2-D rows).
+    ``map_closure.launches`` counts kernel launches.
+    """
+    check_closure_operands(rows, cands, sharded=True)
+    W = rows.shape[-1]
+    check_bitsets("mask", mask, (1, W))
+    if mask.device != rows.device:
+        raise ValueError(f"mask on {mask.device}, rows on {rows.device}")
+    if rows.device.type == "cpu":
+        return map_closure_plain(rows, cands, mask)
+    lead = rows.shape[:-2]
+    K = rows.shape[0] if lead else 1
+    N = rows.shape[-2]
+    B = cands.shape[0]
+    out_c = torch.empty((*lead, B, W), dtype=torch.int32, device=rows.device)
+    out_s = torch.empty((*lead, B), dtype=torch.int32, device=rows.device)
+    if B == 0 or K == 0:
+        return out_c, out_s
+    with torch.cuda.device(rows.device):
+        rc = _lib().map_closure_launch(
+            rows.data_ptr(), cands.data_ptr(), mask.data_ptr(),
+            out_c.data_ptr(), out_s.data_ptr(), K, N, B, W,
+            torch.cuda.current_stream(rows.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"map closure kernel launch failed: CUDA error {rc}")
+    map_closure.launches += 1
+    return out_c, out_s
+
+
+map_closure.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the filter half of a multi-shard round
+# ---------------------------------------------------------------------------
+
+
+def filter_step_plain(gc, gs, scalars, *, parent=None, lowrow=None,
+                      iceberg: bool = False, cbo: bool = False):
+    """The plain PyTorch version of K4: (corrected supports, keep)."""
+    n_valid, min_sup, n_pad, row_off = scalars
+    sup = gs - n_pad
+    idx = torch.arange(gc.shape[0], device=gc.device) + row_off
+    keep = idx < n_valid
+    if iceberg:
+        keep = keep & (sup >= min_sup)
+    if cbo:
+        keep = keep & (((gc ^ parent) & lowrow) == 0).all(-1)
+    return sup, keep
+
+
+def filter_step(
+    gc: torch.Tensor,
+    gs: torch.Tensor,
+    scalars,
+    *,
+    parent: torch.Tensor | None = None,
+    lowrow: torch.Tensor | None = None,
+    iceberg: bool = False,
+    cbo: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: corrected supports [B] (int32) and keep [B] (bool).
+
+    gc [B, W] are the globally reduced masked closures, gs [B] the summed
+    raw supports; ``scalars`` is :func:`pack_scalars`' tuple.  CbO
+    variants also take parent/lowrow [B, W].  ``filter_step.launches``
+    counts kernel launches.
+    """
+    check_bitsets("gc", gc)
+    B, W = gc.shape
+    if W < 1:
+        raise ValueError("W must be >= 1")
+    if not isinstance(gs, torch.Tensor) or gs.dtype != torch.int32:
+        raise TypeError("gs must be an int32 torch.Tensor")
+    if tuple(gs.shape) != (B,) or not gs.is_contiguous():
+        raise ValueError(f"gs must be contiguous of shape ({B},), got {tuple(gs.shape)}")
+    if len(scalars) != N_SCALARS:
+        raise ValueError(f"scalars must be (n_valid, min_sup, n_pad, row_off), got {scalars!r}")
+    scalars = pack_scalars(*scalars)
+    if cbo:
+        if parent is None or lowrow is None:
+            raise ValueError("cbo=True needs parent= and lowrow= operands")
+        check_bitsets("parent", parent, (B, W))
+        check_bitsets("lowrow", lowrow, (B, W))
+    for t in [gs] + ([parent, lowrow] if cbo else []):
+        if t.device != gc.device:
+            raise ValueError(f"operand on {t.device}, gc on {gc.device}")
+    if gc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {gc.device}")
+    if gc.numel() >= 2**31:
+        raise ValueError("operands exceed the kernel's 32-bit index range")
+    if gc.device.type == "cpu":
+        return filter_step_plain(gc, gs, scalars, parent=parent, lowrow=lowrow,
+                                 iceberg=iceberg, cbo=cbo)
+    out_s = torch.empty((B,), dtype=torch.int32, device=gc.device)
+    keep = torch.empty((B,), dtype=torch.bool, device=gc.device)
+    if B == 0:
+        return out_s, keep
+    with torch.cuda.device(gc.device):
+        rc = _lib().filter_launch(
+            gc.data_ptr(), gs.data_ptr(),
+            parent.data_ptr() if cbo else None,
+            lowrow.data_ptr() if cbo else None,
+            out_s.data_ptr(), keep.data_ptr(),
+            B, W, *scalars, int(iceberg), int(cbo),
+            torch.cuda.current_stream(gc.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"filter kernel launch failed: CUDA error {rc}")
+    filter_step.launches += 1
+    return out_s, keep
+
+
+filter_step.launches = 0

@@ -1,16 +1,26 @@
-"""FCA launcher of the port — mine one context on one object shard.
+"""FCA launcher of the port — mine one context over object shards.
 
     python -m repro_torch.launch.fca mine --dataset mushroom --scale 1.0 \
         --algorithm mrganter+ --min-support 0.05 --local-prune \
-        --backend kernel --device cuda
+        --parts 8 --reduce rsag --backend kernel --device cuda
 
-``--backend kernel`` runs the hand-written CUDA kernels (``torch`` runs
-their plain PyTorch versions); ``--device`` defaults to ``cuda`` and the
-run fails without a CUDA device unless ``--device cpu`` is given.
+``--parts`` object shards (default 8) are simulated on the one device,
+unless the caller has initialized a ``torch.distributed`` group of more
+than one rank: then every rank runs this command and holds one shard
+(``ShardPlan.auto``), and ``--parts`` is not read.  ``--reduce`` picks the AND-allreduce schedule of every round
+(``allgather``, ``rsag``, ``pmin``, or ``auto``, which picks allgather or
+rsag per round from the batch size; the per-round record lands in
+``reduce_rounds``), and ``--calibrate-hops`` replaces the ``auto`` model's
+4096 B latency default with a measured probe (on a simulated plan the
+probe times torch ops on one device and measures no wire).  ``--backend kernel`` runs
+the hand-written CUDA kernels (``torch`` runs their plain PyTorch
+versions, ``matmul`` the complement-plane matrix products); ``--device``
+defaults to ``cuda`` and the run fails without a CUDA device unless
+``--device cpu`` is given.
 ``--min-support`` takes an absolute object count (≥ 1) or a fraction of
 |O| (in (0, 1)); the resolved count is echoed in the JSON stats.  The
-printed keys are those of the reference's ``fca mine`` that this slice
-of the port has.
+printed keys are those of the reference's ``fca mine`` that the port
+has.
 """
 
 from __future__ import annotations
@@ -22,14 +32,27 @@ from repro_torch.core import ClosureEngine
 from repro_torch.core.engine import BACKENDS
 from repro_torch.core.mr import PIPELINES
 from repro_torch.data import fca_datasets
+from repro_torch.dist import ShardPlan
+from repro_torch.dist.collectives import IMPLS
 from repro_torch.rules import ALGORITHMS, resolve_min_support
+
+
+def build_plan(args) -> ShardPlan:
+    """The run's ShardPlan from the CLI geometry flags."""
+    return ShardPlan.auto(
+        args.parts,
+        reduce_impl=args.reduce,
+        calibrate_hops=args.calibrate_hops,
+        device=args.device,
+    )
 
 
 def cmd_mine(args) -> dict:
     ctx, spec = fca_datasets.load(
         args.dataset, scale=args.scale, data_dir=args.data_dir
     )
-    eng = ClosureEngine(ctx, backend=args.backend, device=args.device)
+    eng = ClosureEngine(ctx, plan=build_plan(args), backend=args.backend,
+                        device=args.device)
     min_support = (
         None
         if args.min_support is None
@@ -79,6 +102,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="absolute object count (>= 1) or fraction of |O|")
     p.add_argument("--local-prune", action="store_true",
                    help="MRGanter+: drop duplicate seeds before the closure")
+    p.add_argument("--parts", type=int, default=8,
+                   help="object shards, simulated on the one device; under "
+                        "an initialized torch.distributed group of more than "
+                        "one rank, one shard per rank instead")
+    p.add_argument("--reduce", default="rsag", choices=list(IMPLS) + ["auto"],
+                   help="AND-allreduce schedule of the reduce phase; auto "
+                        "picks allgather or rsag per round")
+    p.add_argument("--calibrate-hops", action="store_true",
+                   help="measure the auto schedule's per-hop latency term "
+                        "instead of the 4096 B default (on a simulated plan "
+                        "this times torch ops on one device, no wire)")
     p.add_argument("--pipeline", default="device", choices=list(PIPELINES))
     p.add_argument("--backend", default="kernel", choices=list(BACKENDS))
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

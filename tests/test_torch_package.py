@@ -20,7 +20,6 @@ import repro_torch
 from repro_torch import kernels
 from repro_torch.core import ClosureEngine, mrcbo, mrganter, mrganter_plus, paper_context
 from repro_torch.device import resolve_device
-from repro_torch.dist.plan import ShardPlan
 from repro_torch.interop import context_from_arrays, to_numpy
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import closure as kclosure
@@ -92,7 +91,7 @@ def test_engine_defaults_to_cuda_and_never_falls_back():
 
 def test_cli_mines_on_the_cpu_when_asked(capsys):
     fca.main(["mine", "--dataset", "mushroom", "--scale", "0.01", "--algorithm", "mrcbo",
-              "--device", "cpu", "--backend", "kernel"])
+              "--device", "cpu", "--backend", "kernel", "--parts", "1"])
     out = json.loads(capsys.readouterr().out)
     assert (out["concepts"], out["iterations"], out["device"]) == (4440, 10, "cpu")
     assert out["modeled_comm_bytes"] == 0 and out["plan"]["n_parts"] == 1
@@ -112,13 +111,6 @@ def test_async_rounds_raise_not_implemented(fn):
     ctx = paper_context()
     with pytest.raises(NotImplementedError, match="async"):
         fn(ctx, ClosureEngine(ctx, device="cpu"), rounds="async")
-
-
-def test_multi_shard_plans_raise():
-    with pytest.raises(NotImplementedError):
-        ShardPlan(n_parts=2)
-    with pytest.raises(ValueError):
-        ClosureEngine(paper_context(), device="cpu", backend="matmul")
 
 
 def _bits(*shape, dtype=torch.int32):
@@ -204,11 +196,11 @@ def test_kernel_backend_routes_every_batched_step_through_k2(monkeypatch, backen
 
 def test_launch_counters_count_only_kernel_launches():
     kernels.reset_launches()
-    assert [k.launches for k in kernels.KERNELS] == [0, 0]
+    assert [k.launches for k in kernels.KERNELS] == [0] * len(kernels.KERNELS)
     ctx = paper_context()
     mrcbo(ctx, ClosureEngine(ctx, backend="kernel", device="cpu"))
     # CPU tensors run the plain versions: no kernel was launched
-    assert [k.launches for k in kernels.KERNELS] == [0, 0]
+    assert [k.launches for k in kernels.KERNELS] == [0] * len(kernels.KERNELS)
 
 
 def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
@@ -228,6 +220,8 @@ def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
 @pytest.mark.parametrize("name,symbol,replaces", [
     ("closure.cu", "closure_launch", "src/repro/kernels/closure.py:closure_pallas"),
     ("frontier.cu", "fused_step_launch", "src/repro/kernels/frontier.py:fused_closure_call"),
+    ("frontier.cu", "map_closure_launch", "src/repro/kernels/frontier.py:map_closure_call"),
+    ("frontier.cu", "filter_launch", "src/repro/kernels/frontier.py:filter_call"),
 ])
 def test_kernel_sources_state_what_they_replace(name, symbol, replaces):
     text = (PACKAGE / "csrc" / name).read_text()
