@@ -9,10 +9,15 @@ checks, on the card:
   1. device  — the card's name and power limit (``nvidia-smi``);
   2. build   — every kernel source, one ``nvcc`` per source, in parallel;
   3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
-     map) and K4 (multi-shard filter) against their plain PyTorch versions
-     on seeded inputs, bit for bit: widths whose shared memory needs more
-     than 48 KB up to ``MAX_W``, K1 and K3 over k ∈ {1, 2, 8} shards in one
-     launch, K4 under all four (iceberg, cbo) flag pairs;
+     map), K4 (multi-shard filter), K5 (contains top-k) and K6 (rules
+     top-k) against their plain PyTorch versions on seeded inputs, bit for
+     bit: widths whose shared memory needs more than 48 KB up to ``MAX_W``,
+     K1 and K3 over k ∈ {1, 2, 8} shards in one launch, K4 under all four
+     (iceberg, cbo) flag pairs; K5 and K6 at S ∈ {8, 64, 1000, 1024}
+     queries, tables of 1, 7, 8192 and 2**20 + 3 rows (above the
+     reference kernels' 2**22 cells), W ∈ {4, 5}, k ∈ {1, 5, 64}, live
+     counts below the table size, forced ties, min_conf 0.1 and 0.7, and
+     cases where no row matches;
   4. main path, one shard — MRGanter+ (local pruning) and MRCbo on the
      full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
@@ -32,12 +37,31 @@ checks, on the card:
      three drivers on the paper's example and a seeded synthetic context
      (on one shard and on 8 shards), against the NextClosure / CloseByOne
      oracles;
-  7. times — each kernel on every chunk phases 4 and 5 gave it (CUDA
-     events behind a spin kernel, so that they bracket device work alone;
-     median of 25 after warm-up): the sum over the run and its bound, and
-     the costliest chunk beside its plain version, its bound, and its time
-     without the spin kernel (``unqueued_ms``, the host's launch path
-     included).
+  8. serve — phase 4's intents in a ConceptStore on one shard and on
+     k = 8 (rsag); the reference CLI's seeded batch (4096 closure queries,
+     top-5 of the first 256, slots 64) and the lookup, order and extent
+     reads through ``backend="kernel"`` and ``"torch"``: answers equal
+     between the backends, their SHA-256, the closure hit rate, the
+     modeled bytes and the per-schedule rounds equal the reference's, K5
+     launched once per top-k micro-batch and K1 once per closure round
+     (counts read from a plain kernel run; one more run keeps a copy of the
+     operands of every K5 launch and must launch as often);
+     then 8 seeded rows streamed onto the full lattice of mushroom at scale
+     0.01 at k = 1 and 8: the reference's grown concept count and intents,
+     version 1, post-update lookup hit rate 1.0;
+  9. rules — full-scale mushroom mined at min_support=812 on k = 8 rsag,
+     the DG and Luxenburger bases at min_conf 0.5, the rule index, and
+     1024 seeded rule queries at k = 5 ranked by confidence and by lift
+     through ``backend="kernel"`` and ``"torch"``: the reference's concept,
+     implication and partial-rule counts, basis SHA-256 and answer SHA-256,
+     answers equal between the backends, K6 launched once per micro-batch
+     (read as in phase 8, and one more run keeps the K6 operands);
+  7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
+     gave it (CUDA events behind a spin kernel, so that they bracket device
+     work alone; median of 25 after warm-up): the sum over the run and its
+     bound, and the costliest chunk beside its plain version, its bound,
+     and its time without the spin kernel (``unqueued_ms``, the host's
+     launch path included).
 
 Any failed check raises and the script exits non-zero.  The second-to-last
 line is the card's name and power limit; the last line is
@@ -47,6 +71,7 @@ without one.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -91,6 +116,54 @@ ONE_SHARD_KERNELS = ("closure", "fused_step")
 MULTI_SHARD_KERNELS = ("closure", "map_closure", "filter_step")
 CENSUS_EXPECTED = {"concepts": 104, "iterations": 4, "closures": 7_286,
                    "bytes": 2_941_120}
+# The serving tier (phases 8 and 9).  Serve: phase 4's context, threshold
+# and intents, 4096 closure queries of the reference CLI's seeded generator
+# (``fca serve``, seed 0), top-5 of the first 256, slots 64.  Stream: 8
+# seeded rows onto the full lattice of mushroom at scale 0.01.  Rules: the
+# iceberg at 10 % (812) on k = 8 rsag, min_conf 0.5, 1024 queries of
+# ``rule_query_mix`` (seed 0), top 5.  The expected values are the
+# reference's, derived once on the CPU with the JAX package
+# (backend="jnp", under the jax-0.9 binding) by
+# ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py``,
+# which drives the reference's ConceptStore, QueryEngine, StreamUpdater,
+# extract_bases and RuleIndex through this file's serve_answers,
+# rules_answers and digest.
+SERVE_QUERIES, SERVE_TOPK, SERVE_K, SERVE_SLOTS = 4096, 256, 5, 64
+SERVE_EXPECTED = {1: {'sha256': {'closure': '7215b64640a21ecf51560f0a362b284a9b1d8f99c7ea8a40f04a8851c66afffb',
+                'topk': 'f1543e4476017233953139c0d0e2668baa8a4c7894eb794dd78c457417a7cb6e',
+                'lookup': '88580779f1f229f5625d4c099b6cbfbf9a37b60c2fe681a7088bdab8551e5783',
+                'children': '9d4f710a66f30226dfbabb4e846d8ec8f54a87ec6f12b52b139b42dc801fc4ba',
+                'parents': '4725e8d6bf8c42ea1f3a109d2b5b08c0512d848b4db3b8751451de0e7e03222b',
+                'supers': '6f1a5d9eda1f4b4892869e0976f04d1d82aac15a53abea14ab72edf21718ca95',
+                'subs': 'a5ce2c8b942a4dd004d6cdc44c5b4a1131dc4bbe4e7f20cab105e8c688657740',
+                'extents': '7c96fb3e2c523f586d64a787bc5a7202d9da43a5833b0a846a8feeb7a89f064d'},
+     'closure_hit_rate': 0.065673828125,
+     'modeled_comm_bytes': 0,
+     'reduce_rounds': {'rsag': 68}},
+ 8: {'sha256': {'closure': '7215b64640a21ecf51560f0a362b284a9b1d8f99c7ea8a40f04a8851c66afffb',
+                'topk': 'f1543e4476017233953139c0d0e2668baa8a4c7894eb794dd78c457417a7cb6e',
+                'lookup': '88580779f1f229f5625d4c099b6cbfbf9a37b60c2fe681a7088bdab8551e5783',
+                'children': '9d4f710a66f30226dfbabb4e846d8ec8f54a87ec6f12b52b139b42dc801fc4ba',
+                'parents': '4725e8d6bf8c42ea1f3a109d2b5b08c0512d848b4db3b8751451de0e7e03222b',
+                'supers': '6f1a5d9eda1f4b4892869e0976f04d1d82aac15a53abea14ab72edf21718ca95',
+                'subs': 'a5ce2c8b942a4dd004d6cdc44c5b4a1131dc4bbe4e7f20cab105e8c688657740',
+                'extents': '7c96fb3e2c523f586d64a787bc5a7202d9da43a5833b0a846a8feeb7a89f064d'},
+     'closure_hit_rate': 0.065673828125,
+     'modeled_comm_bytes': 15654912,
+     'reduce_rounds': {'rsag': 68, 'allgather': 1}}}
+STREAM_ROWS = 8
+STREAM_EXPECTED = {'n_concepts_before': 4440,
+ 'n_concepts_after': 5454,
+ 'version': 1,
+ 'post_update_hit_rate': 1.0,
+ 'intents_sha256': '5b70f92af615ef0f3295b3550ae6f516a122908d8dc0beda4b81abced246063f'}
+RULES_MIN_SUPPORT, RULES_MIN_CONF, RULES_QUERIES, RULES_K = 812, 0.5, 1024, 5
+RULES_EXPECTED = {'concepts': 558,
+ 'implications': 4999,
+ 'partial': 356,
+ 'basis_sha256': 'b78db8880c2e6ac0c180614fe0b70c1a8c1f0ef389f56b069ac2a55ef333d85d',
+ 'answers_sha256': {'confidence': 'dd73ad3ce10e0d8b9919324326ab3f8786337209b211226d8db27aac0dd3748b',
+                    'lift': '0edeb893bf71971c33f64821562c5b139c86d6adadc3b27f011f62f5bf0460e2'}}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer add/compare/bitwise results per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -139,13 +212,22 @@ def cuda_time_ms(fn, reps: int = TIMING_REPS, warmup: int = 3, queued: bool = Tr
     return statistics.median(times)
 
 
-def max_abs_err(got, want) -> int:
-    """Largest absolute difference over the outputs, as integers."""
+def max_abs_err(got, want):
+    """Largest absolute difference over the outputs.  Float outputs must
+    agree bit for bit: one whose bits differ counts at least the smallest
+    float32 step, so that a -0.0 against a 0.0 still fails."""
+    import torch
+
     err = 0
     for g, w in zip(got, want):
-        if g.shape != w.shape:
-            raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if g.numel():
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{g.dtype}{tuple(g.shape)} != {w.dtype}{tuple(w.shape)}")
+        if not g.numel():
+            continue
+        if g.is_floating_point():
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                err = max(err, float((g - w).abs().max()), 2.0**-149)
+        else:
             err = max(err, int((g.long() - w.long()).abs().max()))
     return err
 
@@ -347,54 +429,60 @@ def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | N
     return res, eng, wall, launches
 
 
-def capture_launches(ctx, algorithm: str, device, plan_kw: dict | None = None,
-                     min_support: int = MAIN_MIN_SUPPORT):
-    """One more kernel-backend run of a main path that keeps a copy of the
-    operands of every kernel launch, so that phase 7 times and bounds the
-    chunks the path really gave each kernel."""
+def capture_launches(names, drive):
+    """Run ``drive()`` once more with the named kernel wrappers swapped for
+    recorders that keep a copy of the operands of every launch, so that
+    phase 7 times and bounds the chunks a path really gave each kernel.
+    The wrapper counts on its module-level name, which is then the
+    recorder: a copy is kept exactly when the wrapper counted a launch.
+    Returns what ``drive`` returned and the chunks by name; the caller
+    holds the number of chunks against the counts of an unwrapped run."""
     import torch
 
-    from repro_torch.kernels import closure as k1
-    from repro_torch.kernels import frontier as fk
+    from repro_torch import kernels
 
-    modules = {"closure": k1, "fused_step": fk, "map_closure": fk, "filter_step": fk}
-    real = {name: getattr(mod, name) for name, mod in modules.items()}
-    chunks = {name: [] for name in real}
+    modules = {k.__name__: sys.modules[k.__module__] for k in kernels.KERNELS}
+    real = {name: getattr(modules[name], name) for name in names}
+    chunks = {name: [] for name in names}
 
     def recorder(name):
         def call(*args, **kw):
-            if args[1].shape[0] > 0:  # an empty batch launches nothing
-                chunks[name].append((
-                    [a.clone() if torch.is_tensor(a) else a for a in args],
-                    {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()},
-                ))
-            return real[name](*args, **kw)
-        # the wrapper counts on its module-level name, now this recorder
+            copy = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                    {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+            before = call.launches
+            out = real[name](*args, **kw)
+            if call.launches != before:
+                chunks[name].append(copy)
+            return out
         call.launches = 0
         return call
 
-    recorders = {name: recorder(name) for name in real}
-    for name, mod in modules.items():
-        setattr(mod, name, recorders[name])
+    for name in names:
+        setattr(modules[name], name, recorder(name))
     try:
-        res, _, _, _ = drive_main_path(ctx, "kernel", algorithm, device, plan_kw, min_support)
+        out = drive()
     finally:
-        for name, mod in modules.items():
-            setattr(mod, name, real[name])
-    for name, rec in recorders.items():
-        if len(chunks[name]) != rec.launches:
-            raise AssertionError(
-                f"captured {len(chunks[name])} {name} chunks, counted {rec.launches} launches")
-    return res, chunks
+        for name in names:
+            setattr(modules[name], name, real[name])
+    return out, chunks
+
+
+def check_captured(name: str, chunks: dict, counts: dict) -> None:
+    """The captured run launched each kernel as often as the unwrapped run."""
+    got = {k: len(v) for k, v in chunks.items()}
+    want = {k: counts[k] for k in chunks}
+    if got != want:
+        raise AssertionError(f"{name}: captured {got} launches, the unwrapped run counted {want}")
 
 
 def intent_set(intents) -> set:
     return {x.tobytes() for x in intents}
 
 
-def run_main_path(device) -> tuple[dict, dict]:
+def run_main_path(device) -> tuple[dict, dict, dict, list]:
     """Phase 4: full-scale mushroom on one shard, iceberg at 5 %, both
-    drivers."""
+    drivers.  Also returns the mined intents, which the serve phase
+    serves."""
     from repro_torch.data import fca_datasets
 
     ctx, spec = fca_datasets.load("mushroom", scale=1.0)
@@ -409,7 +497,8 @@ def run_main_path(device) -> tuple[dict, dict]:
                 for backend in ("kernel", "torch", "torch", "kernel")]
         if any(n for r in runs[1:3] for n in r[3].values()):
             raise AssertionError(f"main path {algorithm}: the torch backend launched a kernel")
-        captured_res, captured = capture_launches(ctx, algorithm, device)
+        captured_res, captured = capture_launches(
+            ONE_SHARD_KERNELS, lambda: drive_main_path(ctx, "kernel", algorithm, device)[0])
         res, eng, _, counts = runs[0]
         for run_res in [r[0] for r in runs] + [captured_res]:
             got = {"concepts": run_res.n_concepts, "iterations": run_res.n_iterations,
@@ -418,14 +507,15 @@ def run_main_path(device) -> tuple[dict, dict]:
                 raise AssertionError(f"main path {algorithm}: {got} != reference {want}")
             if intent_set(run_res.intents) != intent_set(res.intents):
                 raise AssertionError(f"main path {algorithm}: kernel and torch concept sets differ")
-        if runs[3][3] != counts or {k: len(v) for k, v in captured.items()} != counts:
+        if runs[3][3] != counts:
             raise AssertionError(f"main path {algorithm}: launch counts differ between runs")
+        check_captured(f"main path {algorithm}", captured, counts)
         missing = [k for k in ONE_SHARD_KERNELS if counts[k] == 0]
         if missing:
             raise AssertionError(f"main path {algorithm}: kernels never launched: {missing}")
         stray = [k for k, n in counts.items() if n and k not in ONE_SHARD_KERNELS]
         if stray:
-            raise AssertionError(f"main path {algorithm}: multi-shard kernels launched: {stray}")
+            raise AssertionError(f"main path {algorithm}: other kernels launched: {stray}")
         for k in ONE_SHARD_KERNELS:
             launches[k] += counts[k]
             chunks[k] += [(algorithm, args, kw) for args, kw in captured[k]]
@@ -439,7 +529,7 @@ def run_main_path(device) -> tuple[dict, dict]:
         emit({"phase": "main_path", "dataset": spec.name, "objects": ctx.n_objects,
               "attributes": ctx.n_attrs, "min_support": MAIN_MIN_SUPPORT,
               "algorithm": algorithm, **report[algorithm]})
-    return report, launches, chunks
+    return report, launches, chunks, res.intents
 
 
 def check_run(name: str, res, want: dict, want_bytes: int | None = None) -> dict:
@@ -540,11 +630,14 @@ def run_multi_shard_path(device):
 
     # K3/K4 chunks: one more kernel run of each k = 8 rsag plan
     chunks = {"map_closure": [], "filter_step": []}
-    captures = [("mrganter+", ctx, MAIN_MIN_SUPPORT), ("mrcbo", ctx, MAIN_MIN_SUPPORT),
-                ("census", cctx, CENSUS_MIN_SUPPORT)]
-    for label, c, ms in captures:
+    captures = [("mrganter+", ctx, MAIN_MIN_SUPPORT, report["mrganter+/k=8/rsag"]["launches"]),
+                ("mrcbo", ctx, MAIN_MIN_SUPPORT, report["mrcbo/k=8/rsag"]["launches"]),
+                ("census", cctx, CENSUS_MIN_SUPPORT, census["launches"])]
+    for label, c, ms, counts in captures:
         algorithm = "mrganter+" if label == "census" else label
-        _, captured = capture_launches(c, algorithm, device, plan_kw, ms)
+        _, captured = capture_launches(tuple(chunks), lambda: drive_main_path(
+            c, "kernel", algorithm, device, plan_kw, ms)[0])
+        check_captured(f"multi-shard {label} k=8 rsag", captured, counts)
         for kname in chunks:
             chunks[kname] += [(label, args, kw) for args, kw in captured[kname]]
     return report, census, launches, chunks
@@ -594,6 +687,336 @@ def run_full_lattices(device) -> dict:
                     "wall_s": wall}
     emit({"phase": "full_lattice", "runs": report})
     return report
+
+
+# ---------------------------------------------------------------------------
+# the serving tier: K5 and K6 (phase 3), serve (phase 8), rules (phase 9)
+# ---------------------------------------------------------------------------
+
+
+def check_serve_kernels(device) -> list[dict]:
+    """Phase 3, serving half: K5 and K6 against their plain versions, bit for
+    bit, on seeded tables: S not a multiple of 8, a table above the
+    reference's 2**22 cells, k up to the kernels' maximum, live counts below
+    the table size, forced ties, thresholds float32 cannot hold exactly, and
+    tables where no row matches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import serve as sk
+
+    rng = np.random.default_rng(20121015)
+    records = []
+    big = (1 << 20) + 3
+    cases = [(S, C, W, k) for S in (8, 64, 1000, 1024) for C in (1, 7, 8192)
+             for W in (4, 5) for k in (1, 5, 64)]
+    cases += [(S, big, W, k) for S in (64, 1000) for W in (4, 5) for k in (5, 64)]
+    for S, C, W, k in cases:
+        live = C if C < 8 else C - 1 - int(rng.integers(0, 5))  # pads past the live rows
+        miss = (S, C, W, k) in ((64, 8192, 4, 5), (1000, big, 5, 64))
+        intents = bitsets(rng, C, W, 0.6)
+        gc = intents[rng.integers(0, C, size=S)] & bitsets(rng, S, W, 0.3)
+        gc[0] = 0  # every live concept contains the empty query
+        if miss:
+            gc[:] = 0xFFFFFFFF
+            intents &= np.uint32(0x7FFFFFFF)
+        ties = 4 if C > 8 else 10_000
+        supports = torch.from_numpy(rng.integers(0, ties, size=C).astype(np.int32)).to(device)
+        args = (device_bits(gc, device), device_bits(intents, device), supports, live)
+        got = sk.contains_topk(*args, k=k)
+        want = sk.contains_topk_plain(*args, k=k)
+        require_equal(f"K5 S={S} C={C} W={W} k={k}", got, want)
+        hits5 = int((want[0] >= 0).sum())
+        if miss and hits5:
+            raise AssertionError(f"K5 S={S} C={C}: the no-match case matched")
+        prem = bitsets(rng, C, W, 0.06)
+        added = bitsets(rng, C, W, 0.2) & ~prem
+        conf = rng.choice(np.asarray([0.1, 0.7, 0.5, 1.0], np.float32), size=C)
+        metric = rng.choice(np.asarray([0.0, 0.25, 2.0, 1.0], np.float32), size=C)
+        queries = bitsets(rng, S, W, 0.85)
+        queries[0] = 0xFFFFFFFF
+        if miss:
+            queries[:] = 0
+            prem |= np.uint32(1)
+        rargs = (device_bits(prem, device), device_bits(added, device),
+                 torch.from_numpy(conf.astype(np.float32)).to(device),
+                 torch.from_numpy(metric.astype(np.float32)).to(device),
+                 torch.from_numpy(rng.permutation(C).astype(np.int32)).to(device), live,
+                 device_bits(queries, device))
+        hits6 = 0
+        for min_conf in (0.1, 0.7):
+            got = sk.rules_topk(*rargs, min_conf, k=k)
+            want = sk.rules_topk_plain(*rargs, min_conf, k=k)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("ids", "scores", "union")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K6 S={S} R={C} W={W} k={k} min_conf={min_conf}: "
+                                         f"{what} differ from the plain version")
+            hits6 += int((want[0] >= 0).sum())
+        if miss and hits6:
+            raise AssertionError(f"K6 S={S} R={C}: the no-match case matched")
+        records.append({"kernel": "contains_topk", "S": S, "C": C, "W": W, "k": k,
+                        "live": live, "hits": hits5})
+        records.append({"kernel": "rules_topk", "S": S, "R": C, "W": W, "k": k,
+                        "live": live, "hits": hits6})
+    return records
+
+
+def digest(*arrays) -> str:
+    """SHA-256 over the dtype, shape and bytes of each array in turn."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def ragged(rows) -> "np.ndarray":
+    """A list of id arrays as one int32 array: each row's length, then its ids."""
+    import numpy as np
+
+    return np.concatenate([np.asarray([len(r), *r], np.int32) for r in rows] or
+                          [np.zeros((0,), np.int32)])
+
+
+def serve_answers(qe, queries) -> dict:
+    """The serve phase's query mix through a query engine (the port's, or
+    the reference's when the constants are derived): closures of every
+    query, top-k of the first SERVE_TOPK, lookups of the closed intents,
+    and the order and extent reads of the first 64 hit ids.  Returns the
+    answer arrays by kind."""
+    closed, supports, ids = qe.closure_batch(queries)
+    tops, top_supports = qe.topk_batch(queries[:SERVE_TOPK], k=SERVE_K)
+    hit = ids[ids >= 0][:64]
+    out = {"closure": (closed, supports, ids), "topk": (tops, top_supports),
+           "lookup": (qe.lookup_batch(closed),)}
+    for kind in ("children", "parents", "supers", "subs"):
+        out[kind] = (ragged(getattr(qe, kind)(hit)),)
+    out["extents"] = (qe.extents_batch(hit),)
+    return out
+
+
+def serve_record(qe, answers) -> dict:
+    """What the serve phase holds against the reference."""
+    stats = qe.describe()["stats"]
+    ids = answers["closure"][2]
+    return {"sha256": {kind: digest(*arrays) for kind, arrays in answers.items()},
+            "closure_hit_rate": float((ids >= 0).mean()),
+            "modeled_comm_bytes": stats["modeled_comm_bytes"],
+            "reduce_rounds": stats["reduce_rounds"]}
+
+
+def rules_answers(qe, index, queries, rank_by: str) -> tuple:
+    return qe.rules_batch(index, queries, k=RULES_K, min_conf=RULES_MIN_CONF, rank_by=rank_by)
+
+
+def basis_digest(basis) -> str:
+    combined = basis.combined()
+    return digest(combined.premise, combined.added, combined.support, combined.confidence,
+                  combined.lift)
+
+
+def flat(answers: dict) -> list:
+    return [a for arrays in answers.values() for a in arrays]
+
+
+def same_arrays(a, b) -> bool:
+    """Two sequences of numpy arrays, equal in dtype, shape and bytes."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in zip(a, b))
+
+
+def drive_queries(fn, device):
+    """Run ``fn()`` with every launch count set to 0 just before it; returns
+    its result, the wall seconds and the counts read just after."""
+    import torch
+
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k.__name__: k.launches for k in kernels.KERNELS}
+
+
+def run_serve_phase(device, intents) -> tuple[dict, dict, int]:
+    """Phase 8: the serving tier at phase 4's context, threshold and intents
+    — a ConceptStore on one shard and on k = 8 (rsag), the reference CLI's
+    seeded query batch through ``backend="kernel"`` and ``"torch"``; then
+    streaming updates on the full lattice of mushroom at scale 0.01.
+    Returns the report, the K5 chunks of the kernel runs and their launch
+    count."""
+    import numpy as np
+
+    from repro_torch.data import fca_datasets
+    from repro_torch.dist import ShardPlan
+    from repro_torch.launch.fca import serve_queries
+    from repro_torch.query import ConceptStore, QueryConfig, QueryEngine
+
+    ctx, spec = fca_datasets.load("mushroom", scale=1.0)
+    queries = serve_queries(ctx, SERVE_QUERIES, np.random.default_rng(0))
+    n_batches = {"closure": -(-SERVE_QUERIES // SERVE_SLOTS),
+                 "topk": -(-SERVE_TOPK // SERVE_SLOTS)}
+    report, chunks, launches = {}, [], 0
+    for k, want in SERVE_EXPECTED.items():
+        plan = ShardPlan.simulated(k, reduce_impl="rsag")
+        t0 = time.perf_counter()
+        store = ConceptStore.build(ctx, intents, plan=plan, device=device)
+        build_s = time.perf_counter() - t0
+        if store.snapshot.n_concepts != MAIN_EXPECTED["mrganter+"]["concepts"]:
+            raise AssertionError(f"serve k={k}: {store.snapshot.n_concepts} concepts")
+        answers = {}
+        for backend in ("kernel", "torch"):
+            qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend=backend))
+            got, wall, counts = drive_queries(lambda: serve_answers(qe, queries), device)
+            rec_got = serve_record(qe, got)
+            if rec_got != want:
+                raise AssertionError(f"serve k={k} {backend}: {rec_got} != reference {want}")
+            answers[backend] = got
+            stats = qe.describe()["stats"]
+            if backend == "kernel":
+                if counts["contains_topk"] != n_batches["topk"] or counts["closure"] != (
+                        n_batches["closure"] + n_batches["topk"]):
+                    raise AssertionError(f"serve k={k}: launches {counts} for {n_batches}")
+                if counts["rules_topk"] or counts["fused_step"] or counts["map_closure"]:
+                    raise AssertionError(f"serve k={k}: stray launches {counts}")
+                again, captured = capture_launches(
+                    ("contains_topk",), lambda: serve_answers(qe, queries))
+                check_captured(f"serve k={k}", captured, counts)
+                if not same_arrays(flat(again), flat(got)):
+                    raise AssertionError(f"serve k={k}: the captured run answered otherwise")
+                chunks += [(f"serve k={k}", args, kw) for args, kw in captured["contains_topk"]]
+                launches += counts["contains_topk"]
+            elif any(counts.values()):
+                raise AssertionError(f"serve k={k}: the torch backend launched {counts}")
+            report[f"k={k}/{backend}"] = {"wall_s": wall, "launches": counts,
+                                          "micro_batches": stats["micro_batches"],
+                                          "store_build_s": build_s, **rec_got}
+        for kind in answers["kernel"]:
+            if not same_arrays(answers["kernel"][kind], answers["torch"][kind]):
+                raise AssertionError(f"serve k={k}: {kind} differs between the backends")
+    emit({"phase": "serve", "dataset": spec.name, "objects": ctx.n_objects,
+          "min_support": MAIN_MIN_SUPPORT, "queries": SERVE_QUERIES, "topk": SERVE_TOPK,
+          "slots": SERVE_SLOTS, "runs": report})
+    report["stream"] = run_stream(device)
+    return report, {"contains_topk": chunks}, launches
+
+
+def run_stream(device) -> dict:
+    """The streaming update on a full-lattice store (the reference skips
+    updates on iceberg stores): mushroom at scale 0.01, 8 seeded rows
+    staged and committed at k = 1 and k = 8."""
+    import numpy as np
+
+    from repro_torch.core import ClosureEngine, bitset, mrcbo
+    from repro_torch.data import fca_datasets
+    from repro_torch.dist import ShardPlan
+    from repro_torch.launch.fca import serve_queries
+    from repro_torch.query import ConceptStore, QueryConfig, QueryEngine, StreamUpdater
+
+    ctx, spec = fca_datasets.load("mushroom", scale=0.01)
+    intents = mrcbo(ctx, ClosureEngine(ctx, device=device)).intents
+    out = {}
+    for k in (1, 8):
+        store = ConceptStore.build(ctx, intents, plan=ShardPlan.simulated(k), device=device)
+        qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend="kernel"))
+        rng = np.random.default_rng(0)
+        closed = qe.closure_batch(serve_queries(ctx, 256, rng))[0]
+        rows = bitset.pack_bool(rng.random((STREAM_ROWS, ctx.n_attrs)) < max(0.05, spec.density),
+                                ctx.W)
+        upd = StreamUpdater(store)
+        t0 = time.perf_counter()
+        receipt = upd.stage(rows)
+        upd.commit()
+        wall = time.perf_counter() - t0
+        post = qe.lookup_batch(closed)
+        got = {"n_concepts_before": receipt.n_concepts_before,
+               "n_concepts_after": receipt.n_concepts_after,
+               "version": store.snapshot.version,
+               "post_update_hit_rate": float((post >= 0).mean()),
+               "intents_sha256": digest(store.snapshot.intents_np)}
+        if got != STREAM_EXPECTED:
+            raise AssertionError(f"stream k={k}: {got} != reference {STREAM_EXPECTED}")
+        out[f"k={k}"] = dict(got, stage_commit_s=wall)
+    emit({"phase": "stream", "dataset": spec.name, "objects": ctx.n_objects,
+          "rows": STREAM_ROWS, "runs": out})
+    return out
+
+
+def run_rules_phase(device) -> tuple[dict, dict, int]:
+    """Phase 9: the rules tier — full-scale mushroom mined at
+    ``min_support=812`` on a k = 8 rsag plan, both bases extracted at
+    ``min_conf=0.5``, the rule index, and the CLI's seeded rule-query mix
+    through ``backend="kernel"`` and ``"torch"`` for both rank metrics.
+    Returns the report, the K6 chunks of the kernel runs and their launch
+    count."""
+    import numpy as np
+
+    from repro_torch.core import ClosureEngine, mrganter_plus
+    from repro_torch.data import fca_datasets
+    from repro_torch.query import ConceptStore, QueryConfig, QueryEngine
+    from repro_torch.rules import RuleIndex, extract_bases, rule_query_mix
+
+    ctx, spec = fca_datasets.load("mushroom", scale=1.0)
+    eng = ClosureEngine(ctx, n_parts=8, reduce_impl="rsag", backend="kernel", device=device)
+    res = mrganter_plus(ctx, eng, local_prune=True, min_support=RULES_MIN_SUPPORT)
+    if res.n_concepts != RULES_EXPECTED["concepts"]:
+        raise AssertionError(f"rules: {res.n_concepts} concepts != {RULES_EXPECTED['concepts']}")
+    store = ConceptStore.build(ctx, res.intents, plan=eng.plan, device=device)
+    t0 = time.perf_counter()
+    basis = extract_bases(store, min_conf=RULES_MIN_CONF)
+    index = RuleIndex.build(basis, plan=eng.plan, device=device)
+    basis_s = time.perf_counter() - t0
+    got = {"implications": basis.n_implications, "partial": basis.n_partial,
+           "basis_sha256": basis_digest(basis)}
+    want = {k: RULES_EXPECTED[k] for k in got}
+    if got != want:
+        raise AssertionError(f"rules: {got} != reference {want}")
+    queries = rule_query_mix(ctx, index, RULES_QUERIES, np.random.default_rng(0))
+    n_batches = -(-RULES_QUERIES // SERVE_SLOTS)
+    report, chunks, launches = {}, [], 0
+    for rank_by in ("confidence", "lift"):
+        answers = {}
+        for backend in ("kernel", "torch"):
+            qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend=backend))
+            out, wall, counts = drive_queries(
+                lambda: rules_answers(qe, index, queries, rank_by), device)
+            sha = digest(*out)
+            if sha != RULES_EXPECTED["answers_sha256"][rank_by]:
+                raise AssertionError(f"rules {rank_by} {backend}: answers differ from the "
+                                     "reference's")
+            answers[backend] = out
+            if backend == "kernel":
+                if counts["rules_topk"] != n_batches or counts["contains_topk"]:
+                    raise AssertionError(f"rules {rank_by}: launches {counts}, "
+                                         f"{n_batches} micro-batches")
+                again, captured = capture_launches(
+                    ("rules_topk",), lambda: rules_answers(qe, index, queries, rank_by))
+                check_captured(f"rules {rank_by}", captured, counts)
+                if not same_arrays(again, out):
+                    raise AssertionError(f"rules {rank_by}: the captured run answered otherwise")
+                chunks += [(f"rules {rank_by}", args, kw) for args, kw in captured["rules_topk"]]
+                launches += counts["rules_topk"]
+            elif any(counts.values()):
+                raise AssertionError(f"rules {rank_by}: the torch backend launched {counts}")
+            report[f"{rank_by}/{backend}"] = {
+                "wall_s": wall, "launches": counts, "sha256": sha,
+                "hit_rate": float((out[0][:, 0] >= 0).mean())}
+        if not same_arrays(answers["kernel"], answers["torch"]):
+            raise AssertionError(f"rules {rank_by}: answers differ between the backends")
+    emit({"phase": "rules", "dataset": spec.name, "objects": ctx.n_objects,
+          "min_support": RULES_MIN_SUPPORT, "min_conf": RULES_MIN_CONF, "n_parts": 8,
+          "reduce_impl": "rsag", "concepts": res.n_concepts, **got,
+          "basis_extract_s": basis_s, "queries": RULES_QUERIES, "runs": report})
+    return report, {"rules_topk": chunks}, launches
 
 
 def int32_ops_per_s(device) -> float:
@@ -688,18 +1111,84 @@ def filter_bound(args, kw):
     return ops, nbytes, census, {"B": B, "W": W, "scalars": list(sc)}
 
 
+def first_fail_words(small, big, queries_small: bool) -> tuple[int, int]:
+    """Σ over (query, row) pairs of the words the subset test reads up to
+    the first failing one (all W words for a pair that passes), and the
+    number of pairs that pass."""
+    import torch
+
+    W = small.shape[1]
+    total = passes = 0
+    step = max(1, (1 << 24) // max(1, big.shape[0] * W))
+    for lo in range(0, small.shape[0], step):
+        s = small[lo: lo + step]
+        bad = ((s[:, None, :] & ~big[None, :, :]) if queries_small
+               else (big[None, :, :] & ~s[:, None, :])) != 0  # [b, rows, W]
+        fails = bad.any(-1)
+        total += int(torch.where(fails, bad.int().argmax(-1) + 1, W).sum())
+        passes += int((~fails).sum())
+    return total, passes
+
+
+def topk_bound(args, kw):
+    """K5: two operations per subset-test word up to each (query, live
+    concept) pair's first failing word, one select per pair against the
+    k-th best so far, and a binary insertion (bit_length(k) compares) of
+    each hit among the k best; bytes: the queries, the live intents and
+    supports in, ids and supports out."""
+    gc, intents, supports, n_concepts = args
+    k = kw["k"]
+    S, W = gc.shape
+    live = max(0, min(int(n_concepts), intents.shape[0]))
+    words, hits = first_fail_words(gc, intents[:live], True)
+    ops = 2 * words + S * live + hits * k.bit_length()
+    nbytes = (S * W + live * W + live) * 4 + S * k * 8
+    census = 2 * S * live * W + S * live * (1 + k.bit_length())
+    return ops, nbytes, census, {"S": S, "C": intents.shape[0], "live": live, "W": W, "k": k,
+                                 "hits": hits}
+
+
+def rules_bound(args, kw):
+    """K6: two operations per premise-test word up to each (query, live
+    rule) pair's first failing word, one confidence-and-select per pair,
+    and for every firing pair one OR per consequent word and a binary
+    insertion (bit_length(k) compares) among the k best; bytes: the
+    queries, the live premises, confidences, metrics and rule ids, the
+    consequents of the rules that fire for some query, and the ids,
+    scores and unions out."""
+    import torch
+
+    prem, added, conf, metric, rid, n_rules, queries, min_conf = args
+    k = kw["k"]
+    S, W = queries.shape
+    live = max(0, min(int(n_rules), prem.shape[0]))
+    p = prem[:live]
+    fits = ((p[None, :, :] & ~queries[:, None, :]) == 0).all(-1)  # [S, live]
+    fires = fits & (conf[:live] >= torch.tensor(min_conf, dtype=torch.float32,
+                                                 device=conf.device))[None, :]
+    n_fire, rules_read = int(fires.sum()), int(fires.any(0).sum())
+    words, _ = first_fail_words(queries, p, False)
+    ops = 2 * words + S * live + n_fire * (W + k.bit_length())
+    nbytes = (S * W + live * W + 3 * live + rules_read * W) * 4 + S * k * 8 + S * W * 4
+    census = 2 * S * live * W + S * live * (1 + W + k.bit_length())
+    return ops, nbytes, census, {"S": S, "R": prem.shape[0], "live": live, "W": W, "k": k,
+                                 "firing_pairs": n_fire}
+
+
 def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     """Phase 7: each kernel on the chunks its main path gave it (captured
-    in phases 4 and 5), beside its plain version and its bound.
+    in phases 4, 5, 8 and 9), beside its plain version and its bound.
 
     Every captured chunk is replayed and timed alone (CUDA events, median
     of TIMING_REPS after warm-up); ``run_ms`` and ``run_bound_ms`` are the
     sums over all of a kernel's captured launches, and ``ms``, ``plain_ms``
     and ``bound_ms`` are those of its costliest chunk.  K1 and K2 time
     their phase-4 chunks (one shard); K3 and K4 the chunks of the k = 8
-    rsag runs of phase 5 (both mushroom drivers and census-income)."""
+    rsag runs of phase 5 (both mushroom drivers and census-income); K5
+    and K6 those of the kernel runs of phases 8 and 9."""
     from repro_torch.kernels import closure as k1
     from repro_torch.kernels import frontier as fk
+    from repro_torch.kernels import serve as sk
 
     rate = int32_ops_per_s(device)
     specs = {
@@ -713,6 +1202,11 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
         "filter_step": (fk.filter_step, fk.filter_step_plain,
                         "src/repro_torch/csrc/frontier.cu",
                         "src/repro/kernels/frontier.py:341", filter_bound),
+        "contains_topk": (sk.contains_topk, sk.contains_topk_plain,
+                          "src/repro_torch/csrc/serve.cu",
+                          "src/repro/kernels/serve.py:100", topk_bound),
+        "rules_topk": (sk.rules_topk, sk.rules_topk_plain, "src/repro_torch/csrc/serve.cu",
+                       "src/repro/kernels/serve.py:205", rules_bound),
     }
     out = []
     for name, (kern, plain, source, replaces, bound) in specs.items():
@@ -779,14 +1273,14 @@ def main() -> int:
         print(f"ptxas {name}: {rec['ptxas']}", flush=True)
 
     t0 = time.perf_counter()
-    records = check_kernels(device) + check_sharded_kernels(device)
+    records = check_kernels(device) + check_sharded_kernels(device) + check_serve_kernels(device)
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
                         for k in dict.fromkeys(r["kernel"] for r in records)},
           "bit_exact": True})
 
     t0 = time.perf_counter()
-    _, launches, chunks = run_main_path(device)
+    _, launches, chunks, main_intents = run_main_path(device)
     emit({"phase": "main_path_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     _, _, multi_launches, multi_chunks = run_multi_shard_path(device)
@@ -797,6 +1291,14 @@ def main() -> int:
     t0 = time.perf_counter()
     run_full_lattices(device)
     emit({"phase": "full_lattice_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, serve_chunks, launches["contains_topk"] = run_serve_phase(device, main_intents)
+    emit({"phase": "serve_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, rules_chunks, launches["rules_topk"] = run_rules_phase(device)
+    emit({"phase": "rules_seconds", "seconds": time.perf_counter() - t0})
+    chunks.update(serve_chunks)
+    chunks.update(rules_chunks)
     emit({"kernels": time_kernels(device, launches, chunks)})
 
     print(nvidia_smi("name,power.limit"), flush=True)

@@ -51,6 +51,16 @@ def batch_heads_torch(rows: torch.Tensor) -> torch.Tensor:
     return torch.where(nonzero.any(-1), head, -1).to(torch.int32)
 
 
+def bucket_key(heads, lengths, n_attrs: int):
+    """Flat index key combining both hash levels: (head+1)·(m+2) + length.
+
+    Works for numpy and torch inputs alike; strictly increasing in
+    (head, length), so a table sorted by it supports two-sided
+    ``searchsorted`` bucket probes (the concept store's lookup path).
+    """
+    return (heads + 1) * (n_attrs + 2) + lengths
+
+
 class TwoLevelHash:
     def __init__(self):
         self._levels: dict[int, dict[int, set[bytes]]] = {}

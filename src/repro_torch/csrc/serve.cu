@@ -1,0 +1,325 @@
+// The serving kernels, hand-written for Hopper (sm_90a), one source and
+// one build:
+//
+// K5 — contains top-k.  Replaces: src/repro/kernels/serve.py:contains_topk_call
+// (body _contains_topk_kernel, _topk_int).  Per closed query s:
+//   hit[c]   = (c < n_concepts) && all_w((gc[s, w] & ~intents[c, w]) == 0)
+//   top k of {(supports[c], c) : hit[c], supports[c] >= 0}
+//            by support descending, then concept index ascending
+//   slots after the last hit are (-1, -1).
+//
+// K6 — rules top-k.  Replaces: src/repro/kernels/serve.py:rules_topk_call
+// (body _rules_topk_kernel, _tree_or).  Per query s:
+//   ok[r]    = (r < n_rules) && conf[r] >= min_conf (float32)
+//              && all_w((prem[r, w] & ~q[s, w]) == 0)
+//   union[s] = OR of added[r] over every ok rule (not only the top k)
+//   top k of {(metric[r], rid[r], r) : ok[r], metric[r] >= 0}
+//            by metric descending, then rule id ascending, then position
+//   slots after the last hit are (-1, -1.0).
+//
+// n_concepts, n_rules, min_conf, S, C or R, W and k are plain launch
+// arguments, so no threshold or table size forces a rebuild.  The TPU
+// kernels hold the whole table in VMEM and fall back above 2^22 table
+// cells or for slots that are not a multiple of 8; these stream the table
+// from device memory, so they take any S (the tail CTA masks its missing
+// queries), any C or R and any W.  k is at most SERVE_MAX_K.
+//
+// What bounds it on the H100 (K5 and K6 alike): integer ALU issue for the
+// subset test at large S (S*C*W word tests), device memory otherwise —
+// every query block streams the whole table once, and at the serving
+// shapes (S = 64 slots, C = a few thousand concepts, W = 4) one launch is
+// a few dozen CTAs and is latency-bound.
+//
+// What the design does about it: one CTA per SERVE_WARPS queries, one warp
+// per query.  The table is streamed through shared memory in tiles of
+// TILE_ROWS rows x TILE_WORDS words (rows padded to an odd stride, so the
+// 32 lanes of a warp read 32 banks), and every query of the CTA tests the
+// whole tile: each table word is read from device memory once per CTA.
+// Each lane owns rows lane, lane + 32, ... of the tile and keeps a sorted
+// local top-k of its hits (in local memory; rows arrive in ascending
+// order, so ties need no index compare in K5); after the last tile the
+// warp merges the 32 local lists in k rounds of a shuffle argmax.  K6 ORs
+// the consequent words of its firing rules per lane and folds them with
+// __reduce_or_sync into the query's union row.  Rows at or past the live
+// count are never read.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SERVE_WARPS 8
+#define SERVE_THREADS (SERVE_WARPS * 32)
+#define ROWS_PER_LANE 8
+#define TILE_ROWS (32 * ROWS_PER_LANE)
+#define TILE_WORDS 16
+#define TILE_STRIDE (TILE_WORDS + 1)
+#define SERVE_MAX_K 64
+#define FULL_MASK 0xffffffffu
+#define INT_MAX_ 0x7fffffff
+
+struct ServeSmem {
+    uint32_t tile[TILE_ROWS * TILE_STRIDE];
+    uint32_t q[SERVE_WARPS * TILE_WORDS];
+};
+
+// Load words [c0, c0 + wc) of table rows [r0, r0 + TILE_ROWS) and of the
+// CTA's queries into shared memory.  Rows at or past `limit` and missing
+// queries read as 0 (they are masked by the caller).
+__device__ __forceinline__ void load_tile(ServeSmem& sm,
+                                          const uint32_t* __restrict__ table,
+                                          const uint32_t* __restrict__ queries,
+                                          long r0, int limit, int c0, int wc,
+                                          int s0, int S, int W)
+{
+    for (int i = threadIdx.x; i < TILE_ROWS * wc; i += SERVE_THREADS) {
+        const int row = i / wc, w = i - row * wc;
+        const long r = r0 + row;
+        sm.tile[row * TILE_STRIDE + w] = r < limit ? table[r * W + c0 + w] : 0u;
+    }
+    for (int i = threadIdx.x; i < SERVE_WARPS * wc; i += SERVE_THREADS) {
+        const int g = i / wc, w = i - g * wc;
+        const int s = s0 + g;
+        sm.q[g * TILE_WORDS + w] = s < S ? queries[(long)s * W + c0 + w] : 0u;
+    }
+}
+
+// Bit i of the result: row r0 + 32*i + lane fails the subset test.
+// PREMISE_IN_QUERY: K6's premise ⊆ query; else K5's query ⊆ intent.
+template <bool PREMISE_IN_QUERY>
+__device__ __forceinline__ uint32_t tile_fail(ServeSmem& sm,
+                                              const uint32_t* __restrict__ table,
+                                              const uint32_t* __restrict__ queries,
+                                              long r0, int limit, int s0, int S,
+                                              int W, bool active, int warp, int lane)
+{
+    uint32_t fail = 0u;
+    for (int c0 = 0; c0 < W; c0 += TILE_WORDS) {
+        const int wc = min(TILE_WORDS, W - c0);
+        __syncthreads();  // the previous pass's readers are done
+        load_tile(sm, table, queries, r0, limit, c0, wc, s0, S, W);
+        __syncthreads();
+        if (!active) continue;
+        const uint32_t* q = sm.q + warp * TILE_WORDS;
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_LANE; ++i) {
+            if (fail & (1u << i)) continue;
+            const uint32_t* t = sm.tile + (32 * i + lane) * TILE_STRIDE;
+            for (int w = 0; w < wc; ++w) {
+                const uint32_t bad = PREMISE_IN_QUERY ? (t[w] & ~q[w]) : (q[w] & ~t[w]);
+                if (bad) { fail |= 1u << i; break; }
+            }
+        }
+    }
+    return fail;
+}
+
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
+
+template <int KMAX>
+__global__ void __launch_bounds__(SERVE_THREADS)
+contains_topk_kernel(const uint32_t* __restrict__ gc,
+                     const uint32_t* __restrict__ intents,
+                     const int* __restrict__ supports,
+                     int* __restrict__ out_i, int* __restrict__ out_v,
+                     int S, int limit, int W, int k)
+{
+    __shared__ ServeSmem sm;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int s0 = blockIdx.x * SERVE_WARPS;
+    const int s = s0 + warp;
+    const bool active = s < S;
+
+    int lv[KMAX], li[KMAX];  // this lane's hits: support desc, index asc
+    int cnt = 0;
+    for (long r0 = 0; r0 < limit; r0 += TILE_ROWS) {
+        const uint32_t fail = tile_fail<false>(sm, intents, gc, r0, limit, s0, S, W,
+                                               active, warp, lane);
+        if (!active) continue;
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_LANE; ++i) {
+            const long r = r0 + 32 * i + lane;
+            if (r >= limit || (fail & (1u << i))) continue;
+            const int v = supports[r];
+            if (v < 0 || (cnt == k && v <= lv[k - 1])) continue;
+            // rows arrive in ascending order: an equal value stays behind
+            int j = cnt < k ? cnt++ : k - 1;
+            while (j > 0 && lv[j - 1] < v) { lv[j] = lv[j - 1]; li[j] = li[j - 1]; --j; }
+            lv[j] = v;
+            li[j] = (int)r;
+        }
+    }
+    if (!active) return;
+    int p = 0;
+    for (int t = 0; t < k; ++t) {
+        const bool has = p < cnt;
+        int bv = has ? lv[p] : -1, bi = has ? li[p] : INT_MAX_;
+        const int mv = bv, mi = bi;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const int ov = __shfl_xor_sync(FULL_MASK, bv, off);
+            const int oi = __shfl_xor_sync(FULL_MASK, bi, off);
+            if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+        }
+        if (bv < 0) bi = -1;
+        else if (has && mi == bi && mv == bv) ++p;  // indices are unique
+        if (lane == 0) {
+            out_i[(long)s * k + t] = bi;
+            out_v[(long)s * k + t] = bv < 0 ? -1 : bv;
+        }
+    }
+}
+
+template <int KMAX>
+static int launch_contains(const void* gc, const void* intents, const void* supports,
+                           void* out_i, void* out_v, int S, int limit, int W, int k,
+                           cudaStream_t stream)
+{
+    const dim3 grid((S + SERVE_WARPS - 1) / SERVE_WARPS);
+    contains_topk_kernel<KMAX><<<grid, SERVE_THREADS, 0, stream>>>(
+        (const uint32_t*)gc, (const uint32_t*)intents, (const int*)supports,
+        (int*)out_i, (int*)out_v, S, limit, W, k);
+    return (int)cudaGetLastError();
+}
+
+// gc [S, W], intents [C, W], supports [C] → out_i, out_v [S, k];
+// S >= 1, 1 <= k <= SERVE_MAX_K.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int contains_topk_launch(const void* gc, const void* intents,
+                                    const void* supports, void* out_i, void* out_v,
+                                    int S, int C, int W, int n_concepts, int k,
+                                    void* stream)
+{
+    if (k < 1 || k > SERVE_MAX_K) return (int)cudaErrorInvalidValue;
+    const int limit = n_concepts < 0 ? 0 : (n_concepts < C ? n_concepts : C);
+    if (k <= 8)
+        return launch_contains<8>(gc, intents, supports, out_i, out_v, S, limit, W, k,
+                                  (cudaStream_t)stream);
+    return launch_contains<SERVE_MAX_K>(gc, intents, supports, out_i, out_v, S, limit, W,
+                                        k, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+// (metric desc, rule id asc, position asc): the order of the reference's
+// k selection passes.
+__device__ __forceinline__ bool rule_before(float av, int ar, int ap,
+                                            float bv, int br, int bp)
+{
+    return av > bv || (av == bv && (ar < br || (ar == br && ap < bp)));
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(SERVE_THREADS)
+rules_topk_kernel(const uint32_t* __restrict__ prem,
+                  const uint32_t* __restrict__ added,
+                  const float* __restrict__ conf,
+                  const float* __restrict__ metric,
+                  const int* __restrict__ rid,
+                  const uint32_t* __restrict__ queries,
+                  int* __restrict__ out_i, float* __restrict__ out_v,
+                  uint32_t* __restrict__ out_u,
+                  int S, int limit, int W, float min_conf, int k)
+{
+    __shared__ ServeSmem sm;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int s0 = blockIdx.x * SERVE_WARPS;
+    const int s = s0 + warp;
+    const bool active = s < S;
+    if (active)
+        for (int w = lane; w < W; w += 32) out_u[(long)s * W + w] = 0u;
+
+    float lv[KMAX];
+    int lr[KMAX], lp[KMAX];
+    int cnt = 0;
+    for (long r0 = 0; r0 < limit; r0 += TILE_ROWS) {
+        const uint32_t fail = tile_fail<true>(sm, prem, queries, r0, limit, s0, S, W,
+                                              active, warp, lane);
+        if (!active) continue;
+        uint32_t ok = 0u;
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_LANE; ++i) {
+            const long r = r0 + 32 * i + lane;
+            if (r >= limit || (fail & (1u << i)) || !(conf[r] >= min_conf)) continue;
+            ok |= 1u << i;
+            const float v = metric[r];
+            const int id = rid[r], pos = (int)r;
+            if (!(v >= 0.0f)) continue;
+            if (cnt == k && !rule_before(v, id, pos, lv[k - 1], lr[k - 1], lp[k - 1]))
+                continue;
+            int j = cnt < k ? cnt++ : k - 1;
+            while (j > 0 && rule_before(v, id, pos, lv[j - 1], lr[j - 1], lp[j - 1])) {
+                lv[j] = lv[j - 1]; lr[j] = lr[j - 1]; lp[j] = lp[j - 1]; --j;
+            }
+            lv[j] = v; lr[j] = id; lp[j] = pos;
+        }
+        __syncwarp();  // out_u zeroed / last tile's union row written
+        if (!__any_sync(FULL_MASK, ok != 0u)) continue;
+        // the consequent union of this tile's firing rules, word by word
+        for (int w = 0; w < W; ++w) {
+            uint32_t acc = 0u;
+#pragma unroll
+            for (int i = 0; i < ROWS_PER_LANE; ++i)
+                if (ok & (1u << i)) acc |= added[(r0 + 32 * i + lane) * (long)W + w];
+            acc = __reduce_or_sync(FULL_MASK, acc);
+            if (lane == 0) out_u[(long)s * W + w] |= acc;
+        }
+    }
+    if (!active) return;
+    int p = 0;
+    for (int t = 0; t < k; ++t) {
+        const bool has = p < cnt;
+        float bv = has ? lv[p] : -1.0f;
+        int br = has ? lr[p] : INT_MAX_, bp = has ? lp[p] : INT_MAX_;
+        const int mp = bp;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
+            const int orr = __shfl_xor_sync(FULL_MASK, br, off);
+            const int op = __shfl_xor_sync(FULL_MASK, bp, off);
+            if (rule_before(ov, orr, op, bv, br, bp)) { bv = ov; br = orr; bp = op; }
+        }
+        const bool hit = bv >= 0.0f;
+        if (hit && has && mp == bp) ++p;  // positions are unique
+        if (lane == 0) {
+            out_i[(long)s * k + t] = hit ? br : -1;
+            out_v[(long)s * k + t] = hit ? bv : -1.0f;
+        }
+    }
+}
+
+template <int KMAX>
+static int launch_rules(const void* prem, const void* added, const void* conf,
+                        const void* metric, const void* rid, const void* queries,
+                        void* out_i, void* out_v, void* out_u,
+                        int S, int limit, int W, float min_conf, int k,
+                        cudaStream_t stream)
+{
+    const dim3 grid((S + SERVE_WARPS - 1) / SERVE_WARPS);
+    rules_topk_kernel<KMAX><<<grid, SERVE_THREADS, 0, stream>>>(
+        (const uint32_t*)prem, (const uint32_t*)added, (const float*)conf,
+        (const float*)metric, (const int*)rid, (const uint32_t*)queries,
+        (int*)out_i, (float*)out_v, (uint32_t*)out_u, S, limit, W, min_conf, k);
+    return (int)cudaGetLastError();
+}
+
+// prem, added [R, W], conf, metric [R] f32, rid [R], queries [S, W]
+// → out_i [S, k], out_v [S, k] f32, out_u [S, W]; S >= 1,
+// 1 <= k <= SERVE_MAX_K.  min_conf arrives already rounded to float32.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int rules_topk_launch(const void* prem, const void* added, const void* conf,
+                                 const void* metric, const void* rid,
+                                 const void* queries, void* out_i, void* out_v,
+                                 void* out_u, int S, int R, int W, int n_rules,
+                                 float min_conf, int k, void* stream)
+{
+    if (k < 1 || k > SERVE_MAX_K) return (int)cudaErrorInvalidValue;
+    const int limit = n_rules < 0 ? 0 : (n_rules < R ? n_rules : R);
+    if (k <= 8)
+        return launch_rules<8>(prem, added, conf, metric, rid, queries, out_i, out_v,
+                               out_u, S, limit, W, min_conf, k, (cudaStream_t)stream);
+    return launch_rules<SERVE_MAX_K>(prem, added, conf, metric, rid, queries, out_i,
+                                     out_v, out_u, S, limit, W, min_conf, k,
+                                     (cudaStream_t)stream);
+}

@@ -139,6 +139,20 @@ def and_allreduce(x: torch.Tensor, axis, *, impl: str = "rsag",
     return out.expand(k, B, W) if sim else out
 
 
+def all_gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every shard's ``[n, ...]`` block stacked in shard order, ``[k·n,
+    ...]`` (the reference's tiled ``lax.all_gather`` along axis 0).  On the
+    simulated axis ``x`` is ``[k, n, ...]`` and the result carries the
+    shard dimension, ``[k, k·n, ...]`` (an expanded view)."""
+    if _is_simulated(axis):
+        k = x.shape[0]
+        flat = x.reshape(k * x.shape[1], *x.shape[2:])
+        return flat.expand(k, *flat.shape)
+    if dist.get_world_size(axis) == 1:
+        return x
+    return _all_gather(x, axis)
+
+
 def sum_allreduce(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum of the shards' supports ``[B]`` (the reference's ``psum``)."""
     if _is_simulated(axis):

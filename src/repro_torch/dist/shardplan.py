@@ -31,9 +31,11 @@ Two kinds of plan run the same shard body:
     the host loop branches on, is the same on every rank.
 
 The AND semigroup is associative, commutative and idempotent over the
-words, so both kinds and every schedule agree bit for bit.  2-D candidate
-sharding (``cand_parts > 1``) and object-sharded outputs (``out_shard=``)
-are not ported yet and raise ``NotImplementedError``.
+words, so both kinds and every schedule agree bit for bit.  ``spmd``'s
+``out_shard=`` gives one region mixed output placement: object-sharded
+outputs stay on their shards (the concept store's extent table), the
+others reduce as usual.  2-D candidate sharding (``cand_parts > 1``) is
+not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -211,6 +213,23 @@ class ShardPlan:
         whose shards all live in one process)."""
         return 0 if self.group is None else dist.get_rank(self.group)
 
+    def global_row_index(self, rows_local: torch.Tensor) -> torch.Tensor:
+        """The global row index of every row an ``spmd`` body sees.
+
+        Simulated plan (rows ``[k, N/k, W]``): ``[k, N/k]``, shard ``i``'s
+        rows at ``i·N/k + arange(N/k)``.  Process-group plan (this rank's
+        ``[N/k, W]``): ``[N/k]`` from the rank's offset.  A body that masks
+        the padding rows by global index reads it here and never branches
+        on the plan's kind; ``shard_index() * N/k`` would read every
+        simulated shard as shard 0.
+        """
+        n_local = rows_local.shape[-2]
+        local = torch.arange(n_local, device=rows_local.device)
+        if self.group is None:
+            k = rows_local.shape[0]
+            return torch.arange(k, device=rows_local.device)[:, None] * n_local + local
+        return self.shard_index() * n_local + local
+
     # -- placement ---------------------------------------------------------
 
     def place_rows(self, rows: np.ndarray, device) -> torch.Tensor:
@@ -264,22 +283,35 @@ class ShardPlan:
         and shard 0's copy is kept.  Process-group plan: ``body`` runs on
         this rank's slice and its outputs are already replicated.
 
+        ``out_shard`` gives the region mixed output placement: one boolean
+        per ``body`` output, True for an output that stays object-sharded
+        (``[k, N/k, ...]`` on a simulated plan, the layout ``place_rows``
+        produces; this rank's ``[N/k, ...]`` slice on a group), False for a
+        shard-invariant one, reduced as above.  It cannot be combined with
+        ``post``, which consumes shard-invariant inputs only.
+
         ``post(*body_outputs, *post_replicated)`` is an optional stage that
         consumes the shard-invariant outputs (canonicity, feasibility,
         dedupe); it runs once on a simulated plan and on every rank of a
         group.  The returned callable takes
         ``(rows, *replicated, *post_replicated)``.
         """
-        if out_shard is not None:
-            raise NotImplementedError(
-                "out_shard= (object-sharded outputs) is not ported yet; it "
-                "comes with the query slice"
-            )
+        if out_shard is not None and post is not None:
+            raise ValueError("out_shard= and post= are mutually exclusive")
         simulated = self.group is None
 
         def run(rows, *rep):
             outs = body(rows, *rep[:n_rep])
             tup = isinstance(outs, tuple)
+            if out_shard is not None:
+                if not tup or len(outs) != len(out_shard):
+                    raise ValueError(
+                        f"out_shard has {len(out_shard)} entries for "
+                        f"{len(outs) if tup else 1} body outputs"
+                    )
+                if not simulated:
+                    return outs
+                return tuple(o if s else o[0] for o, s in zip(outs, out_shard))
             if simulated:
                 outs = tuple(o[0] for o in outs) if tup else outs[0]
             if post is None:

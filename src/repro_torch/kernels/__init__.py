@@ -1,17 +1,23 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-``closure.closure`` (K1, ``csrc/closure.cu``) and, in ``csrc/frontier.cu``,
+``closure.closure`` (K1, ``csrc/closure.cu``); in ``csrc/frontier.cu``,
 ``frontier.fused_step`` (K2), ``frontier.map_closure`` (K3) and
-``frontier.filter_step`` (K4) launch their kernel for CUDA tensors and run
-their plain version (``closure_plain``, ``fused_step_plain``,
-``map_closure_plain``, ``filter_step_plain``) for CPU tensors.  Each
-wrapper counts its launches in a plain ``launches`` attribute.
+``frontier.filter_step`` (K4); in ``csrc/serve.cu``, ``serve.contains_topk``
+(K5, the top-k query's contains-mask × support selection) and
+``serve.rules_topk`` (K6, the rule query's premise test, consequent union
+and metric selection).  Each launches its kernel for CUDA tensors and runs
+its plain version (``closure_plain``, ``fused_step_plain``,
+``map_closure_plain``, ``filter_step_plain``, ``contains_topk_plain``,
+``rules_topk_plain``) for CPU tensors.  Each wrapper counts its launches
+in a plain ``launches`` attribute.
 """
 
 from repro_torch.kernels import closure as _k1
 from repro_torch.kernels import frontier as _fr
+from repro_torch.kernels import serve as _sv
 
-KERNELS = (_k1.closure, _fr.fused_step, _fr.map_closure, _fr.filter_step)
+KERNELS = (_k1.closure, _fr.fused_step, _fr.map_closure, _fr.filter_step,
+           _sv.contains_topk, _sv.rules_topk)
 
 
 def reset_launches() -> None:

@@ -1,40 +1,62 @@
-"""FCA launcher of the port — mine one context over object shards.
+"""FCA launcher of the port — mine, serve and rules over object shards.
 
+    # mine (default subcommand)
     python -m repro_torch.launch.fca mine --dataset mushroom --scale 1.0 \
         --algorithm mrganter+ --min-support 0.05 --local-prune \
         --parts 8 --reduce rsag --backend kernel --device cuda
 
+    # mine → build the device-resident concept store → serve a mixed
+    # query/update batch (repro_torch.query)
+    python -m repro_torch.launch.fca serve --dataset mushroom --scale 0.02 \
+        --parts 4 --reduce auto --queries 256 --topk 32 --updates 8
+
+    # iceberg-mine → extract the DG/Luxenburger bases → answer a
+    # rule-query batch (repro_torch.rules)
+    python -m repro_torch.launch.fca rules --dataset census-income \
+        --scale 0.002 --parts 8 --min-support 0.05 --min-conf 0.5 \
+        --rule-queries 128
+
 ``--parts`` object shards (default 8) are simulated on the one device,
 unless the caller has initialized a ``torch.distributed`` group of more
 than one rank: then every rank runs this command and holds one shard
-(``ShardPlan.auto``), and ``--parts`` is not read.  ``--reduce`` picks the AND-allreduce schedule of every round
-(``allgather``, ``rsag``, ``pmin``, or ``auto``, which picks allgather or
-rsag per round from the batch size; the per-round record lands in
-``reduce_rounds``), and ``--calibrate-hops`` replaces the ``auto`` model's
-4096 B latency default with a measured probe (on a simulated plan the
-probe times torch ops on one device and measures no wire).  ``--backend kernel`` runs
-the hand-written CUDA kernels (``torch`` runs their plain PyTorch
-versions, ``matmul`` the complement-plane matrix products); ``--device``
-defaults to ``cuda`` and the run fails without a CUDA device unless
-``--device cpu`` is given.
+(``ShardPlan.auto``), and ``--parts`` is not read.  ``--reduce`` picks the
+AND-allreduce schedule of every round (``allgather``, ``rsag``, ``pmin``,
+or ``auto``, which picks allgather or rsag per round from the batch size;
+the per-round record lands in ``reduce_rounds``), and
+``--calibrate-hops`` replaces the ``auto`` model's 4096 B latency default
+with a measured probe (on a simulated plan the probe times torch ops on
+one device and measures no wire).  ``--backend kernel`` runs the
+hand-written CUDA kernels (the closure kernels while mining and serving,
+K5 for top-k queries, K6 for rule queries); ``torch`` runs their plain
+PyTorch versions, ``matmul`` the complement-plane matrix products for
+every closure.  ``--device`` defaults to ``cuda`` and the run fails
+without a CUDA device unless ``--device cpu`` is given.
 ``--min-support`` takes an absolute object count (≥ 1) or a fraction of
 |O| (in (0, 1)); the resolved count is echoed in the JSON stats.  The
-printed keys are those of the reference's ``fca mine`` that the port
-has.
+printed keys are those of the reference's ``fca`` subcommands that the
+port has; ``serve --load-qps`` (the admission queue) is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import sys
+import time
 
-from repro_torch.core import ClosureEngine
+import numpy as np
+
+from repro_torch.core import ClosureEngine, bitset
 from repro_torch.core.engine import BACKENDS
 from repro_torch.core.mr import PIPELINES
 from repro_torch.data import fca_datasets
 from repro_torch.dist import ShardPlan
 from repro_torch.dist.collectives import IMPLS
-from repro_torch.rules import ALGORITHMS, resolve_min_support
+from repro_torch.query import ConceptStore, QueryConfig, QueryEngine, StreamUpdater
+from repro_torch.rules import (
+    ALGORITHMS, RuleIndex, extract_bases, resolve_min_support, rule_query_mix,
+)
 
 
 def build_plan(args) -> ShardPlan:
@@ -47,23 +69,32 @@ def build_plan(args) -> ShardPlan:
     )
 
 
-def cmd_mine(args) -> dict:
-    ctx, spec = fca_datasets.load(
-        args.dataset, scale=args.scale, data_dir=args.data_dir
-    )
-    eng = ClosureEngine(ctx, plan=build_plan(args), backend=args.backend,
-                        device=args.device)
-    min_support = (
-        None
-        if args.min_support is None
-        else resolve_min_support(args.min_support, ctx.n_objects)
-    )
+def _mine(args, ctx, plan, min_support):
+    eng = ClosureEngine(ctx, plan=plan, backend=args.backend, device=args.device)
     kw = {"pipeline": args.pipeline, "min_support": min_support}
     if args.algorithm == "mrganter+":
         kw["local_prune"] = args.local_prune
     res = ALGORITHMS[args.algorithm](
         ctx, eng, max_iterations=args.max_iterations, **kw
     )
+    return eng, res
+
+
+def _resolved_min_support(args, ctx) -> int | None:
+    if args.min_support is None:
+        return None
+    return resolve_min_support(args.min_support, ctx.n_objects)
+
+
+def _load(args):
+    """The command's context, its dataset spec and the run's plan."""
+    ctx, spec = fca_datasets.load(args.dataset, scale=args.scale, data_dir=args.data_dir)
+    return ctx, spec, build_plan(args)
+
+
+def cmd_mine(args) -> dict:
+    ctx, spec, plan = _load(args)
+    eng, res = _mine(args, ctx, plan, _resolved_min_support(args, ctx))
     return {
         "dataset": spec.name,
         "objects": spec.n_objects,
@@ -90,10 +121,155 @@ def cmd_mine(args) -> dict:
     }
 
 
+def serve_queries(ctx, n: int, rng) -> np.ndarray:
+    """The serve batch: real rows with ~25% of their bits kept, so
+    closures hit populated regions of the lattice (the reference CLI's
+    generator, drawn from the same ``rng`` in the same order)."""
+    base = ctx.rows[rng.integers(0, ctx.n_objects, size=n)]
+    keep = bitset.pack_bool(rng.random((n, ctx.n_attrs)) < 0.25, ctx.W)
+    return base & keep
+
+
+def cmd_serve(args) -> dict:
+    """mine → build store → serve one mixed query/update batch."""
+    ctx, spec, plan = _load(args)
+    eng, res = _mine(args, ctx, plan, _resolved_min_support(args, ctx))
+
+    t0 = time.perf_counter()
+    store = ConceptStore.build(ctx, res.intents, plan=eng.plan, device=eng.device)
+    build_s = time.perf_counter() - t0
+    qe = QueryEngine(store, QueryConfig(slots=args.slots, backend=args.backend))
+
+    rng = np.random.default_rng(args.seed)
+    queries = serve_queries(ctx, args.queries, rng)
+
+    t0 = time.perf_counter()
+    closures, supports, ids = qe.closure_batch(queries)
+    tops, top_supports = qe.topk_batch(queries[: args.topk], k=5)
+    hit_ids = ids[ids >= 0]
+    trav = qe.children(hit_ids[:8]) if hit_ids.size else []
+    query_s = time.perf_counter() - t0
+
+    # streaming update: synthetic rows matched to the context density.
+    # Skipped for iceberg serves: Godin insertion maintains the FULL intent
+    # family, so streaming onto an iceberg store would drift to neither
+    # the full nor the iceberg lattice of the grown context.
+    receipt, update_s, post_ids = None, None, ids
+    if res.min_support is None:
+        upd = StreamUpdater(store)
+        new_rows = bitset.pack_bool(
+            rng.random((args.updates, ctx.n_attrs)) < max(0.05, spec.density), ctx.W
+        )
+        t0 = time.perf_counter()
+        receipt = upd.stage(new_rows)
+        upd.commit()
+        update_s = time.perf_counter() - t0
+        post_ids = qe.lookup_batch(closures)  # same intents, new snapshot
+    elif args.updates:
+        print(
+            "serve --min-support: skipping the streaming-update phase "
+            "(Godin insertion maintains the full family, not an iceberg)",
+            file=sys.stderr,
+        )
+
+    n_q = args.queries + min(args.queries, args.topk)
+    return {
+        "dataset": spec.name,
+        "plan": plan.describe(),
+        "backend": args.backend,
+        "device": str(eng.device),
+        "algorithm": res.algorithm,
+        "min_support_resolved": res.min_support,
+        "concepts": res.n_concepts,
+        "mine_wall_s": round(res.wall_time_s, 3),
+        "store": store.describe(),
+        "store_build_s": round(build_s, 3),
+        "slots": args.slots,
+        "queries": int(n_q),
+        "query_wall_s": round(query_s, 4),
+        "queries_per_s": round(n_q / max(query_s, 1e-9), 1),
+        "closure_hit_rate": round(float((ids >= 0).mean()), 4) if ids.size else None,
+        "traversal_children_sample": [len(t) for t in trav],
+        "top_support_max": int(top_supports.max()) if top_supports.size else None,
+        "update": None if receipt is None else dataclasses.asdict(receipt),
+        "update_commit_s": None if update_s is None else round(update_s, 4),
+        "post_update_version": store.snapshot.version,
+        "post_update_hit_rate": (
+            round(float((post_ids >= 0).mean()), 4) if post_ids.size else None
+        ),
+        "query_stats": qe.describe()["stats"],
+    }
+
+
+def cmd_rules(args) -> dict:
+    """iceberg-mine → store → extract DG + Luxenburger bases → serve a
+    rule-query batch through the QueryEngine's fixed-slot rule ops."""
+    ctx, spec, plan = _load(args)
+    min_support = _resolved_min_support(args, ctx)
+    if min_support is None:  # rules without a threshold = iceberg at 1
+        min_support = 1
+    eng, res = _mine(args, ctx, plan, min_support)
+
+    t0 = time.perf_counter()
+    store = ConceptStore.build(ctx, res.intents, plan=eng.plan, device=eng.device)
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    basis = extract_bases(store, min_conf=args.min_conf)
+    index = RuleIndex.build(basis, plan=eng.plan, device=eng.device)
+    basis_s = time.perf_counter() - t0
+
+    qe = QueryEngine(store, QueryConfig(slots=args.slots, backend=args.backend))
+    rng = np.random.default_rng(args.seed)
+    n_q = args.rule_queries
+    queries = rule_query_mix(ctx, index, n_q, rng)
+
+    t0 = time.perf_counter()
+    ids, scores, consequents = qe.rules_batch(
+        index, queries, k=args.topk_rules, min_conf=args.min_conf, rank_by=args.rank_by,
+    )
+    query_s = time.perf_counter() - t0
+    hits = ids[:, 0] >= 0
+
+    return {
+        "dataset": spec.name,
+        "plan": plan.describe(),
+        "backend": args.backend,
+        "device": str(eng.device),
+        "algorithm": res.algorithm,
+        "min_support_resolved": min_support,
+        "min_conf": args.min_conf,
+        "iceberg_concepts": res.n_concepts,
+        "mine_iterations": res.n_iterations,
+        "mine_wall_s": round(res.wall_time_s, 3),
+        "store_build_s": round(build_s, 3),
+        "basis": basis.describe(),
+        "rule_index": index.describe(),
+        "basis_extract_s": round(basis_s, 3),
+        "rule_queries": int(n_q),
+        "rank_by": args.rank_by,
+        "rule_query_wall_s": round(query_s, 4),
+        "rule_queries_per_s": round(n_q / max(query_s, 1e-9), 1),
+        "rule_hit_rate": round(float(hits.mean()), 4) if n_q else None,
+        "top_score_max": float(scores.max()) if scores.size else None,
+        "consequent_bits_mean": (
+            round(float(bitset.popcount(consequents).mean()), 2) if n_q else None
+        ),
+        "reduce_rounds": eng.stats.reduce_rounds,
+        "query_stats": qe.describe()["stats"],
+    }
+
+
+COMMANDS = {"mine": cmd_mine, "serve": cmd_serve, "rules": cmd_rules}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.fca")
-    p.add_argument("command", nargs="?", default="mine", choices=["mine"],
-                   help="mine (default): run an MR* miner")
+    p.add_argument("command", nargs="?", default="mine", choices=list(COMMANDS),
+                   help="mine (default): run an MR* miner; serve: mine, build "
+                        "the concept store, then run a mixed query/update "
+                        "batch; rules: iceberg-mine, extract the "
+                        "DG/Luxenburger bases, answer a rule-query batch")
     p.add_argument("--dataset", default="mushroom",
                    choices=sorted(fca_datasets.PAPER_DATASETS))
     p.add_argument("--scale", type=float, default=0.05)
@@ -119,12 +295,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iterations", type=int, default=None)
     p.add_argument("--data-dir", default=None,
                    help="directory holding real UCI <dataset>.data files")
+    # serve-only knobs
+    p.add_argument("--queries", type=int, default=256,
+                   help="serve: closure queries in the mixed batch")
+    p.add_argument("--topk", type=int, default=32,
+                   help="serve: top-k queries in the mixed batch")
+    p.add_argument("--updates", type=int, default=8,
+                   help="serve: streamed new objects in the update batch")
+    p.add_argument("--slots", type=int, default=64,
+                   help="serve/rules: fixed micro-batch slot width")
+    p.add_argument("--seed", type=int, default=0)
+    # rules-only knobs
+    p.add_argument("--min-conf", type=float, default=0.5,
+                   help="rules: Luxenburger basis + query confidence floor")
+    p.add_argument("--rule-queries", type=int, default=128,
+                   help="rules: rule-query batch size")
+    p.add_argument("--topk-rules", type=int, default=5,
+                   help="rules: top-k rules returned per query")
+    p.add_argument("--rank-by", default="confidence", choices=["confidence", "lift"],
+                   help="rules: top-k rank metric")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    print(json.dumps(cmd_mine(args), indent=2))
+    print(json.dumps(COMMANDS[args.command](args), indent=2))
 
 
 if __name__ == "__main__":

@@ -69,3 +69,86 @@ def subset_candidates(rng, rows: np.ndarray, B: int, keep: float = 0.2) -> np.nd
     if B > 1:
         cands[-1] = 0xFFFFFFFF
     return cands
+
+
+def smoke_constants() -> dict:
+    """The reference values of chip_smoke.py's serve and rules phases.
+
+    Drives the JAX package (``backend="jnp"``, under the binding above)
+    through chip_smoke's own ``serve_answers`` / ``rules_answers`` /
+    ``digest``, on the contexts, thresholds, plans and seeded batches those
+    phases use.  Several minutes on a CPU; run it as
+    ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py``
+    and copy the printed JSON into chip_smoke.py.
+    """
+    import sys
+    from pathlib import Path
+
+    import repro.core as ref_core
+    from repro.core import bitset
+    from repro.data import fca_datasets
+    from repro.dist.shardplan import ShardPlan
+    from repro.query import ConceptStore, QueryEngine, StreamUpdater
+    from repro.query.engine import QueryConfig
+    from repro.rules import RuleIndex, extract_bases
+    from repro.rules.index import rule_query_mix
+    from repro_torch.launch.fca import serve_queries
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "axis_frame", lambda name: jax.lax.axis_size(name),
+                   raising=False)
+        ctx, _ = fca_datasets.load("mushroom", scale=1.0)
+        intents = ref_core.mrcbo(ctx, ref_core.ClosureEngine(ctx, backend="jnp"),
+                                 min_support=cs.MAIN_MIN_SUPPORT).intents
+        queries = serve_queries(ctx, cs.SERVE_QUERIES, np.random.default_rng(0))
+        out["serve"] = {}
+        for k in (1, 8):
+            store = ConceptStore.build(ctx, intents,
+                                       plan=ShardPlan.simulated(k, reduce_impl="rsag"))
+            qe = QueryEngine(store, QueryConfig(slots=cs.SERVE_SLOTS, backend="jnp"))
+            out["serve"][k] = cs.serve_record(qe, cs.serve_answers(qe, queries))
+
+        sctx, spec = fca_datasets.load("mushroom", scale=0.01)
+        sintents = ref_core.mrcbo(sctx, ref_core.ClosureEngine(sctx, backend="jnp")).intents
+        out["stream"] = {}
+        for k in (1, 8):
+            store = ConceptStore.build(sctx, sintents, plan=ShardPlan.simulated(k))
+            qe = QueryEngine(store, QueryConfig(slots=cs.SERVE_SLOTS, backend="jnp"))
+            rng = np.random.default_rng(0)
+            closed = qe.closure_batch(serve_queries(sctx, 256, rng))[0]
+            rows = bitset.pack_bool(
+                rng.random((cs.STREAM_ROWS, sctx.n_attrs)) < max(0.05, spec.density), sctx.W)
+            receipt = StreamUpdater(store).apply(rows)
+            post = qe.lookup_batch(closed)
+            out["stream"][k] = {
+                "n_concepts_before": receipt.n_concepts_before,
+                "n_concepts_after": receipt.n_concepts_after,
+                "version": store.snapshot.version,
+                "post_update_hit_rate": float((post >= 0).mean()),
+                "intents_sha256": cs.digest(store.snapshot.intents_np)}
+
+        plan = ShardPlan.simulated(8, reduce_impl="rsag")
+        res = ref_core.mrganter_plus(ctx, ref_core.ClosureEngine(ctx, plan=plan, backend="jnp"),
+                                     local_prune=True, min_support=cs.RULES_MIN_SUPPORT)
+        store = ConceptStore.build(ctx, res.intents, plan=plan)
+        basis = extract_bases(store, min_conf=cs.RULES_MIN_CONF)
+        index = RuleIndex.build(basis, plan=plan)
+        rqueries = rule_query_mix(ctx, index, cs.RULES_QUERIES, np.random.default_rng(0))
+        qe = QueryEngine(store, QueryConfig(slots=cs.SERVE_SLOTS, backend="jnp"))
+        out["rules"] = {
+            "concepts": res.n_concepts, "implications": basis.n_implications,
+            "partial": basis.n_partial, "basis_sha256": cs.basis_digest(basis),
+            "answers_sha256": {rank: cs.digest(*cs.rules_answers(qe, index, rqueries, rank))
+                               for rank in ("confidence", "lift")}}
+    jax.clear_caches()
+    return out
+
+
+if __name__ == "__main__":
+    import json
+
+    print(json.dumps(smoke_constants(), indent=1))

@@ -18,7 +18,9 @@ import torch
 
 import repro_torch
 from repro_torch import kernels
-from repro_torch.core import ClosureEngine, mrcbo, mrganter, mrganter_plus, paper_context
+from repro_torch.core import (
+    ClosureEngine, all_closures, mrcbo, mrganter, mrganter_plus, paper_context,
+)
 from repro_torch.device import resolve_device
 from repro_torch.interop import context_from_arrays, to_numpy
 from repro_torch.kernels import _build, ops
@@ -74,6 +76,32 @@ def test_sources_name_no_jax_or_reference_module(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "repro"), f"{path} imports {name}"
+
+
+def test_serving_entry_points_default_to_cuda_and_never_fall_back():
+    """The store, the bases and the rule index run on CUDA unless given
+    ``device="cpu"``; without CUDA they raise instead of falling back."""
+    from repro_torch.query import ConceptStore
+    from repro_torch.rules import RuleIndex, dg_basis, extract_bases, luxenburger_host
+
+    ctx = paper_context()
+    intents = np.stack(all_closures(ctx))
+    store = ConceptStore.build(ctx, intents, device="cpu")
+    assert store.device.type == "cpu" and store.snapshot.intents.device.type == "cpu"
+    basis = extract_bases(store)
+    assert RuleIndex.build(basis, device="cpu").premise.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert ConceptStore(ctx).device.type == "cuda"
+        return
+    sup = store.snapshot.supports_np
+    for call in (lambda: ConceptStore(ctx), lambda: ConceptStore.build(ctx, intents),
+                 lambda: dg_basis(intents, sup, ctx.n_attrs),
+                 lambda: luxenburger_host(intents, sup, ctx.n_objects),
+                 lambda: RuleIndex.build(basis),
+                 lambda: fca.main(["serve", "--dataset", "mushroom", "--scale", "0.01"]),
+                 lambda: fca.main(["rules", "--dataset", "mushroom", "--scale", "0.01"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_engine_defaults_to_cuda_and_never_falls_back():
@@ -210,7 +238,8 @@ def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
     assert lib.is_relative_to(ROOT / "build")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert lib == _build.library_path("closure")  # deterministic name
-    assert lib != _build.library_path("frontier")
+    assert lib != _build.library_path("frontier") != _build.library_path("serve")
+    assert _build.SOURCES == ("closure", "frontier", "serve")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -222,6 +251,8 @@ def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
     ("frontier.cu", "fused_step_launch", "src/repro/kernels/frontier.py:fused_closure_call"),
     ("frontier.cu", "map_closure_launch", "src/repro/kernels/frontier.py:map_closure_call"),
     ("frontier.cu", "filter_launch", "src/repro/kernels/frontier.py:filter_call"),
+    ("serve.cu", "contains_topk_launch", "src/repro/kernels/serve.py:contains_topk_call"),
+    ("serve.cu", "rules_topk_launch", "src/repro/kernels/serve.py:rules_topk_call"),
 ])
 def test_kernel_sources_state_what_they_replace(name, symbol, replaces):
     text = (PACKAGE / "csrc" / name).read_text()

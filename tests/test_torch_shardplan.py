@@ -129,8 +129,10 @@ def test_multi_shard_plans_raise():
     assert ShardPlan(n_parts=2).n_parts == 2
     with pytest.raises(NotImplementedError, match="2-D candidate"):
         ShardPlan.simulated(2, cand_parts=2)
-    with pytest.raises(NotImplementedError, match="query slice"):
-        ShardPlan.simulated(2).spmd(lambda r: r, n_rep=0, out_shard=(True,))
+    # out_shard= is ported now; with post= it raises, as in the reference
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ShardPlan.simulated(2).spmd(lambda r: (r,), n_rep=0, post=lambda r: r,
+                                    out_shard=(True,))
     with pytest.raises(ValueError):
         core.ClosureEngine(core.paper_context(), device="cpu", backend="jnp")
     with pytest.raises(RuntimeError, match="initialized"):
