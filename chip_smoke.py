@@ -15,9 +15,15 @@ checks, on the card:
      K1 and K3 over k ∈ {1, 2, 8} shards in one launch, K4 under all four
      (iceberg, cbo) flag pairs; K5 and K6 at S ∈ {8, 64, 1000, 1024}
      queries, tables of 1, 7, 8192 and 2**20 + 3 rows (above the
-     reference kernels' 2**22 cells), W ∈ {4, 5}, k ∈ {1, 5, 64}, live
-     counts below the table size, forced ties, min_conf 0.1 and 0.7, and
-     cases where no row matches;
+     reference kernels' 2**22 cells), W ∈ {4, 5}, k ∈ {1, 5, 64} and,
+     past one launch's 64 winners, k ∈ {65, 100, 128, C + 1}, live counts
+     below the table size, forced ties, min_conf 0.1 and 0.7, and cases
+     where no row matches; K7 (flash attention) against its plain version
+     within ``K7_TOL`` in float32 and bfloat16, on every case shape of
+     tests/test_flash_attention.py and at gemma2-9b's head shape for
+     S ∈ {1, 63, 64, 65, 4097, 5000}, causal or not, window 4096 or none,
+     cap 50 or none, through both wrappers, with valid_from all 0, mixed
+     and S - 1 (pad rows exactly 0);
   4. main path, one shard — MRGanter+ (local pruning) and MRCbo on the
      full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
@@ -56,6 +62,20 @@ checks, on the card:
      implication and partial-rule counts, basis SHA-256 and answer SHA-256,
      answers equal between the backends, K6 launched once per micro-batch
      (read as in phase 8, and one more run keeps the K6 operands);
+  10. LM serve, reduced — gemma2-9b and codeqwen1.5-7b ``reduced()``
+     through ``ServeEngine`` on numpy weights (``LM_SEED``): the
+     reference's greedy tokens (``LM_REDUCED_EXPECTED``) exactly, K7
+     launched once per layer of the prefill;
+  11. LM serve, full width — gemma2-9b at its published width and depth
+     (bf16, seeded torch.Generator weights on the card), four prompts of
+     7, 1024, 4097 and 5000 tokens, 16 greedy tokens: K7 launched 42 times
+     per prefill; the same run through the plain attention; prefill
+     logits within ``LM_LOGIT_TOL`` and tokens equal up to the first
+     step whose plain top-2 margin is under it; prefill and decode times,
+     a torch.profiler breakdown of warm decode steps (device-busy time and
+     share, the costliest kernels), peak memory; K7 on every captured
+     chunk, the costliest beside its plain version, its bound and
+     scaled_dot_product_attention on the cap-free chunk;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
      work alone; median of 25 after warm-up): the sum over the run and its
@@ -63,7 +83,8 @@ checks, on the card:
      and its time without the spin kernel (``unqueued_ms``, the host's
      launch path included).
 
-Any failed check raises and the script exits non-zero.  The second-to-last
+TF32 is switched off for matmuls and cuDNN (float32 products in full
+float32).  Any failed check raises and the script exits non-zero.  The second-to-last
 line is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It needs one card and exits non-zero
 without one.
@@ -71,6 +92,7 @@ without one.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import statistics
@@ -171,6 +193,42 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT32_OPS_PER_CLK_PER_SM = 64
 TIMING_REPS = 25
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's SM clock: longer than any wrapper's host path
+# The LM serving path (phases 10 and 11).  Reduced (phase 10): gemma2-9b
+# and codeqwen1.5-7b ``reduced()`` (float32; gemma2's window 32), weights
+# ``repro_torch.interop.numpy_params(cfg, LM_SEED)``, the reference CLI's
+# prompts plus one 40 tokens long (past the window), 16 greedy tokens in
+# the CLI's ServeConfig.  The expected tokens are the JAX package's
+# ServeEngine on those very weights, derived once on the CPU by
+# ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py lm``.
+LM_REDUCED_ARCHS = ("gemma2-9b", "codeqwen1.5-7b")
+LM_SEED = 20241016
+LM_REDUCED_MAX_LEN = 512  # the reference CLI's --max-len default
+LM_MAX_NEW = 16
+LM_REDUCED_EXPECTED = {
+    "gemma2-9b": [[56, 178, 49, 158, 6, 6, 6, 6, 6, 6, 6, 6, 6, 50, 50, 50],
+                  [193, 106, 84, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                  [29, 198, 198, 198, 198, 204, 177, 248, 248, 133, 248, 178, 43, 158, 94, 1]],
+    "codeqwen1.5-7b": [[74, 124, 63, 223, 63, 223, 63, 223, 166, 98, 42, 200, 193, 98, 49, 24],
+                       [126, 147, 24, 236, 97, 207, 180, 207, 154, 236, 97, 97, 31, 223, 22,
+                        166],
+                       [223, 154, 223, 74, 134, 154, 74, 134, 182, 154, 74, 31, 31, 31, 31,
+                        31]],
+}
+# Full width (phase 11): gemma2-9b at its published shape, bf16 weights from
+# a seeded torch.Generator on the card, four seeded prompts in four slots.
+LM_FULL_ARCH = "gemma2-9b"
+LM_FULL_PROMPTS = (7, 1024, 4097, 5000)  # tokens: one past the 4096 window, one past it by 904
+LM_FULL_MAX_LEN = 5120
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet)
+# Kernel and plain runs of phase 11 differ only in the attention's sum order
+# and p's bf16 rounding (K7_TOL): about one bf16 step of some attention
+# outputs per layer, carried through 42 bf16 layers.  The logits (fp32,
+# std ~1.2 here: unit-RMS hidden state times N(0, 0.02^2) embeddings over
+# 3584 dims) then move by some percent of their std; the largest of the
+# 4 x 256,000 last-position logits by a few times that.  So 0.25, a fifth
+# of the logits' std: their largest gap must stay under it, and a greedy
+# token may flip only where the plain run's top-2 margin is under it.
+LM_LOGIT_TOL = 0.25
 
 
 def emit(record: dict) -> None:
@@ -697,7 +755,7 @@ def run_full_lattices(device) -> dict:
 def check_serve_kernels(device) -> list[dict]:
     """Phase 3, serving half: K5 and K6 against their plain versions, bit for
     bit, on seeded tables: S not a multiple of 8, a table above the
-    reference's 2**22 cells, k up to the kernels' maximum, live counts below
+    reference's 2**22 cells, k from 1 past one launch's 64 to C + 1, live counts below
     the table size, forced ties, thresholds float32 cannot hold exactly, and
     tables where no row matches."""
     import numpy as np
@@ -712,6 +770,12 @@ def check_serve_kernels(device) -> list[dict]:
     cases = [(S, C, W, k) for S in (8, 64, 1000, 1024) for C in (1, 7, 8192)
              for W in (4, 5) for k in (1, 5, 64)]
     cases += [(S, big, W, k) for S in (64, 1000) for W in (4, 5) for k in (5, 64)]
+    # past one launch's PASS_K winners: k passes of at most 64, each after the
+    # previous pass's last winner (k = C + 1: every live row and then pads)
+    cases += [(S, C, W, k) for S in (64, 1000) for C in (7, 8192) for W in (4, 5)
+              for k in (65, 100, 128)]
+    cases += [(S, 7, W, 8) for S in (64, 1000) for W in (4, 5)]
+    cases += [(64, 8192, W, 8193) for W in (4, 5)]
     for S, C, W, k in cases:
         live = C if C < 8 else C - 1 - int(rng.integers(0, 5))  # pads past the live rows
         miss = (S, C, W, k) in ((64, 8192, 4, 5), (1000, big, 5, 64))
@@ -760,6 +824,147 @@ def check_serve_kernels(device) -> list[dict]:
                         "live": live, "hits": hits5})
         records.append({"kernel": "rules_topk", "S": S, "R": C, "W": W, "k": k,
                         "live": live, "hits": hits6})
+    return records
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: K7 (phase 3), reduced serve (phase 10), full width (11)
+# ---------------------------------------------------------------------------
+
+# K7 tolerances.  float32: 1e-5 absolute — the kernel and its plain version
+# compute the same sums of float32 products in another order, so only
+# rounding in the last bits differs.  bfloat16: each output element within
+# K7_TOL["bfloat16"] times its own query row's rms (over hd), plus one
+# bf16 step of the larger of the two values.  Why: both sides round p to
+# bf16 (2**-9 relative) after a running max taken over other key blocks
+# (64 keys against the plain version's 1024), so each weight w_j of the
+# softmax average carries its own relative rounding d_j, and the output
+# moves by sum_j w_j d_j (v_j - o): of order 2**-9 times the spread of the
+# attended values, which for standard-normal V is the row's rms (both fall
+# as 1/sqrt(keys attended), so one relative limit holds at S = 1 and at S =
+# 5000).  2**-6 is 8 such steps, about 10 standard deviations of the sum.
+# Then each side rounds its output to bf16 once, and two right answers may
+# sit one bf16 step (8 significant bits) apart.  An absolute limit alone
+# would not scale: at S = 5000 a typical |o| is about 0.02, as large as the
+# 2e-2 the S = 1 cases need.  The earlier absolute limits still hold as well
+# (K7_BF16_ABS): 2e-2 on standard-normal operands (|o| < ~4, whose bf16
+# step is at most 2**-6), plus 2**-7 of |want| on the model's own chunks,
+# whose outputs are not so bounded (K7_MODEL_REL: one bf16 step).
+K7_TOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
+K7_BF16_ABS = 2e-2
+K7_MODEL_REL = 2.0**-7
+K7_REF_CASES = (  # tests/test_flash_attention.py: every case shape
+    (2, 4, 2, 64, 64, 16, True, None, None),
+    (1, 6, 2, 100, 100, 32, True, 32, None),
+    (2, 2, 1, 48, 48, 16, True, None, 50.0),
+    (1, 4, 4, 33, 70, 8, False, None, None),
+    (1, 8, 2, 256, 256, 64, True, 64, 30.0),
+    (1, 1, 1, 8, 8, 8, True, None, None),
+    (1, 4, 2, 128, 128, 32, True, None, None),
+    (1, 2, 2, 64, 64, 32, True, None, None),
+)
+K7_GEMMA_S = (1, 63, 64, 65, 4097, 5000)
+
+
+def k7_require(name: str, got, want, dtype: str, pad=None, rel: float = 0.0) -> dict:
+    """K7 against its plain version within K7_TOL (see there), and in
+    bfloat16 within K7_BF16_ABS + ``rel`` of |want| too; pad rows exactly 0.  Returns the max absolute error and, for bfloat16, the
+    reading held against the limit: the largest excess over one bf16 step,
+    in units of the row's rms."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} != "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    if pad is not None and bool(pad.any()) and not bool((got[pad] == 0).all()):
+        raise AssertionError(f"{name}: a pad row is not 0")
+    if not got.numel():
+        return {"max_abs_err": 0.0}
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = float(diff.max())
+    if dtype == "float32":
+        if not err <= K7_TOL[dtype]:
+            raise AssertionError(f"{name}: max |err| {err} above {K7_TOL[dtype]}")
+        return {"max_abs_err": err}
+    big = torch.maximum(g.abs(), w.abs())
+    step = torch.where(big > 0, torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8), 0.0)
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    over = diff - step
+    bad = over > K7_TOL[dtype] * rms
+    row_rel = float((over / torch.where(rms > 0, rms, 1.0)).clamp_min(0).max())
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond "
+                             f"{K7_TOL[dtype]} x their row's rms + one bf16 step "
+                             f"(largest excess {row_rel} rms; max |err| {err})")
+    if not bool((diff <= K7_BF16_ABS + rel * w.abs()).all()):
+        raise AssertionError(f"{name}: max |err| {err} above {K7_BF16_ABS} + {rel} |want|")
+    return {"max_abs_err": err, "row_rel_err": row_rel,
+            "rms": float(w.pow(2).mean().sqrt())}
+
+
+def check_attention_kernel(device) -> list[dict]:
+    """Phase 3, attention half: K7 against its plain version on seeded
+    standard-normal operands, float32 and bfloat16 — every case shape of
+    tests/test_flash_attention.py, and gemma2-9b's head shape (hd 256, 16
+    query heads over 8 KV heads) at S in K7_GEMMA_S, causal and not, with
+    and without the 4096 window and the cap 50, through both wrappers; the
+    model-layout wrapper with valid_from all 0, mixed, and S - 1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(20240917)
+
+    def normal(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+
+    records = []
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for B, H, KV, S, T, hd, causal, window, cap in K7_REF_CASES:
+            q, k, v = normal(B, H, S, hd, dtype=dt), normal(B, KV, T, hd, dtype=dt), \
+                normal(B, KV, T, hd, dtype=dt)
+            kw = dict(causal=causal, window=window, logit_cap=cap)
+            err = k7_require(f"K7 {dname} {(B, H, KV, S, T, hd)} {kw}",
+                             fa.flash_attention(q, k, v, **kw),
+                             fa.flash_attention_plain(q, k, v, **kw), dname)
+            records.append({"kernel": "flash_attention", "dtype": dname, "B": B, "H": H,
+                            "KV": KV, "S": S, "T": T, "hd": hd, **kw, **err})
+        for S in K7_GEMMA_S:
+            for window in (None, 4096):
+                for cap in (None, 50.0):
+                    q, k, v = normal(1, 16, S, 256, dtype=dt), normal(1, 8, S, 256, dtype=dt), \
+                        normal(1, 8, S, 256, dtype=dt)
+                    for causal in (True, False):
+                        kw = dict(causal=causal, window=window, logit_cap=cap)
+                        err = k7_require(f"K7 {dname} gemma2 S={S} {kw}",
+                                         fa.flash_attention(q, k, v, **kw),
+                                         fa.flash_attention_plain(q, k, v, **kw), dname)
+                        records.append({"kernel": "flash_attention", "dtype": dname, "B": 1,
+                                        "H": 16, "KV": 8, "S": S, "T": S, "hd": 256, **kw,
+                                        **err})
+                    # the model layout, left pads
+                    qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                    qm, km, vm = (torch.cat([x, x.flip(1)]) for x in (qm, km, vm))  # B = 2
+                    for vf_name, vf in (("zero", (0, 0)), ("mixed", (S // 3, 0)),
+                                        ("S-1", (S - 1, S - 1))):
+                        vf = torch.tensor(vf, device=device, dtype=torch.int32)
+                        pos = torch.arange(S, device=device, dtype=torch.int32).expand(2, S)
+                        pos = torch.where(pos >= vf[:, None], pos, -1)
+                        kw = dict(window=window, logit_cap=cap)
+                        err = k7_require(
+                            f"K7 {dname} gemma2 blockwise S={S} valid_from={vf.tolist()} {kw}",
+                            fa.blockwise_attention(qm, km, vm, valid_from=vf, **kw),
+                            fa.attention_plain(qm, km, vm, pos, pos, **kw), dname,
+                            pad=pos < 0)
+                        records.append({"kernel": "blockwise_attention", "dtype": dname,
+                                        "B": 2, "S": S, "hd": 256, "valid_from": vf_name,
+                                        **kw, **err})
     return records
 
 
@@ -1019,6 +1224,295 @@ def run_rules_phase(device) -> tuple[dict, dict, int]:
     return report, {"rules_topk": chunks}, launches
 
 
+def lm_reduced_prompts(vocab: int) -> list:
+    """The reference CLI's default prompts ("1,2,3;4,5,6,7", as its parser
+    reads them) and one seeded prompt of 40 tokens, past the reduced window."""
+    import numpy as np
+
+    cli = [[t % vocab for t in chunk] for chunk in ((1, 2, 3), (4, 5, 6, 7))]
+    return cli + [np.random.default_rng(LM_SEED + 1).integers(0, vocab, size=40).tolist()]
+
+
+def k7_launches() -> int:
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.flash_attention.launches + fa.blockwise_attention.launches
+
+
+def run_lm_reduced(device) -> dict:
+    """Phase 10: the reduced LM configs through the port's ServeEngine on the
+    card (K7 on every prefill layer), on the numpy weights the reference was
+    given: the reference's greedy tokens exactly."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.interop import numpy_params, params_from_jax
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    report = {}
+    for arch in LM_REDUCED_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = Decoder(cfg, device=device, seed=None)
+        model.load_state_dict(params_from_jax(numpy_params(cfg, LM_SEED), cfg))
+        prompts = lm_reduced_prompts(cfg.vocab_size)
+        eng = ServeEngine(cfg, model, ServeConfig(max_len=LM_REDUCED_MAX_LEN,
+                                                  batch_slots=max(4, len(prompts))))
+        kernels.reset_launches()
+        got = eng.generate(prompts, LM_MAX_NEW)
+        torch.cuda.synchronize()
+        launches = k7_launches()
+        if got != LM_REDUCED_EXPECTED[arch]:
+            raise AssertionError(f"{arch} reduced: tokens {got} != the reference's "
+                                 f"{LM_REDUCED_EXPECTED[arch]}")
+        if launches != cfg.n_layers:
+            raise AssertionError(f"{arch} reduced: K7 launched {launches} times in one "
+                                 f"prefill of {cfg.n_layers} layers")
+        report[arch] = {"tokens_equal_reference": True, "k7_launches": launches,
+                        "layers": cfg.n_layers, "prompt_lens": [len(p) for p in prompts]}
+    emit({"phase": "lm_reduced", "runs": report})
+    return report
+
+
+def attention_pairs(S: int, valid_from, window) -> int:
+    """Valid (query, key) pairs of one head of a causal self-attention over
+    S positions, per row of ``valid_from``, with an optional window: what
+    the chunk's data needs."""
+    total = 0
+    for vf in valid_from:
+        n = S - vf  # real rows i = vf .. S-1 see keys j = vf .. i
+        if window is None or window >= n:
+            total += n * (n + 1) // 2
+        else:  # row r (0-based) sees min(r + 1, window) keys
+            total += window * (window + 1) // 2 + (n - window) * window
+    return total
+
+
+def time_attention(chunks: list, launches: int) -> dict:
+    """K7 on the chunks the full-width prefill gave it: each replayed alone,
+    the costliest beside its plain version and its bound; ``library_ms``
+    is scaled_dot_product_attention on the costliest chunk without a
+    window (a global layer) with the cap removed and no pads, beside K7 on
+    that same cap-free chunk, so both compute one function."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    timed = []
+    for n, ((q, k, v), kw) in enumerate(chunks):
+        ms = cuda_time_ms(lambda: fa.blockwise_attention(q, k, v, **kw), reps=3, warmup=1)
+        timed.append((ms, n))
+    ms_all = sum(t[0] for t in timed)
+    _, n = max(timed)
+    (q, k, v), kw = chunks[n]
+    B, S, H, hd = q.shape
+    pos = fa.positions_of(kw["valid_from"], B, S, q.device)
+    plain_kw = dict(window=kw["window"], logit_cap=kw["logit_cap"])
+    ms = cuda_time_ms(lambda: fa.blockwise_attention(q, k, v, **kw), reps=10)
+    got = fa.blockwise_attention(q, k, v, **kw)
+    want = fa.attention_plain(q, k, v, pos, pos, **plain_kw)
+    err = k7_require("K7 on its costliest main-path chunk", got, want, "bfloat16",
+                     pad=pos < 0, rel=K7_MODEL_REL)
+    plain_ms = cuda_time_ms(lambda: fa.attention_plain(q, k, v, pos, pos, **plain_kw), reps=3,
+                            warmup=1)
+    vf = kw["valid_from"].tolist()
+    pairs = H * attention_pairs(S, vf, kw["window"])
+    t_ops = 4 * hd * pairs / BF16_FLOPS_PER_S * 1e3
+    t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S * 1e3
+    # the cap-free, pad-free global chunk: K7 and SDPA on one function
+    g = next(i for _, i in sorted(timed, reverse=True) if chunks[i][1]["window"] is None)
+    (gq, gk, gv), _ = chunks[g]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (gq, gk, gv))
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    k7 = lambda: fa.flash_attention(qt, kt, vt, causal=True)
+    lib_err = k7_require("K7 against scaled_dot_product_attention (cap-free chunk)",
+                         k7(), lib(), "bfloat16", rel=K7_MODEL_REL)
+    library_ms = cuda_time_ms(lib, reps=10)
+    k7_free_ms = cuda_time_ms(k7, reps=10)
+    free_pairs = qt.shape[0] * qt.shape[1] * attention_pairs(S, [0], None)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:109",
+        "launches": launches, "max_abs_err": err["max_abs_err"],
+        "row_rel_err": err["row_rel_err"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+        "chunk": {"layer": n, "B": B, "S": S, "H": H, "KV": k.shape[2], "hd": hd,
+                  "valid_from": vf, **plain_kw, "pairs": pairs},
+        "run_launches": len(chunks), "run_ms": ms_all,
+        "library_chunk": {"layer": g, "cap": None, "valid_from": [0] * qt.shape[0],
+                          "k7_ms": k7_free_ms, "pairs": free_pairs,
+                          "bound_ms": max(4 * hd * free_pairs / BF16_FLOPS_PER_S * 1e3, t_bytes),
+                          "k7_vs_sdpa_max_abs_err": lib_err},
+    }
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """K7's model-layout wrapper swapped for its plain version while the
+    block runs (the model calls the wrapper by its module-level name)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    real = fa.blockwise_attention
+    def plain(q, k, v, *, valid_from=None, **kw):
+        pos = fa.positions_of(valid_from, q.shape[0], q.shape[1], q.device)
+        return fa.attention_plain(q, k, v, pos, pos, **kw)
+
+    fa.blockwise_attention = plain
+    try:
+        yield
+    finally:
+        fa.blockwise_attention = real
+
+
+def decode_profile(model, prompts, steps: int = 3) -> dict:
+    """Where a warm decode step's device time goes: the engine's left-padded
+    prefill and one warm-up step, then ``steps`` decode steps under
+    torch.profiler (CPU and CUDA activities).  Returns the device-busy
+    milliseconds per step (the sum of the kernels' times) and the kernels
+    with the most of it; against the engine's host-clock step time it gives
+    the card's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import left_pad
+
+    toks, vf = left_pad(prompts, len(prompts))
+    plen = toks.shape[1]
+    with torch.inference_mode():
+        caches = model.init_caches(len(prompts), LM_FULL_MAX_LEN)
+        logits, caches = model.prefill(torch.from_numpy(toks).to(model.device), caches,
+                                       torch.from_numpy(vf).to(model.device))
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        logits, caches = model.decode_step(tok, plen, caches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for step in range(1, steps + 1):
+                logits, caches = model.decode_step(tok, plen + step, caches)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return {"device_ms_per_step": busy_us / 1e3 / steps,
+            "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / 1e3 / steps
+                                        for e in top},
+            "kernel_launches_per_step": sum(e.count for e in kernels) / steps}
+
+
+def run_lm_full(device) -> tuple[dict, dict]:
+    """Phase 11: gemma2-9b at full width and depth through the port's
+    ServeEngine on the card: bf16 weights from a seeded torch.Generator,
+    four seeded prompts of LM_FULL_PROMPTS tokens in four slots,
+    LM_FULL_MAX_LEN, 16 greedy tokens.  A kernel run (K7 launched once per
+    layer of the prefill, counted from 0), the same through the plain
+    attention on the same weights, a warm kernel run, and a run that keeps
+    K7's operands.  The two runs' last-position prefill logits must agree
+    within LM_LOGIT_TOL and their tokens must be equal up to the first step
+    at which the plain run's top-2 margin falls under it.  Returns the
+    report and K7's record of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_config(LM_FULL_ARCH)
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device=device, seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in LM_FULL_PROMPTS]
+    eng = ServeEngine(cfg, model, ServeConfig(max_len=LM_FULL_MAX_LEN,
+                                              batch_slots=len(prompts)))
+
+    def run(backend: str):
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        if backend == "kernel":
+            out = eng.generate(prompts, LM_MAX_NEW)
+        else:  # the same path with K7's wrapper swapped for its plain version
+            with plain_attention():
+                out = eng.generate(prompts, LM_MAX_NEW)
+        torch.cuda.synchronize()
+        st = eng.stats
+        return {"tokens": out, "launches": k7_launches(), "prefill_ms": st.prefill_s * 1e3,
+                "decode_ms": [x * 1e3 for x in st.decode_s],
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "logits": st.prefill_logits, "top2": [t.float().cpu() for t in st.top2]}
+
+    cold = run("kernel")
+    decode = decode_profile(model, prompts)
+    if cold["launches"] != cfg.n_layers:
+        raise AssertionError(f"gemma2-9b: K7 launched {cold['launches']} times in one "
+                             f"prefill of {cfg.n_layers} layers")
+    plain = run("torch")
+    if plain["launches"] != 0:
+        raise AssertionError("the plain run launched K7")
+    warm = run("kernel")
+    _, captured = capture_launches(("blockwise_attention",),
+                                   lambda: eng.generate(prompts, LM_MAX_NEW))
+    check_captured("gemma2-9b prefill", captured, {"blockwise_attention": cfg.n_layers})
+
+    logit_err = float((cold["logits"] - plain["logits"]).abs().max())
+    if not logit_err <= LM_LOGIT_TOL:
+        raise AssertionError(f"gemma2-9b: prefill logits of K7 and the plain attention "
+                             f"differ by {logit_err} > {LM_LOGIT_TOL}")
+    if warm["tokens"] != cold["tokens"]:
+        raise AssertionError("gemma2-9b: two kernel runs gave different tokens")
+    # per slot: tokens equal up to the first step whose plain top-2 margin is
+    # under the tolerance (there a difference in the last bits may flip it)
+    agree_until = []
+    for slot in range(len(prompts)):
+        margins = [float(t[slot, 0] - t[slot, 1]) for t in plain["top2"]]
+        close = next((i for i, m in enumerate(margins[:LM_MAX_NEW]) if m < LM_LOGIT_TOL),
+                     LM_MAX_NEW)
+        if cold["tokens"][slot][:close] != plain["tokens"][slot][:close]:
+            raise AssertionError(f"gemma2-9b slot {slot}: kernel tokens "
+                                 f"{cold['tokens'][slot]} and plain {plain['tokens'][slot]} "
+                                 f"differ before step {close}")
+        agree_until.append(close)
+    for r in (cold, plain, warm):
+        if not all(len(t) == LM_MAX_NEW for t in r["tokens"]):
+            raise AssertionError("gemma2-9b: a slot stopped early")
+    k7 = time_attention(captured["blockwise_attention"], cold["launches"])
+    del captured
+    report = {
+        "arch": LM_FULL_ARCH, "layers": cfg.n_layers, "params": cfg.param_count(),
+        "weight_bytes": weight_bytes, "init_s": init_s, "prompt_lens": list(LM_FULL_PROMPTS),
+        "slots": len(prompts), "max_len": LM_FULL_MAX_LEN, "new_tokens": LM_MAX_NEW,
+        "k7_launches_per_prefill": cold["launches"],
+        "prefill_ms": {"cold": cold["prefill_ms"], "warm": warm["prefill_ms"],
+                       "plain": plain["prefill_ms"]},
+        "decode_ms_per_token": {
+            "cold_first": cold["decode_ms"][0],
+            "cold_median": statistics.median(cold["decode_ms"]),
+            "warm_median": statistics.median(warm["decode_ms"]),
+            "plain_median": statistics.median(plain["decode_ms"])},
+        "decode_profile": decode,
+        "decode_device_busy_share": decode["device_ms_per_step"]
+        / statistics.median(warm["decode_ms"]),
+        "peak_bytes": {"kernel": cold["peak_bytes"], "plain": plain["peak_bytes"]},
+        "prefill_logits_max_abs_diff": logit_err, "logit_tol": LM_LOGIT_TOL,
+        "tokens_agree_until_step": agree_until,
+        "first_close_step": min(agree_until),
+        "tokens_equal": cold["tokens"] == plain["tokens"],
+        "plain_min_margin": min(float((t[:, 0] - t[:, 1]).min()) for t in plain["top2"]),
+        "tokens": cold["tokens"],
+    }
+    emit({"phase": "lm_full", **report})
+    del model, eng
+    torch.cuda.empty_cache()
+    return report, k7
+
+
 def int32_ops_per_s(device) -> float:
     import torch
 
@@ -1258,6 +1752,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    # float32 products in full float32 (the K7 float32 tolerance and the
+    # reduced LM configs' exact tokens assume it): no TF32 in matmuls or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
@@ -1273,11 +1771,21 @@ def main() -> int:
         print(f"ptxas {name}: {rec['ptxas']}", flush=True)
 
     t0 = time.perf_counter()
-    records = check_kernels(device) + check_sharded_kernels(device) + check_serve_kernels(device)
+    records = (check_kernels(device) + check_sharded_kernels(device)
+               + check_serve_kernels(device) + check_attention_kernel(device))
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
                         for k in dict.fromkeys(r["kernel"] for r in records)},
-          "bit_exact": True})
+          "bit_exact": "K1-K6", "k7_tolerance": K7_TOL,
+          "k7_max_abs_err": {d: max((r["max_abs_err"] for r in records
+                                     if r.get("dtype") == d), default=None) for d in K7_TOL},
+          "k7_bf16_row_rel_err": max(r.get("row_rel_err", 0.0) for r in records),
+          "k7_bf16_by_S": {S: {"max_row_rel_err": max(r["row_rel_err"] for r in recs),
+                               "max_abs_err": max(r["max_abs_err"] for r in recs),
+                               "min_rms": min(r["rms"] for r in recs)}
+                           for S in K7_GEMMA_S
+                           for recs in [[r for r in records if r.get("dtype") == "bfloat16"
+                                         and r.get("hd") == 256 and r.get("S") == S]]}})
 
     t0 = time.perf_counter()
     _, launches, chunks, main_intents = run_main_path(device)
@@ -1297,9 +1805,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _, rules_chunks, launches["rules_topk"] = run_rules_phase(device)
     emit({"phase": "rules_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    run_lm_reduced(device)
+    emit({"phase": "lm_reduced_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, k7 = run_lm_full(device)
+    emit({"phase": "lm_full_seconds", "seconds": time.perf_counter() - t0})
     chunks.update(serve_chunks)
     chunks.update(rules_chunks)
-    emit({"kernels": time_kernels(device, launches, chunks)})
+    emit({"kernels": time_kernels(device, launches, chunks) + [k7]})
 
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

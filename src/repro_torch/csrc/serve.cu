@@ -22,7 +22,18 @@
 // kernels hold the whole table in VMEM and fall back above 2^22 table
 // cells or for slots that are not a multiple of 8; these stream the table
 // from device memory, so they take any S (the tail CTA masks its missing
-// queries), any C or R and any W.  k is at most SERVE_MAX_K.
+// queries), any C or R and any W.
+//
+// Any k >= 1: one launch selects at most SERVE_MAX_K winners, columns
+// [k0, k0 + kp) of the [S, k] outputs.  Both orders are total, so pass
+// k0 > 0 keeps only the entries strictly after the last winner of the
+// pass before it (column k0 - 1 of the outputs, plus the winner's table
+// position for K6, kept in a per-query cursor); a query whose previous
+// pass ran out of hits gets (-1, -1) again.  k0 is a launch argument read
+// at run time.  K6 ORs the union in pass 0 only.  Whether a pass is the
+// first is a template flag (LATER), chosen at launch from the same build:
+// pass 0 compiles to the one-pass body, with no cursor compare in its
+// selection loop.
 //
 // What bounds it on the H100 (K5 and K6 alike): integer ALU issue for the
 // subset test at large S (S*C*W word tests), device memory otherwise —
@@ -38,7 +49,7 @@
 // Each lane owns rows lane, lane + 32, ... of the tile and keeps a sorted
 // local top-k of its hits (in local memory; rows arrive in ascending
 // order, so ties need no index compare in K5); after the last tile the
-// warp merges the 32 local lists in k rounds of a shuffle argmax.  K6 ORs
+// warp merges the 32 local lists in kp rounds of a shuffle argmax.  K6 ORs
 // the consequent words of its firing rules per lane and folds them with
 // __reduce_or_sync into the query's union row.  Rows at or past the live
 // count are never read.
@@ -115,19 +126,26 @@ __device__ __forceinline__ uint32_t tile_fail(ServeSmem& sm,
 // K5
 // ---------------------------------------------------------------------------
 
-template <int KMAX>
+template <int KMAX, bool LATER>
 __global__ void __launch_bounds__(SERVE_THREADS)
 contains_topk_kernel(const uint32_t* __restrict__ gc,
                      const uint32_t* __restrict__ intents,
                      const int* __restrict__ supports,
                      int* __restrict__ out_i, int* __restrict__ out_v,
-                     int S, int limit, int W, int k)
+                     int S, int limit, int W, int k, int k0, int kp)
 {
     __shared__ ServeSmem sm;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int s0 = blockIdx.x * SERVE_WARPS;
     const int s = s0 + warp;
     const bool active = s < S;
+    // the last winner of the previous pass: only entries after it count
+    // (-1 after a pass that ran out of hits: then nothing is after it)
+    int cv = INT_MAX_, ci = -1;
+    if (LATER && active) {
+        cv = out_v[(long)s * k + k0 - 1];
+        ci = out_i[(long)s * k + k0 - 1];
+    }
 
     int lv[KMAX], li[KMAX];  // this lane's hits: support desc, index asc
     int cnt = 0;
@@ -140,9 +158,10 @@ contains_topk_kernel(const uint32_t* __restrict__ gc,
             const long r = r0 + 32 * i + lane;
             if (r >= limit || (fail & (1u << i))) continue;
             const int v = supports[r];
-            if (v < 0 || (cnt == k && v <= lv[k - 1])) continue;
+            if (v < 0 || (cnt == kp && v <= lv[kp - 1])) continue;
+            if (LATER && (v > cv || (v == cv && r <= ci))) continue;  // taken in an earlier pass
             // rows arrive in ascending order: an equal value stays behind
-            int j = cnt < k ? cnt++ : k - 1;
+            int j = cnt < kp ? cnt++ : kp - 1;
             while (j > 0 && lv[j - 1] < v) { lv[j] = lv[j - 1]; li[j] = li[j - 1]; --j; }
             lv[j] = v;
             li[j] = (int)r;
@@ -150,7 +169,7 @@ contains_topk_kernel(const uint32_t* __restrict__ gc,
     }
     if (!active) return;
     int p = 0;
-    for (int t = 0; t < k; ++t) {
+    for (int t = 0; t < kp; ++t) {
         const bool has = p < cnt;
         int bv = has ? lv[p] : -1, bi = has ? li[p] : INT_MAX_;
         const int mv = bv, mi = bi;
@@ -163,39 +182,47 @@ contains_topk_kernel(const uint32_t* __restrict__ gc,
         if (bv < 0) bi = -1;
         else if (has && mi == bi && mv == bv) ++p;  // indices are unique
         if (lane == 0) {
-            out_i[(long)s * k + t] = bi;
-            out_v[(long)s * k + t] = bv < 0 ? -1 : bv;
+            out_i[(long)s * k + k0 + t] = bi;
+            out_v[(long)s * k + k0 + t] = bv < 0 ? -1 : bv;
         }
     }
 }
 
-template <int KMAX>
+template <int KMAX, bool LATER>
 static int launch_contains(const void* gc, const void* intents, const void* supports,
                            void* out_i, void* out_v, int S, int limit, int W, int k,
-                           cudaStream_t stream)
+                           int k0, int kp, cudaStream_t stream)
 {
     const dim3 grid((S + SERVE_WARPS - 1) / SERVE_WARPS);
-    contains_topk_kernel<KMAX><<<grid, SERVE_THREADS, 0, stream>>>(
+    contains_topk_kernel<KMAX, LATER><<<grid, SERVE_THREADS, 0, stream>>>(
         (const uint32_t*)gc, (const uint32_t*)intents, (const int*)supports,
-        (int*)out_i, (int*)out_v, S, limit, W, k);
+        (int*)out_i, (int*)out_v, S, limit, W, k, k0, kp);
     return (int)cudaGetLastError();
 }
 
-// gc [S, W], intents [C, W], supports [C] → out_i, out_v [S, k];
-// S >= 1, 1 <= k <= SERVE_MAX_K.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// gc [S, W], intents [C, W], supports [C] → columns [k0, k0 + kp) of
+// out_i, out_v [S, k]; S >= 1, 0 <= k0, 1 <= kp <= SERVE_MAX_K,
+// k0 + kp <= k, and columns [0, k0) written by the passes before.
+// Launches one pass on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int contains_topk_launch(const void* gc, const void* intents,
                                     const void* supports, void* out_i, void* out_v,
                                     int S, int C, int W, int n_concepts, int k,
-                                    void* stream)
+                                    int k0, int kp, void* stream)
 {
-    if (k < 1 || k > SERVE_MAX_K) return (int)cudaErrorInvalidValue;
+    if (kp < 1 || kp > SERVE_MAX_K || k0 < 0 || k0 + kp > k)
+        return (int)cudaErrorInvalidValue;
     const int limit = n_concepts < 0 ? 0 : (n_concepts < C ? n_concepts : C);
-    if (k <= 8)
-        return launch_contains<8>(gc, intents, supports, out_i, out_v, S, limit, W, k,
-                                  (cudaStream_t)stream);
-    return launch_contains<SERVE_MAX_K>(gc, intents, supports, out_i, out_v, S, limit, W,
-                                        k, (cudaStream_t)stream);
+#define CONTAINS_CASE(KMAX, LATER)                                                      \
+    return launch_contains<KMAX, LATER>(gc, intents, supports, out_i, out_v, S, limit, W, \
+                                        k, k0, kp, (cudaStream_t)stream)
+    if (kp <= 8) {
+        if (k0 == 0) CONTAINS_CASE(8, false);
+        CONTAINS_CASE(8, true);
+    }
+    if (k0 == 0) CONTAINS_CASE(SERVE_MAX_K, false);
+    CONTAINS_CASE(SERVE_MAX_K, true);
+#undef CONTAINS_CASE
 }
 
 // ---------------------------------------------------------------------------
@@ -210,7 +237,7 @@ __device__ __forceinline__ bool rule_before(float av, int ar, int ap,
     return av > bv || (av == bv && (ar < br || (ar == br && ap < bp)));
 }
 
-template <int KMAX>
+template <int KMAX, bool LATER>
 __global__ void __launch_bounds__(SERVE_THREADS)
 rules_topk_kernel(const uint32_t* __restrict__ prem,
                   const uint32_t* __restrict__ added,
@@ -219,16 +246,26 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
                   const int* __restrict__ rid,
                   const uint32_t* __restrict__ queries,
                   int* __restrict__ out_i, float* __restrict__ out_v,
-                  uint32_t* __restrict__ out_u,
-                  int S, int limit, int W, float min_conf, int k)
+                  uint32_t* __restrict__ out_u, int* __restrict__ cursor,
+                  int S, int limit, int W, float min_conf, int k, int k0, int kp)
 {
     __shared__ ServeSmem sm;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int s0 = blockIdx.x * SERVE_WARPS;
     const int s = s0 + warp;
     const bool active = s < S;
-    if (active)
+    // the union is every firing rule's: the first pass ORs it
+    if (!LATER && active)
         for (int w = lane; w < W; w += 32) out_u[(long)s * W + w] = 0u;
+    // the last winner of the previous pass: only entries after it count
+    // (metric -1 after a pass that ran out of hits: nothing is after it)
+    float cv = __int_as_float(0x7f800000);  // +inf: pass 0 keeps every entry
+    int cr = -1, cp = -1;
+    if (LATER && active) {
+        cv = out_v[(long)s * k + k0 - 1];
+        cr = out_i[(long)s * k + k0 - 1];
+        cp = cursor[s];
+    }
 
     float lv[KMAX];
     int lr[KMAX], lp[KMAX];
@@ -246,29 +283,32 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
             const float v = metric[r];
             const int id = rid[r], pos = (int)r;
             if (!(v >= 0.0f)) continue;
-            if (cnt == k && !rule_before(v, id, pos, lv[k - 1], lr[k - 1], lp[k - 1]))
+            if (LATER && !rule_before(cv, cr, cp, v, id, pos)) continue;  // taken in an earlier pass
+            if (cnt == kp && !rule_before(v, id, pos, lv[kp - 1], lr[kp - 1], lp[kp - 1]))
                 continue;
-            int j = cnt < k ? cnt++ : k - 1;
+            int j = cnt < kp ? cnt++ : kp - 1;
             while (j > 0 && rule_before(v, id, pos, lv[j - 1], lr[j - 1], lp[j - 1])) {
                 lv[j] = lv[j - 1]; lr[j] = lr[j - 1]; lp[j] = lp[j - 1]; --j;
             }
             lv[j] = v; lr[j] = id; lp[j] = pos;
         }
-        __syncwarp();  // out_u zeroed / last tile's union row written
-        if (!__any_sync(FULL_MASK, ok != 0u)) continue;
-        // the consequent union of this tile's firing rules, word by word
-        for (int w = 0; w < W; ++w) {
-            uint32_t acc = 0u;
+        if constexpr (!LATER) {
+            __syncwarp();  // out_u zeroed / last tile's union row written
+            if (!__any_sync(FULL_MASK, ok != 0u)) continue;
+            // the consequent union of this tile's firing rules, word by word
+            for (int w = 0; w < W; ++w) {
+                uint32_t acc = 0u;
 #pragma unroll
-            for (int i = 0; i < ROWS_PER_LANE; ++i)
-                if (ok & (1u << i)) acc |= added[(r0 + 32 * i + lane) * (long)W + w];
-            acc = __reduce_or_sync(FULL_MASK, acc);
-            if (lane == 0) out_u[(long)s * W + w] |= acc;
+                for (int i = 0; i < ROWS_PER_LANE; ++i)
+                    if (ok & (1u << i)) acc |= added[(r0 + 32 * i + lane) * (long)W + w];
+                acc = __reduce_or_sync(FULL_MASK, acc);
+                if (lane == 0) out_u[(long)s * W + w] |= acc;
+            }
         }
     }
     if (!active) return;
     int p = 0;
-    for (int t = 0; t < k; ++t) {
+    for (int t = 0; t < kp; ++t) {
         const bool has = p < cnt;
         float bv = has ? lv[p] : -1.0f;
         int br = has ? lr[p] : INT_MAX_, bp = has ? lp[p] : INT_MAX_;
@@ -283,43 +323,56 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
         const bool hit = bv >= 0.0f;
         if (hit && has && mp == bp) ++p;  // positions are unique
         if (lane == 0) {
-            out_i[(long)s * k + t] = hit ? br : -1;
-            out_v[(long)s * k + t] = hit ? bv : -1.0f;
+            out_i[(long)s * k + k0 + t] = hit ? br : -1;
+            out_v[(long)s * k + k0 + t] = hit ? bv : -1.0f;
+            if (cursor != nullptr && t == kp - 1) cursor[s] = hit ? bp : -1;
         }
     }
 }
 
-template <int KMAX>
+template <int KMAX, bool LATER>
 static int launch_rules(const void* prem, const void* added, const void* conf,
                         const void* metric, const void* rid, const void* queries,
-                        void* out_i, void* out_v, void* out_u,
-                        int S, int limit, int W, float min_conf, int k,
+                        void* out_i, void* out_v, void* out_u, void* cursor,
+                        int S, int limit, int W, float min_conf, int k, int k0, int kp,
                         cudaStream_t stream)
 {
     const dim3 grid((S + SERVE_WARPS - 1) / SERVE_WARPS);
-    rules_topk_kernel<KMAX><<<grid, SERVE_THREADS, 0, stream>>>(
+    rules_topk_kernel<KMAX, LATER><<<grid, SERVE_THREADS, 0, stream>>>(
         (const uint32_t*)prem, (const uint32_t*)added, (const float*)conf,
         (const float*)metric, (const int*)rid, (const uint32_t*)queries,
-        (int*)out_i, (float*)out_v, (uint32_t*)out_u, S, limit, W, min_conf, k);
+        (int*)out_i, (float*)out_v, (uint32_t*)out_u, (int*)cursor,
+        S, limit, W, min_conf, k, k0, kp);
     return (int)cudaGetLastError();
 }
 
 // prem, added [R, W], conf, metric [R] f32, rid [R], queries [S, W]
-// → out_i [S, k], out_v [S, k] f32, out_u [S, W]; S >= 1,
-// 1 <= k <= SERVE_MAX_K.  min_conf arrives already rounded to float32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// → columns [k0, k0 + kp) of out_i [S, k] and out_v [S, k] f32, and (pass
+// k0 = 0) out_u [S, W]; S >= 1, 0 <= k0, 1 <= kp <= SERVE_MAX_K,
+// k0 + kp <= k.  cursor [S] int32 carries each query's last winner's
+// position from one pass to the next; it may be null when k0 + kp == k
+// and k0 == 0.  min_conf arrives already rounded to float32.  Launches
+// one pass on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int rules_topk_launch(const void* prem, const void* added, const void* conf,
                                  const void* metric, const void* rid,
                                  const void* queries, void* out_i, void* out_v,
-                                 void* out_u, int S, int R, int W, int n_rules,
-                                 float min_conf, int k, void* stream)
+                                 void* out_u, void* cursor, int S, int R, int W,
+                                 int n_rules, float min_conf, int k, int k0, int kp,
+                                 void* stream)
 {
-    if (k < 1 || k > SERVE_MAX_K) return (int)cudaErrorInvalidValue;
+    if (kp < 1 || kp > SERVE_MAX_K || k0 < 0 || k0 + kp > k ||
+        (cursor == nullptr && (k0 > 0 || k0 + kp < k)))
+        return (int)cudaErrorInvalidValue;
     const int limit = n_rules < 0 ? 0 : (n_rules < R ? n_rules : R);
-    if (k <= 8)
-        return launch_rules<8>(prem, added, conf, metric, rid, queries, out_i, out_v,
-                               out_u, S, limit, W, min_conf, k, (cudaStream_t)stream);
-    return launch_rules<SERVE_MAX_K>(prem, added, conf, metric, rid, queries, out_i,
-                                     out_v, out_u, S, limit, W, min_conf, k,
-                                     (cudaStream_t)stream);
+#define RULES_CASE(KMAX, LATER)                                                         \
+    return launch_rules<KMAX, LATER>(prem, added, conf, metric, rid, queries, out_i,     \
+                                     out_v, out_u, cursor, S, limit, W, min_conf, k, k0, \
+                                     kp, (cudaStream_t)stream)
+    if (kp <= 8) {
+        if (k0 == 0) RULES_CASE(8, false);
+        RULES_CASE(8, true);
+    }
+    if (k0 == 0) RULES_CASE(SERVE_MAX_K, false);
+    RULES_CASE(SERVE_MAX_K, true);
+#undef RULES_CASE
 }

@@ -8,16 +8,21 @@
 and metric selection).  Each launches its kernel for CUDA tensors and runs
 its plain version (``closure_plain``, ``fused_step_plain``,
 ``map_closure_plain``, ``filter_step_plain``, ``contains_topk_plain``,
-``rules_topk_plain``) for CPU tensors.  Each wrapper counts its launches
-in a plain ``launches`` attribute.
+``rules_topk_plain``) for CPU tensors; in ``csrc/attention.cu``, K7
+(flash attention, forward) behind two wrappers,
+``flash_attention.flash_attention`` (the reference kernel's layout) and
+``flash_attention.blockwise_attention`` (the model's layout, with
+left-pad ``valid_from``), whose plain version is ``attention_plain``.
+Each wrapper counts its launches in a plain ``launches`` attribute.
 """
 
 from repro_torch.kernels import closure as _k1
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import frontier as _fr
 from repro_torch.kernels import serve as _sv
 
 KERNELS = (_k1.closure, _fr.fused_step, _fr.map_closure, _fr.filter_step,
-           _sv.contains_topk, _sv.rules_topk)
+           _sv.contains_topk, _sv.rules_topk, _fa.flash_attention, _fa.blockwise_attention)
 
 
 def reset_launches() -> None:

@@ -30,10 +30,14 @@ more than ``MAX_TABLE_CELLS = 2**22`` cells, or a slot count that is not a
 multiple of 8, back to the jnp step: both limits come from the TPU's VMEM
 and block shape.  These kernels stream the table from device memory, so
 the port has no such gate: ``backend="kernel"`` sends every shape to
-them, and they take any S, C or R and W.  ``k`` is at most :data:`MAX_K`;
-above it the wrappers raise ``ValueError``, with no fallback.  Metrics
-are finite and ≥ 0, as confidences and lifts are; a NaN or negative
-metric is outside the contract.
+them, and they take any S, C or R and W.  They answer at any ``k ≥ 1``,
+as the reference does: one launch selects at most :data:`PASS_K`
+winners, so a call with ``k > PASS_K`` launches ``ceil(k / PASS_K)``
+passes, each keeping only the entries after the previous pass's last
+winner (both orders are total; K6 ORs its union in the first pass only),
+and counts each launch.  ``k < 1`` raises ``ValueError``.  Metrics are
+finite and ≥ 0, as confidences and lifts are; a NaN or negative metric
+is outside the contract.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.closure import check_bitsets
 
-MAX_K = 64  # SERVE_MAX_K in csrc/serve.cu
+PASS_K = 64  # SERVE_MAX_K in csrc/serve.cu: the winners one launch selects
 INT32_MAX = 2**31 - 1
 # Bound on the [b, rows] intermediates of the plain versions, in elements.
 PLAIN_CHUNK_ELEMS = 1 << 26
@@ -55,9 +59,14 @@ PLAIN_CHUNK_ELEMS = 1 << 26
 
 def _check_k(k: int) -> int:
     k = int(k)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}], the kernels' compile-time maximum")
+    if k < 1:
+        raise ValueError(f"k={k}: the top k needs k >= 1")
     return k
+
+
+def _passes(k: int):
+    """``(k0, kp)`` of each launch: columns ``[k0, k0 + kp)`` of the output."""
+    return [(k0, min(PASS_K, k - k0)) for k0 in range(0, k, PASS_K)]
 
 
 def _check_vector(name: str, t: torch.Tensor, n: int, dtype: torch.dtype, device) -> None:
@@ -193,12 +202,12 @@ def rules_topk_plain(prem, added, conf, metric, rid, n_rules: int, queries,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("serve")
     lib.contains_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.contains_topk_launch.restype = ctypes.c_int
     lib.rules_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                                      ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p]
     )
     lib.rules_topk_launch.restype = ctypes.c_int
     return lib
@@ -216,8 +225,9 @@ def contains_topk(
 
     gc [S, W] and intents [C, W] are int32 bitset blocks, supports [C]
     int32, ``n_concepts`` a plain int (rows at or past it are padding).
-    Returns ``(ids [S, k], supports [S, k])`` int32.
-    ``contains_topk.launches`` counts kernel launches.
+    Returns ``(ids [S, k], supports [S, k])`` int32, any ``k ≥ 1``
+    (one launch per :data:`PASS_K` columns).  ``contains_topk.launches``
+    counts kernel launches.
     """
     k = _check_k(k)
     _check_table(gc, {"intents": intents}, {"supports": (supports, torch.int32)})
@@ -231,15 +241,16 @@ def contains_topk(
     if S == 0:
         return out_i, out_v
     with torch.cuda.device(gc.device):
-        rc = _lib().contains_topk_launch(
-            gc.data_ptr(), intents.data_ptr(), supports.data_ptr(),
-            out_i.data_ptr(), out_v.data_ptr(),
-            S, C, W, max(-1, min(n_concepts, C)), k,
-            torch.cuda.current_stream(gc.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"contains top-k kernel launch failed: CUDA error {rc}")
-    contains_topk.launches += 1
+        stream = torch.cuda.current_stream(gc.device).cuda_stream
+        for k0, kp in _passes(k):
+            rc = _lib().contains_topk_launch(
+                gc.data_ptr(), intents.data_ptr(), supports.data_ptr(),
+                out_i.data_ptr(), out_v.data_ptr(),
+                S, C, W, max(-1, min(n_concepts, C)), k, k0, kp, stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"contains top-k kernel launch failed: CUDA error {rc}")
+            contains_topk.launches += 1
     return out_i, out_v
 
 
@@ -264,8 +275,9 @@ def rules_topk(
 
     prem/added [R, W] int32 bitsets, conf/metric [R] float32, rid [R]
     int32, queries [S, W].  Returns ``(rule ids [S, k] int32, scores
-    [S, k] float32, unions [S, W] int32)``.  ``rules_topk.launches``
-    counts kernel launches.
+    [S, k] float32, unions [S, W] int32)``, any ``k ≥ 1`` (one launch per
+    :data:`PASS_K` columns).  ``rules_topk.launches`` counts kernel
+    launches.
     """
     k = _check_k(k)
     _check_table(
@@ -285,17 +297,23 @@ def rules_topk(
     out_u = torch.empty((S, W), dtype=torch.int32, device=queries.device)
     if S == 0:
         return out_i, out_v, out_u
+    passes = _passes(k)
+    # each query's last winner's table position, from one pass to the next
+    cursor = torch.empty(S, dtype=torch.int32, device=queries.device) if len(passes) > 1 \
+        else None
     with torch.cuda.device(queries.device):
-        rc = _lib().rules_topk_launch(
-            prem.data_ptr(), added.data_ptr(), conf.data_ptr(), metric.data_ptr(),
-            rid.data_ptr(), queries.data_ptr(),
-            out_i.data_ptr(), out_v.data_ptr(), out_u.data_ptr(),
-            S, R, W, max(-1, min(n_rules, R)), min_conf, k,
-            torch.cuda.current_stream(queries.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rules top-k kernel launch failed: CUDA error {rc}")
-    rules_topk.launches += 1
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        for k0, kp in passes:
+            rc = _lib().rules_topk_launch(
+                prem.data_ptr(), added.data_ptr(), conf.data_ptr(), metric.data_ptr(),
+                rid.data_ptr(), queries.data_ptr(),
+                out_i.data_ptr(), out_v.data_ptr(), out_u.data_ptr(),
+                None if cursor is None else cursor.data_ptr(),
+                S, R, W, max(-1, min(n_rules, R)), min_conf, k, k0, kp, stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"rules top-k kernel launch failed: CUDA error {rc}")
+            rules_topk.launches += 1
     return out_i, out_v, out_u
 
 

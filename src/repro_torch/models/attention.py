@@ -1,0 +1,175 @@
+"""GQA attention: the full-sequence path through K7 and the cached decode.
+
+The port of the reference's ``repro.models.attention``, in its
+``[B, S, H, hd]`` layout.  ``attn_full`` (train) and ``attn_prefill`` run
+the scores, softmax and ``P·V`` through K7's model-layout wrapper
+(``repro_torch.kernels.flash_attention.blockwise_attention``: causal,
+sliding window, logit softcap, left-pad ``valid_from``; its plain version
+for CPU tensors); ``attn_decode`` is a plain one-token softmax over the
+cache, as in the reference, which has no kernel there.
+
+Caches: full caches ``[B, max_len, KV, hd]`` or ring-buffer window caches
+``[B, window, KV, hd]`` with a per-slot position vector (``-1`` = empty or
+pad: never attended).  Unlike the reference's pure functions, prefill and
+decode write the cache tensors in place (no second copy of a cache is
+held) and return the same ``KVCache``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -(2.0**30)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, L, KV, hd]
+    v: torch.Tensor  # [B, L, KV, hd]
+    pos: torch.Tensor  # [B, L] int32: absolute position per slot (-1 = empty / pad)
+
+
+class Attention(nn.Module):
+    """``wq`` [d, H, hd], ``wk`` / ``wv`` [d, KV, hd], ``wo`` [H, hd, d] and,
+    with ``qkv_bias``, ``bq`` [H, hd], ``bk`` / ``bv`` [KV, hd]."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        self.wq = layers._param((d, H, hd), dtype, device)
+        self.wk = layers._param((d, KV, hd), dtype, device)
+        self.wv = layers._param((d, KV, hd), dtype, device)
+        self.wo = layers._param((H, hd, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = layers._param((H, hd), dtype, device)
+            self.bk = layers._param((KV, hd), dtype, device)
+            self.bv = layers._param((KV, hd), dtype, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for name in ("wq", "wk", "wv"):
+            layers.dense_(getattr(self, name), gen)
+        H, hd = self.wo.shape[:2]
+        layers.dense_(self.wo, gen, fan_in=H * hd)
+        with torch.no_grad():
+            for name in ("bq", "bk", "bv"):
+                if hasattr(self, name):
+                    getattr(self, name).zero_()
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    d, heads, hd = w.shape
+    return (x @ w.reshape(d, heads * hd)).unflatten(-1, (heads, hd))
+
+
+def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    H, hd, d = wo.shape
+    return o.flatten(-2) @ wo.reshape(H * hd, d)
+
+
+def _project_qkv(p: Attention, x, cfg: ModelConfig, rope_positions):
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if cfg.rope_kind == "standard":
+        q = layers.apply_rope(q, rope_positions, cfg.rope_theta)
+        k = layers.apply_rope(k, rope_positions, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        q = layers.apply_mrope(q, rope_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = layers.apply_mrope(k, rope_positions, cfg.rope_theta, cfg.mrope_sections)
+    return q, k, v
+
+
+def _mask(q_pos, kv_pos, window):
+    """q_pos [..., S, 1], kv_pos [..., 1, T] → bool valid mask."""
+    valid = (kv_pos <= q_pos) & (kv_pos >= 0)
+    if window is not None:
+        valid &= q_pos - kv_pos < window
+    return valid
+
+
+def _window_for(cfg: ModelConfig, kind: str) -> int | None:
+    if kind == "attn_local":
+        return cfg.attn_window or (cfg.griffin.attn_window if cfg.griffin else None)
+    return None
+
+
+def attn_full(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions) -> torch.Tensor:
+    """Train/prefill full-sequence attention (no cache)."""
+    S = x.shape[1]
+    q, k, v = _project_qkv(p, x, cfg, rope_positions)
+    out = fa.blockwise_attention(q, k, v, window=_window_for(cfg, kind),
+                                 logit_cap=cfg.attn_logit_softcap)
+    return _out(out, p.wo)
+
+
+def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+               device=None) -> KVCache:
+    window = _window_for(cfg, kind)
+    L = min(window, max_len) if window else max_len
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return KVCache(
+        k=torch.zeros((batch, L, KV, hd), dtype=dtype, device=device),
+        v=torch.zeros((batch, L, KV, hd), dtype=dtype, device=device),
+        pos=torch.full((batch, L), -1, dtype=torch.int32, device=device),
+    )
+
+
+def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
+                 cache: KVCache, valid_from=None):
+    """Full-sequence forward that also fills the cache (its last L positions).
+
+    ``valid_from`` [B] marks the first real token per slot (left-padded
+    serving batches); earlier slots get pos = -1 and are never attended.
+    """
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, rope_positions)
+    pos = fa.positions_of(valid_from, B, S, x.device)
+    out = fa.blockwise_attention(q, k, v, window=_window_for(cfg, kind),
+                                 logit_cap=cfg.attn_logit_softcap, valid_from=valid_from)
+    L = cache.k.shape[1]
+    if L >= S:
+        cache.k[:, :S] = k
+        cache.v[:, :S] = v
+        cache.pos[:, :S] = pos
+    else:  # keep the last L positions (ring layout: slot = pos % L)
+        roll = -(S % L)
+        cache.k.copy_(torch.roll(k[:, -L:], roll, dims=1))
+        cache.v.copy_(torch.roll(v[:, -L:], roll, dims=1))
+        cache.pos.copy_(torch.roll(pos[:, -L:], roll, dims=1))
+    return _out(out, p.wo), cache
+
+
+def attn_decode(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
+                cache: KVCache, t: int):
+    """One-token decode.  x [B, 1, d]; t — absolute position (a plain int)."""
+    q, k, v = _project_qkv(p, x, cfg, rope_positions)
+    L = cache.k.shape[1]
+    window = _window_for(cfg, kind)
+    slot = t % L
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    cache.pos[:, slot] = t
+    B, _, H, hd = q.shape
+    KV = cache.k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    # per batch row, one product batched over the KV heads, reading the
+    # [L, KV, hd] cache in place: einsum("bkgh,btkh->bkgt") with fp32 output
+    s = torch.stack([layers.bmm_f32(qg[b], cache.k[b].permute(1, 2, 0))
+                     for b in range(B)]) / math.sqrt(hd)
+    s = layers.softcap(s, cfg.attn_logit_softcap)
+    valid = _mask(t, cache.pos[:, None, None, :], window)
+    s = torch.where(valid, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(cache.v.dtype)
+    # einsum("bkgt,btkh->bkgh") in V's dtype
+    out = torch.stack([torch.bmm(prob[b], cache.v[b].transpose(0, 1)) for b in range(B)])
+    return _out(out.reshape(B, 1, H, hd), p.wo), cache

@@ -148,7 +148,46 @@ def smoke_constants() -> dict:
     return out
 
 
+def lm_constants() -> dict:
+    """The reference tokens of chip_smoke.py's reduced LM serve phase.
+
+    For each arch of ``LM_REDUCED_ARCHS``, the JAX package's
+    ``ServeEngine`` (greedy, the reference CLI's ``ServeConfig``) is handed
+    the numpy parity tree ``repro_torch.interop.numpy_params(cfg,
+    LM_SEED)`` — the very leaves the port loads through ``params_from_jax``
+    on the card — and chip_smoke's prompts.  Needs no jax binding (the LM
+    reference does not call ``axis_frame``); a few seconds on a CPU.  Run
+    it as ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py lm``
+    and copy the printed JSON into chip_smoke.py's ``LM_REDUCED_EXPECTED``.
+    """
+    import sys
+    from pathlib import Path
+
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.interop import numpy_params
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    out = {}
+    for arch in cs.LM_REDUCED_ARCHS:
+        cfg = get_config(arch).reduced()
+        values = jax.tree_util.tree_map(jnp.asarray, numpy_params(cfg, cs.LM_SEED))
+        prompts = cs.lm_reduced_prompts(cfg.vocab_size)
+        eng = ServeEngine(cfg, values, ServeConfig(max_len=cs.LM_REDUCED_MAX_LEN,
+                                                   batch_slots=max(4, len(prompts))))
+        out[arch] = eng.generate(prompts, cs.LM_MAX_NEW)
+    return out
+
+
 if __name__ == "__main__":
     import json
+    import sys
 
-    print(json.dumps(smoke_constants(), indent=1))
+    if sys.argv[1:] == ["lm"]:
+        print(json.dumps(lm_constants()))
+    else:
+        print(json.dumps(smoke_constants(), indent=1))

@@ -79,10 +79,15 @@ def test_sources_name_no_jax_or_reference_module(path):
 
 
 def test_serving_entry_points_default_to_cuda_and_never_fall_back():
-    """The store, the bases and the rule index run on CUDA unless given
-    ``device="cpu"``; without CUDA they raise instead of falling back."""
+    """The store, the bases, the rule index, the LM decoder, its serving
+    engine and the LM serve CLI run on CUDA unless given ``device="cpu"``;
+    without CUDA they raise instead of falling back."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.transformer import Decoder
     from repro_torch.query import ConceptStore
     from repro_torch.rules import RuleIndex, dg_basis, extract_bases, luxenburger_host
+    from repro_torch.serve import ServeConfig, ServeEngine
 
     ctx = paper_context()
     intents = np.stack(all_closures(ctx))
@@ -90,8 +95,13 @@ def test_serving_entry_points_default_to_cuda_and_never_fall_back():
     assert store.device.type == "cpu" and store.snapshot.intents.device.type == "cpu"
     basis = extract_bases(store)
     assert RuleIndex.build(basis, device="cpu").premise.device.type == "cpu"
+    cfg = get_config("gemma2-9b").reduced()
+    model = Decoder(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert ServeEngine(cfg, model, ServeConfig(), device="cpu").device.type == "cpu"
     if torch.cuda.is_available():
         assert ConceptStore(ctx).device.type == "cuda"
+        assert Decoder(cfg).device.type == "cuda"
         return
     sup = store.snapshot.supports_np
     for call in (lambda: ConceptStore(ctx), lambda: ConceptStore.build(ctx, intents),
@@ -99,7 +109,10 @@ def test_serving_entry_points_default_to_cuda_and_never_fall_back():
                  lambda: luxenburger_host(intents, sup, ctx.n_objects),
                  lambda: RuleIndex.build(basis),
                  lambda: fca.main(["serve", "--dataset", "mushroom", "--scale", "0.01"]),
-                 lambda: fca.main(["rules", "--dataset", "mushroom", "--scale", "0.01"])):
+                 lambda: fca.main(["rules", "--dataset", "mushroom", "--scale", "0.01"]),
+                 lambda: Decoder(cfg),
+                 lambda: ServeEngine(cfg, model, ServeConfig()),
+                 lambda: serve_cli.main(["--arch", "gemma2-9b", "--reduced"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -239,7 +252,7 @@ def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert lib == _build.library_path("closure")  # deterministic name
     assert lib != _build.library_path("frontier") != _build.library_path("serve")
-    assert _build.SOURCES == ("closure", "frontier", "serve")
+    assert _build.SOURCES == ("closure", "frontier", "serve", "attention")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -253,6 +266,8 @@ def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
     ("frontier.cu", "filter_launch", "src/repro/kernels/frontier.py:filter_call"),
     ("serve.cu", "contains_topk_launch", "src/repro/kernels/serve.py:contains_topk_call"),
     ("serve.cu", "rules_topk_launch", "src/repro/kernels/serve.py:rules_topk_call"),
+    ("attention.cu", "flash_attention_launch",
+     "src/repro/kernels/flash_attention.py:flash_attention"),
 ])
 def test_kernel_sources_state_what_they_replace(name, symbol, replaces):
     text = (PACKAGE / "csrc" / name).read_text()
