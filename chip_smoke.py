@@ -8,6 +8,8 @@ checks, on the card:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
   2. build   — every kernel source, one ``nvcc`` per source, in parallel;
+     each library's ptxas report, kept beside it, in which every width of
+     K7's bf16 body must show no spill stores or loads;
   3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
      map), K4 (multi-shard filter), K5 (contains top-k) and K6 (rules
      top-k) against their plain PyTorch versions on seeded inputs, bit for
@@ -23,7 +25,11 @@ checks, on the card:
      tests/test_flash_attention.py and at gemma2-9b's head shape for
      S ∈ {1, 63, 64, 65, 4097, 5000}, causal or not, window 4096 or none,
      cap 50 or none, through both wrappers, with valid_from all 0, mixed
-     and S - 1 (pad rows exactly 0);
+     and S - 1 (pad rows exactly 0); K7's bf16 body at its edges
+     (``K7_EDGE_*``): G ∈ {1, 2, 3, 4, 8}, S and T ∈ {63, 64, 65, 127,
+     128, 129, 4097}, hd ∈ {8, 24, 128, 256}, windows 64, 65 and 128,
+     valid_from on and beside the 64- and 128-row edges, and q, k and v
+     as slices of one fused projection;
   4. main path, one shard — MRGanter+ (local pruning) and MRCbo on the
      full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
@@ -75,7 +81,8 @@ checks, on the card:
      a torch.profiler breakdown of warm decode steps (device-busy time and
      share, the costliest kernels), peak memory; K7 on every captured
      chunk, the costliest beside its plain version, its bound and
-     scaled_dot_product_attention on the cap-free chunk;
+     scaled_dot_product_attention on the cap-free chunk, with K7's share
+     of its bound on both and its time over SDPA's;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
      work alone; median of 25 after warm-up): the sum over the run and its
@@ -864,6 +871,29 @@ K7_REF_CASES = (  # tests/test_flash_attention.py: every case shape
     (1, 2, 2, 64, 64, 32, True, None, None),
 )
 K7_GEMMA_S = (1, 63, 64, 65, 4097, 5000)
+# The bf16 body's edges (phase 3): G query heads per KV head (a CTA takes
+# two heads of one KV head, or two 64-row query tiles where G = 1; odd G
+# leaves its second warpgroup idle on the last head), S and T on and
+# beside the 64-row query tiles, the 128 rows of a G = 1 CTA and the
+# 64-key stages, and one long case; hd below, between and at the compiled
+# widths (8 runs at width 16, 24 at 32, with zero-filled columns);
+# valid_from on and beside the 64- and 128-row edges; windows whose reach
+# ends on a key-tile edge (64, 128) and beside one (65).
+K7_EDGE_G = (1, 2, 3, 4, 8)
+K7_EDGE_S = (63, 64, 65, 127, 128, 129, 4097)
+K7_EDGE_HD = (8, 24, 128, 256)
+K7_EDGE_ST = ((63, 129), (129, 64), (65, 4097), (4097, 127))  # S != T, not causal
+K7_EDGE_VF = ((63, 64), (65, 127), (128, 129))
+K7_EDGE_WINDOW = (None, 64, 65, 128)
+# The edge cases hold the kernel against its plain version at the kernel's
+# own 64-key tiles (attention_plain's kv_block), so that both round p
+# against the same running maxima and only the sum order differs.  Against
+# the plain version's 1024-key blocks, rows of hd 8 fail the row-rms rule
+# by chance: their rms over 8 columns can fall well below the output's
+# typical size while the p-rounding error does not (the earlier mma.sync
+# body gave the same values and failed the same elements; the plain
+# version at 1024 keys was as far from a float64 softmax as the kernel).
+K7_TILE_KEYS = 64
 
 
 def k7_require(name: str, got, want, dtype: str, pad=None, rel: float = 0.0) -> dict:
@@ -966,6 +996,107 @@ def check_attention_kernel(device) -> list[dict]:
                                         "B": 2, "S": S, "hd": 256, "valid_from": vf_name,
                                         **kw, **err})
     return records
+
+
+def check_attention_edges(device) -> list[dict]:
+    """Phase 3, K7's bf16 body at its edges (K7_EDGE_*), every case held to
+    the bf16 limits of k7_require against the plain version at the
+    kernel's 64-key tiles (K7_TILE_KEYS), and pad rows to exactly 0: the
+    kernel's layout causal at every G x S x hd (windows and the cap in turn);
+    S != T without causal masking; the model layout (B = 2) with
+    valid_from on and beside the tile edges at S = 129 and 4097; and the
+    model layout as slices of one fused q/k/v projection (strides that no
+    contiguous tensor has).  Operands are seeded standard normals made on
+    the card."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(20241018)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    KV = 2
+    base = {S: (normal(2, max(K7_EDGE_G) * KV, S, 256), normal(2, KV, S, 256),
+                normal(2, KV, S, 256)) for S in K7_EDGE_S}
+    records = []
+
+    def plain_tiles(q, k, v, *, causal, window, logit_cap):  # the kernel's layout
+        S, T = q.shape[2], k.shape[2]
+        return fa.attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            torch.arange(S, device=device), torch.arange(T, device=device), causal=causal,
+            window=window, logit_cap=logit_cap, kv_block=K7_TILE_KEYS).transpose(1, 2)
+
+    def check(kernel, name, got, want, pad=None, **case):
+        err = k7_require(f"K7 edge {kernel} {name}", got, want, "bfloat16", pad=pad)
+        records.append({"kernel": kernel, "dtype": "bfloat16", "edge": True, **case, **err})
+
+    n = 0
+    for G in K7_EDGE_G:
+        for S in K7_EDGE_S:
+            for hd in K7_EDGE_HD:
+                qb, kb, vb = base[S]
+                q = qb[:1, :G * KV, :, :hd].contiguous()
+                k, v = kb[:1, :, :, :hd].contiguous(), vb[:1, :, :, :hd].contiguous()
+                kw = dict(causal=True, window=K7_EDGE_WINDOW[n % 4],
+                          logit_cap=50.0 if n % 3 else None)
+                n += 1
+                check("flash_attention", f"G={G} S=T={S} hd={hd} {kw}",
+                      fa.flash_attention(q, k, v, **kw), plain_tiles(q, k, v, **kw),
+                      G=G, S=S, T=S, hd=hd, **kw)
+        for S, T in K7_EDGE_ST:
+            hd = K7_EDGE_HD[n % 4]
+            q = base[S][0][:1, :G * KV, :, :hd].contiguous()
+            k, v = (x[:1, :, :, :hd].contiguous() for x in base[T][1:])
+            kw = dict(causal=False, window=None, logit_cap=50.0 if n % 2 else None)
+            n += 1
+            check("flash_attention", f"G={G} S={S} T={T} hd={hd} {kw}",
+                  fa.flash_attention(q, k, v, **kw), plain_tiles(q, k, v, **kw),
+                  G=G, S=S, T=T, hd=hd, **kw)
+        for S in (129, 4097):
+            for vf in K7_EDGE_VF:
+                for window in K7_EDGE_WINDOW:
+                    hd = (256, 128, 24, 8)[n % 4]
+                    qb, kb, vb = base[S]
+                    q = qb[:, :G * KV, :, :hd].transpose(1, 2).contiguous()
+                    k, v = (x[..., :hd].transpose(1, 2).contiguous() for x in (kb, vb))
+                    vft = torch.tensor(vf, device=device, dtype=torch.int32)
+                    pos = fa.positions_of(vft, 2, S, device)
+                    kw = dict(window=window, logit_cap=50.0 if n % 2 else None)
+                    n += 1
+                    check("blockwise_attention", f"G={G} S={S} hd={hd} valid_from={vf} {kw}",
+                          fa.blockwise_attention(q, k, v, valid_from=vft, **kw),
+                          fa.attention_plain(q, k, v, pos, pos, kv_block=K7_TILE_KEYS, **kw),
+                          pad=pos < 0, G=G, S=S, hd=hd, valid_from=list(vf), **kw)
+            # slices of one fused projection [B, S, (G + 2) KV, 256]: q, k and v
+            # keep its row stride and their own offsets
+            hd = (256, 24)[S > 129]
+            qkv = normal(2, S, (G + 2) * KV, 256)[..., :hd]
+            q, k, v = qkv[:, :, :G * KV], qkv[:, :, G * KV:(G + 1) * KV], qkv[:, :, (G + 1) * KV:]
+            vft = torch.tensor((64, 0), device=device, dtype=torch.int32)
+            pos = fa.positions_of(vft, 2, S, device)
+            kw = dict(window=64 if S > 129 else None, logit_cap=50.0)
+            check("blockwise_attention", f"fused q/k/v G={G} S={S} hd={hd} {kw}",
+                  fa.blockwise_attention(q, k, v, valid_from=vft, **kw),
+                  fa.attention_plain(q, k, v, pos, pos, kv_block=K7_TILE_KEYS, **kw),
+                  pad=pos < 0, G=G, S=S, hd=hd, valid_from=[64, 0], strides=list(q.stride()),
+                  **kw)
+    return records
+
+
+def k7_ptxas(report: str) -> dict:
+    """Registers, stack and spill bytes of each width of K7's bf16 body
+    (``flash_fwd_wgmma_kernel<HDP>``) in an ``nvcc -Xptxas -v`` report."""
+    import re
+
+    found = re.findall(r"Function properties for \S*flash_fwd_wgmma_kernelILi(\d+)E\S*\n"
+                       r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                       r"loads\nptxas info\s*: Used (\d+) registers", report)
+    return {f"flash_fwd_wgmma_kernel<{w}>": dict(zip(
+        ("stack", "spill_stores", "spill_loads", "registers"), map(int, rest)))
+        for w, *rest in found}
 
 
 def digest(*arrays) -> str:
@@ -1289,12 +1420,52 @@ def attention_pairs(S: int, valid_from, window) -> int:
     return total
 
 
+# Head shapes at full width of two configs the repo supports
+# (src/repro/configs) that take the bf16 body's other branches: G = 1, a
+# CTA on two consecutive 64-row query tiles of one head, and odd G, the
+# second warpgroup idle on the last head of each KV group.
+K7_GROUPINGS = (("codeqwen1.5-7b", 32, 32, 128), ("deepseek-coder-33b", 56, 8, 128))
+
+
+def time_attention_groupings(B: int, S: int) -> list:
+    """K7 and scaled_dot_product_attention on causal, cap-free, pad-free
+    chunks of ``K7_GROUPINGS``' head shapes at B rows of S positions
+    (seeded normal q, k, v on the card), each with its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for arch, H, KV, hd in K7_GROUPINGS:
+        q, k, v = (torch.randn(B, h, S, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+                   for h in (H, KV, KV))
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        k7 = lambda: fa.flash_attention(q, k, v, causal=True)
+        err = k7_require(f"K7 against scaled_dot_product_attention ({arch} heads)", k7(), lib(),
+                         "bfloat16", rel=K7_MODEL_REL)
+        library_ms = cuda_time_ms(lib, reps=10)
+        ms = cuda_time_ms(k7, reps=10)
+        pairs = B * H * attention_pairs(S, [0], None)
+        bound_ms = max(4 * hd * pairs / BF16_FLOPS_PER_S,
+                       (2 * q.numel() + k.numel() + v.numel()) * 2 / HBM_BYTES_PER_S) * 1e3
+        out.append({"arch": arch, "B": B, "S": S, "H": H, "KV": KV, "G": H // KV, "hd": hd,
+                    "pairs": pairs, "k7_ms": ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_share": bound_ms / ms, "k7_over_library": ms / library_ms,
+                    "k7_vs_sdpa_max_abs_err": err})
+        del q, k, v
+    return out
+
+
 def time_attention(chunks: list, launches: int) -> dict:
     """K7 on the chunks the full-width prefill gave it: each replayed alone,
     the costliest beside its plain version and its bound; ``library_ms``
     is scaled_dot_product_attention on the costliest chunk without a
     window (a global layer) with the cap removed and no pads, beside K7 on
-    that same cap-free chunk, so both compute one function."""
+    that same cap-free chunk, so both compute one function; ``groupings``
+    the same comparison at the G = 1 and odd-G head shapes of
+    ``K7_GROUPINGS``, at the costliest chunk's B and S."""
     import torch
     import torch.nn.functional as F
 
@@ -1332,21 +1503,25 @@ def time_attention(chunks: list, launches: int) -> dict:
     library_ms = cuda_time_ms(lib, reps=10)
     k7_free_ms = cuda_time_ms(k7, reps=10)
     free_pairs = qt.shape[0] * qt.shape[1] * attention_pairs(S, [0], None)
+    bound_ms = max(t_ops, t_bytes)
+    free_bound_ms = max(4 * hd * free_pairs / BF16_FLOPS_PER_S * 1e3, t_bytes)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:109",
         "launches": launches, "max_abs_err": err["max_abs_err"],
         "row_rel_err": err["row_rel_err"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms, "bound_share": bound_ms / ms,
         "chunk": {"layer": n, "B": B, "S": S, "H": H, "KV": k.shape[2], "hd": hd,
                   "valid_from": vf, **plain_kw, "pairs": pairs},
         "run_launches": len(chunks), "run_ms": ms_all,
         "library_chunk": {"layer": g, "cap": None, "valid_from": [0] * qt.shape[0],
-                          "k7_ms": k7_free_ms, "pairs": free_pairs,
-                          "bound_ms": max(4 * hd * free_pairs / BF16_FLOPS_PER_S * 1e3, t_bytes),
+                          "k7_ms": k7_free_ms, "pairs": free_pairs, "bound_ms": free_bound_ms,
+                          "bound_share": free_bound_ms / k7_free_ms,
+                          "k7_over_library": k7_free_ms / library_ms,
                           "k7_vs_sdpa_max_abs_err": lib_err},
+        "groupings": time_attention_groupings(B, S),
     }
 
 
@@ -1767,12 +1942,22 @@ def main() -> int:
     built = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": {k: v["seconds"] for k, v in built.items()}})
-    for name, rec in built.items():
-        print(f"ptxas {name}: {rec['ptxas']}", flush=True)
+    for name in _build.SOURCES:
+        print(f"ptxas {name}: {_build.ptxas_report(name)}", flush=True)
+    # K7's bf16 body, from the report of the library in use (built now or
+    # before): registers and no spill stores or loads in any width
+    body = k7_ptxas(_build.ptxas_report("attention"))
+    emit({"phase": "ptxas", "k7_bf16": body})
+    if not body:
+        raise AssertionError("the ptxas report of attention.cu lacks K7's bf16 body")
+    spilled = [n for n, r in body.items() if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"K7's bf16 body spills: {spilled}")
 
     t0 = time.perf_counter()
     records = (check_kernels(device) + check_sharded_kernels(device)
-               + check_serve_kernels(device) + check_attention_kernel(device))
+               + check_serve_kernels(device) + check_attention_kernel(device)
+               + check_attention_edges(device))
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
                         for k in dict.fromkeys(r["kernel"] for r in records)},
@@ -1785,7 +1970,12 @@ def main() -> int:
                                "min_rms": min(r["rms"] for r in recs)}
                            for S in K7_GEMMA_S
                            for recs in [[r for r in records if r.get("dtype") == "bfloat16"
-                                         and r.get("hd") == 256 and r.get("S") == S]]}})
+                                         and r.get("hd") == 256 and r.get("S") == S
+                                         and not r.get("edge")]]},
+          "k7_edge_cases": {k: sum(r["kernel"] == k for r in records if r.get("edge"))
+                            for k in ("flash_attention", "blockwise_attention")},
+          "k7_edge_max_row_rel_err": max(r.get("row_rel_err", 0.0) for r in records
+                                         if r.get("edge"))})
 
     t0 = time.perf_counter()
     _, launches, chunks, main_intents = run_main_path(device)

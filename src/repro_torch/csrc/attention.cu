@@ -20,29 +20,41 @@
 // logit cap, valid_from, S, T, the strides and the scale are launch
 // arguments: none forces a rebuild.  The head dim hd (a multiple of 8 up
 // to 256) is rounded up to one of five compile-time widths (16 ... 256);
-// element types float32 and bfloat16.  Ragged S and T are masked in the
-// kernel, with no padded copies; strides let one kernel read the [B, H, S,
-// hd] layout of flash_attention and the [B, S, H, hd] layout of the model.
+// element types float32 and bfloat16.  Strides let one kernel read the
+// [B, H, S, hd] layout of flash_attention and the [B, S, H, hd] layout of
+// the model.
 //
 // What bounds it on the H100: the two matrix products, 4 * hd operations
 // per valid (query, key) pair, against 989 TFLOP/s of bf16 tensor cores;
 // q, k, v and o cross device memory once each (3.35 TB/s), far less at
-// any prefill length that matters.
+// any prefill length that matters.  Beside the products, every score
+// takes a scale, a max, an exp2 and, with the gemma2 cap, an exact tanhf
+// on the FMA pipes (about 33 T instructions/s): at hd 256 that is of the
+// same order as the products' time, so the softmax of one warpgroup has
+// to overlap the products of another.
 //
 // What the design does about it, by element type:
-//   bfloat16 (the model's prefill) — both products on the tensor cores
-//   through mma.sync m16n8k16 with float32 accumulators (see
-//   flash_fwd_tc_kernel below): one CTA of 4 warps per (b, h, 64-query
-//   tile), 64-key tiles, scores and the online softmax kept in registers.
-//   No wgmma, no TMA, no pipelining of the K/V loads yet, and the G query
-//   heads of a KV head each read its K/V tiles (from L2): a later design
-//   serves the G heads from one CTA behind a ring of TMA stages.
+//   bfloat16 (the model's prefill) — flash_fwd_wgmma_kernel below: one
+//   CTA per (b, KV head, query tile), warp-specialised.  One thread of a
+//   producer warpgroup keeps a ring of K/V stages in flight through TMA
+//   (mbarriers, 128-byte swizzle, out-of-bounds rows and columns
+//   zero-filled by the copy) and Q on its own barrier; two
+//   consumer warpgroups each own 64 query rows and run Q.K^T and P.V
+//   through wgmma from shared memory, P from registers.  Where G >= 2 the
+//   two warpgroups take two query heads of one KV head at the same rows,
+//   so each K/V tile in shared memory serves both; only tiles that cross
+//   the diagonal, the window edge, valid_from or T get the per-element
+//   mask; query tiles are issued heaviest first.
 //   float32 (the reduced configs and the parity cases) — the exact
 //   version on the FMA pipes (flash_fwd_kernel): one CTA of 256 threads per
 //   (b, h, 64-query tile), K and V tiles of 32 keys staged in shared memory
 //   as float32 (rows padded to an odd stride, so the 32 lanes of a warp hit
 //   distinct banks), four threads per query row, P in shared memory between
 //   the products; bound by shared-memory loads, about one per FMA.
+#include <climits>
+#include <type_traits>
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,263 +201,608 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: both products on the tensor cores (mma.sync m16n8k16, float32
-// accumulators).  One CTA of 4 warps per (b, h, 64-query tile); each warp
-// owns 16 query rows.  Q, K and V tiles of 64 rows sit in shared memory as
-// bfloat16, rows padded by 16 bytes (the 8 row groups of a fragment load
-// hit distinct banks), filled by 16-byte loads; columns past hd read as 0.
-// S = Q.K^T stays in the accumulator fragments, where the mask, scale, cap
-// and the online softmax are applied; the rounded p fragments are repacked
-// in registers as the A operand of P.V (the C layout of two 8-key tiles is
-// the A layout of one 16-key step).  The row sum is kept per thread and
-// reduced over the row's four lanes at the end.
+// bfloat16: warp-specialised wgmma behind a TMA ring
+//
+// CTA = 3 warpgroups (384 threads): warpgroups 0 and 1 consume, each owning
+// 64 query rows; warpgroup 2 produces (one of its threads issues every
+// copy; it hands its registers to the consumers with setmaxnreg).
+//   G >= 2: the CTA serves query heads 2p and 2p + 1 of KV head kvh (blockIdx.x
+//     = kvh * ceil(G / 2) + p) at the same 64 rows; for odd G the second
+//     warpgroup of the last pair has no head and leaves at once.
+//   G == 1: the two warpgroups take two consecutive 64-row tiles of one head;
+//     the producer loads the union of their key tiles and each warpgroup
+//     skips the tiles outside its own range.
+// blockIdx.z walks the query tiles from the last (most keys under causal
+// masking) to the first, so the longest rows start first.
+//
+// Shared memory (1024-byte aligned): Q [2][64 x HDP], then STAGES stages of
+// K [64 x HDP] and V [64 x HDP], then the mbarriers.  Each 64-row tile is
+// HDP / 64 boxes of 64 rows x 64 columns (128-byte rows, 128-byte swizzle:
+// a box is the swizzle atom wgmma reads); below 64 columns one box of
+// 32- or 64-byte rows with the matching swizzle.  TMA writes the boxes and
+// fills rows past S or T and columns past hd (up to HDP) with 0.
+//
+// Per key tile a consumer warpgroup: waits for the stage; S = Q.K^T by
+// HDP / 16 wgmma m64n64k16 (both operands K-major in shared memory);
+// scale (and cap) in the exp2 domain, the mask on boundary tiles only, the
+// online softmax over the fragment's rows (each row lives in 4 lanes); the
+// rounded p repacked in registers as the A operand (the accumulator layout
+// of two 8-key blocks is the A layout of one 16-key step); O += P.V by 4
+// wgmma m64n{HDP}k16 with V read MN-major from shared memory; then its
+// four warps release the stage.  The two warpgroups run independently, so
+// one's softmax overlaps the other's products and the producer's copies.
 // ---------------------------------------------------------------------------
 
-#define TC_BQ 64
-#define TC_BK 64
-#define TC_THREADS 128
+#define TC_BQ 64        // query rows of one consumer warpgroup
+#define TC_BK 64        // keys of one stage
+#define TC_THREADS 384  // two consumer warpgroups and one producer warpgroup
+#define TC_LOG2E 1.4426950408889634f
 
-static size_t tc_smem_bytes(int hdp)
+template <int HDP> struct Tc {
+    static constexpr int BOXC = HDP < 64 ? HDP : 64;  // columns of one box
+    static constexpr int RB = 2 * BOXC;               // bytes of a shared-memory row
+    static constexpr int NBOX = HDP / BOXC;
+    static constexpr int BOX = TC_BK * RB;            // bytes of one box of 64 rows
+    static constexpr int TILE = NBOX * BOX;           // bytes of one 64-row tile
+    static constexpr int KPR = RB / 32;               // k16 steps within one row
+    static constexpr int STAGES = HDP == 256 ? 2 : 4;
+    static constexpr int LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;  // wgmma swizzle code
+    static constexpr CUtensorMapSwizzle SWIZZLE =
+        RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+    // the alignment slack, Q, the stages, full[STAGES] empty[STAGES] qfull[2]:
+    // 197,680 bytes at HDP 256 (two stages), 164,944 at 128 (four), under
+    // the 227 KB one CTA may take
+    static constexpr size_t SMEM = 1024 + (size_t)(2 + 2 * STAGES) * TILE + 8 * (2 * STAGES + 2);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p)
 {
-    return sizeof(__nv_bfloat16) * 3 * (size_t)TC_BQ * (hdp + 8);
+    return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0, uint32_t b1)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity)
+{
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// one box of a 4-D map (column, row, head, batch) into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3)
 {
     asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle code in bits 62-63
+template <int LAYOUT>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo)
 {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
+    return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)LAYOUT << 62);
 }
 
-__device__ __forceinline__ uint32_t pair_u32(const __nv_bfloat16* p)
+__device__ __forceinline__ void wgmma_fence()
 {
-    return *reinterpret_cast<const uint32_t*>(p);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_u16(__nv_bfloat16 lo, __nv_bfloat16 hi)
+__device__ __forceinline__ void wgmma_commit()
 {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// rows [r0, r0 + 64) x columns [0, HDP) of a [rows, hd] bf16 matrix with
-// row stride `rs` into shared memory; rows >= n_rows and columns >= hd read 0
-template <int HDP>
-__device__ __forceinline__ void tc_load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                             long long rs, int r0, int n_rows, int hd)
+__device__ __forceinline__ void wgmma_wait_all()
 {
-    constexpr int LDS = HDP + 8, CH = HDP / 8;
-    for (int idx = threadIdx.x; idx < TC_BQ * CH; idx += TC_THREADS) {
-        const int r = idx / CH, c = (idx - r * CH) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < n_rows && c < hd)
-            val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-        *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    const int* __restrict__ valid_from, int G, int S, int T_, int hd,
-                    long long qsb, long long qsh, long long qss,
-                    long long ksb, long long ksh, long long kst,
-                    long long vsb, long long vsh, long long vst,
-                    long long osb, long long osh, long long oss,
-                    int causal, int window, float cap, float scale)
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N])
 {
-    constexpr int LDS = HDP + 8;
-    extern __shared__ __align__(16) unsigned char tc_smem[];
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-    __nv_bfloat16* ks = qs + TC_BQ * LDS;
-    __nv_bfloat16* vs = ks + TC_BK * LDS;
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
 
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int q0 = blockIdx.x * TC_BQ;
-    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
-    const __nv_bfloat16* kb = k + b * ksb + (h / G) * ksh;
-    const __nv_bfloat16* vb = v + b * vsb + (h / G) * vsh;
+// The products.  PTX names every accumulator register of a wgmma, so the
+// operand lists are written out: wgmma_ss is S (+)= Q.K^T, m64n64k16, both
+// operands K-major in shared memory; wgmma_rs is O += P.V, m64n{N}k16, P
+// from registers, V MN-major (transposed) in shared memory.
+#define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F8(d, i) WG_F4(d, i), WG_F4(d, i + 4)
+#define WG_F16(d, i) WG_F8(d, i), WG_F8(d, i + 8)
+#define WG_F32(d, i) WG_F16(d, i), WG_F16(d, i + 16)
+#define WG_F64(d, i) WG_F32(d, i), WG_F32(d, i + 32)
+#define WG_F128(d, i) WG_F64(d, i), WG_F64(d, i + 64)
 
-    tc_load_tile<HDP>(qs, q + b * qsb + h * qsh, qss, q0, S, hd);
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_F32(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
-    const int q_last = min(q0 + TC_BQ, S) - 1;
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : WG_F8(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WG_F16(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_F32(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63},"
+        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_F64(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127},"
+        " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : WG_F128(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// the key tiles [lo, hi) that rows [qa, qa + 64) of a query tile may see
+__device__ __forceinline__ void key_tiles(int qa, int S, int T_, int vf, int causal, int window,
+                                          int& lo, int& hi)
+{
     int k_lo = vf, k_hi = T_;
-    if (causal) k_hi = min(k_hi, q_last + 1);
-    if (window >= 0) k_lo = max(k_lo, q0 - window + 1);
+    if (causal) k_hi = min(k_hi, min(qa + TC_BQ, S));
+    if (window >= 0) k_lo = max(k_lo, qa - window + 1);
+    lo = k_lo < k_hi ? k_lo / TC_BK : 0;
+    hi = k_lo < k_hi ? (k_hi + TC_BK - 1) / TC_BK : 0;
+}
 
-    // this thread's rows: i0 = row g of the warp's 16, i1 = row g + 8
-    const int wr = warp * 16;
-    const int i0 = q0 + wr + g, i1 = i0 + 8;
-    float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
-    float acc[HDP / 8][4];
+// One key tile of one consumer warpgroup: this thread's rows are i0 and
+// i0 + 8, its columns of each 8-column block cq and cq + 1.  MASK: the tile
+// crosses the diagonal, the window edge, valid_from or T, so each score is
+// masked on its own; interior tiles skip it.  Scores are kept in the exp2
+// domain: x * log2(e), with the cap applied first (exact tanhf).
+template <int HDP, bool MASK>
+__device__ __forceinline__ void tc_tile(float (&O)[HDP / 2], float& m0, float& m1, float& l0,
+                                        float& l1, uint64_t qdesc, uint64_t kdesc,
+                                        uint64_t vdesc, int j0, int i0, int cq, int T_, int vf,
+                                        int causal, int window, float cap_l2, float sc)
+{
+    using C = Tc<HDP>;
+    float s[32];
 #pragma unroll
-    for (int n = 0; n < HDP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    for (int n = 0; n < 32; ++n) s[n] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = (kk / C::KPR) * C::BOX + (kk % C::KPR) * 32;
+        wgmma_ss(s, qdesc + (off >> 4), kdesc + (off >> 4), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
-    for (int k0 = (k_lo / TC_BK) * TC_BK; k0 < k_hi; k0 += TC_BK) {
-        __syncthreads();  // the previous tile's readers are done (and Q is in)
-        tc_load_tile<HDP>(ks, kb, kst, k0, T_, hd);
-        tc_load_tile<HDP>(vs, vb, vst, k0, T_, hd);
-        __syncthreads();
-
-        float sc[TC_BK / 8][4];
+    if (cap_l2 > 0.f) {
 #pragma unroll
-        for (int n = 0; n < TC_BK / 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+        for (int n = 0; n < 32; ++n) s[n] = cap_l2 * tanhf(s[n] * sc);
+    } else {
 #pragma unroll
-        for (int kk = 0; kk < HDP / 16; ++kk) {
-            const __nv_bfloat16* qa = qs + (wr + g) * LDS + kk * 16 + tq * 2;
-            const uint32_t a0 = pair_u32(qa), a1 = pair_u32(qa + 8 * LDS);
-            const uint32_t a2 = pair_u32(qa + 8), a3 = pair_u32(qa + 8 * LDS + 8);
+        for (int n = 0; n < 32; ++n) s[n] *= sc;
+    }
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-            for (int n = 0; n < TC_BK / 8; ++n) {
-                const __nv_bfloat16* kp = ks + (n * 8 + g) * LDS + kk * 16 + tq * 2;
-                mma_bf16(sc[n], a0, a1, a2, a3, pair_u32(kp), pair_u32(kp + 8));
-            }
-        }
-
-        // mask, scale, cap; the running max of rows i0 and i1
-        float mx0 = FA_NEG_INF, mx1 = FA_NEG_INF;
-        uint32_t valid = 0u;  // bit 4n + e: fragment element sc[n][e] is a valid key
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-        for (int n = 0; n < TC_BK / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int i = e < 2 ? i0 : i1;
-                const int j = k0 + n * 8 + tq * 2 + (e & 1);
-                bool ok = i < S && j < T_ && j >= vf;
+        for (int e = 0; e < 4; ++e) {
+            float x = s[4 * n + e];
+            if (MASK) {
+                const int i = e < 2 ? i0 : i0 + 8;
+                const int j = j0 + 8 * n + cq + (e & 1);
+                bool ok = j < T_ && j >= vf;
                 if (causal) ok = ok && j <= i;
                 if (window >= 0) ok = ok && i - j < window;
-                float s = sc[n][e] * scale;
-                if (cap > 0.f) s = cap * tanhf(s / cap);
-                sc[n][e] = s;
-                if (ok) {
-                    valid |= 1u << (4 * n + e);
-                    if (e < 2) mx0 = fmaxf(mx0, s); else mx1 = fmaxf(mx1, s);
+                x = ok ? x : -__int_as_float(0x7f800000);  // -inf: p = 0, max unchanged
+                s[4 * n + e] = x;
+            }
+            if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_MASK, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_MASK, mx1, off));
+    }
+    const float al0 = exp2f(m0 - mx0), al1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    // p rounded to bf16, packed as the A operand: pa[2n] row i0, pa[2n + 1]
+    // row i0 + 8, of the 8-key block n; the sum adds the rounded p
+    uint32_t pa[16];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+        const __nv_bfloat162 p01 =
+            __floats2bfloat162_rn(exp2f(s[4 * n] - mx0), exp2f(s[4 * n + 1] - mx0));
+        const __nv_bfloat162 p23 =
+            __floats2bfloat162_rn(exp2f(s[4 * n + 2] - mx1), exp2f(s[4 * n + 3] - mx1));
+        const float2 f01 = __bfloat1622float2(p01), f23 = __bfloat1622float2(p23);
+        ps0 += f01.x + f01.y;
+        ps1 += f23.x + f23.y;
+        pa[2 * n] = *reinterpret_cast<const uint32_t*>(&p01);
+        pa[2 * n + 1] = *reinterpret_cast<const uint32_t*>(&p23);
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int n = 0; n < HDP / 8; ++n) {
+        O[4 * n] *= al0;
+        O[4 * n + 1] *= al0;
+        O[4 * n + 2] *= al1;
+        O[4 * n + 3] *= al1;
+    }
+    fence_regs(O);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        wgmma_rs(O, a, vdesc + ((uint32_t)(kk * 16 * C::RB) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(O);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                       const int* __restrict__ valid_from, int G, int S, int T_, int hd,
+                       long long osb, long long osh, long long oss, int causal, int window,
+                       float cap, float scale)
+{
+    using C = Tc<HDP>;
+    extern __shared__ unsigned char tc_smem[];
+    const uint32_t q_sm = (smem_u32(tc_smem) + 1023u) & ~1023u;  // [2][TILE]
+    const uint32_t k_sm = q_sm + 2 * C::TILE;                     // [STAGES][TILE]
+    const uint32_t v_sm = k_sm + C::STAGES * C::TILE;             // [STAGES][TILE]
+    const uint32_t full = v_sm + C::STAGES * C::TILE;             // + 8 s
+    const uint32_t empty = full + 8 * C::STAGES;                  // + 8 s
+    const uint32_t qfull = empty + 8 * C::STAGES;                 // + 8 w
+
+    const int NP = G == 1 ? 1 : (G + 1) / 2;
+    const int kvh = blockIdx.x / NP, pair = blockIdx.x - kvh * NP, b = blockIdx.y;
+    const int qt = gridDim.z - 1 - blockIdx.z;
+    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
+    // the two consumer warpgroups: head, first row, activity, key tiles
+    const int head0 = G == 1 ? kvh : kvh * G + 2 * pair, head1 = G == 1 ? kvh : head0 + 1;
+    const int qa0 = G == 1 ? qt * 2 * TC_BQ : qt * TC_BQ, qa1 = G == 1 ? qa0 + TC_BQ : qa0;
+    const bool act0 = qa0 < S, act1 = (G == 1 || 2 * pair + 1 < G) && qa1 < S;
+    int lo0, hi0, lo1, hi1;
+    key_tiles(qa0, S, T_, vf, causal, window, lo0, hi0);
+    key_tiles(qa1, S, T_, vf, causal, window, lo1, hi1);
+    if (!act1) lo1 = hi1 = 0;
+    // the union the producer loads (contiguous: the ranges overlap or meet)
+    int u_lo = INT_MAX, u_hi = 0;
+    if (lo0 < hi0) u_lo = lo0, u_hi = hi0;
+    if (lo1 < hi1) u_lo = min(u_lo, lo1), u_hi = max(u_hi, hi1);
+    if (u_lo >= u_hi) u_lo = u_hi = 0;
+
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+#pragma unroll
+        for (int s = 0; s < C::STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 4 * (act0 + act1));  // each consumer warp releases
+        }
+        mbar_init(qfull, 1);
+        mbar_init(qfull + 8, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (tid >= 2 * 128) {
+        // producer warpgroup: one thread issues every copy
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (tid == 2 * 128) {
+            if (lo0 < hi0) {
+                mbar_expect_tx(qfull, C::TILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c)
+                    tma_load(q_sm + c * C::BOX, &qmap, qfull, c * C::BOXC, qa0, head0, b);
+            }
+            if (lo1 < hi1) {
+                mbar_expect_tx(qfull + 8, C::TILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c)
+                    tma_load(q_sm + C::TILE + c * C::BOX, &qmap, qfull + 8, c * C::BOXC, qa1,
+                             head1, b);
+            }
+            for (int t = u_lo; t < u_hi; ++t) {
+                const int i = t - u_lo, s = i % C::STAGES;
+                if (i >= C::STAGES) mbar_wait(empty + 8 * s, (i / C::STAGES - 1) & 1);
+                const uint32_t bar = full + 8 * s;
+                mbar_expect_tx(bar, 2 * C::TILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c) {
+                    tma_load(k_sm + s * C::TILE + c * C::BOX, &kmap, bar, c * C::BOXC, t * TC_BK,
+                             kvh, b);
+                    tma_load(v_sm + s * C::TILE + c * C::BOX, &vmap, bar, c * C::BOXC, t * TC_BK,
+                             kvh, b);
                 }
             }
         }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        const int wg = tid >> 7;
+        if (!(wg == 0 ? act0 : act1)) return;  // odd G: no head for this warpgroup
+        const int head = wg == 0 ? head0 : head1, qa = wg == 0 ? qa0 : qa1;
+        const int my_lo = wg == 0 ? lo0 : lo1, my_hi = wg == 0 ? hi0 : hi1;
+        const int warp = (tid & 127) >> 5, lane = tid & 31;
+        const int i0 = qa + warp * 16 + (lane >> 2);  // rows i0 and i0 + 8
+        const int cq = 2 * (lane & 3);               // columns cq, cq + 1 of each 8
+        const float cap_l2 = cap > 0.f ? cap * TC_LOG2E : 0.f;
+        const float sc = cap > 0.f ? scale / cap : scale * TC_LOG2E;
+        const uint64_t qdesc = smem_desc<C::LAYOUT>(q_sm + wg * C::TILE, 16, 8 * C::RB);
+
+        float O[HDP / 2];
 #pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-            mx0 = fmaxf(mx0, __shfl_xor_sync(FULL_MASK, mx0, off));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(FULL_MASK, mx1, off));
-        }
-        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-        const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-        m0 = mn0;
-        m1 = mn1;
-        float ps0 = 0.f, ps1 = 0.f;
-        uint32_t pa[TC_BK / 8][2];  // rounded p, packed: [n][row g | row g + 8]
-#pragma unroll
-        for (int n = 0; n < TC_BK / 8; ++n) {
-            float p[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float mrow = e < 2 ? mn0 : mn1;
-                p[e] = (valid >> (4 * n + e)) & 1u
-                           ? __bfloat162float(__float2bfloat16_rn(expf(sc[n][e] - mrow)))
-                           : 0.f;
+        for (int n = 0; n < HDP / 2; ++n) O[n] = 0.f;
+        float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+        if (my_lo < my_hi) mbar_wait(qfull + 8 * wg, 0);
+
+        for (int t = u_lo; t < u_hi; ++t) {
+            const int i = t - u_lo, s = i % C::STAGES;
+            mbar_wait(full + 8 * s, (i / C::STAGES) & 1);
+            if (t >= my_lo && t < my_hi) {
+                const int j0 = t * TC_BK;
+                const uint64_t kdesc = smem_desc<C::LAYOUT>(k_sm + s * C::TILE, 16, 8 * C::RB);
+                // V: the next 64 columns one box on (LBO), the next 8 keys 8 rows on (SBO)
+                const uint64_t vdesc =
+                    smem_desc<C::LAYOUT>(v_sm + s * C::TILE, C::BOX, 8 * C::RB);
+                const bool inner = j0 + TC_BK <= T_ && j0 >= vf &&
+                                   (!causal || j0 + TC_BK - 1 <= qa) &&
+                                   (window < 0 || qa + TC_BQ - 1 - j0 < window);
+                if (inner)
+                    tc_tile<HDP, false>(O, m0, m1, l0, l1, qdesc, kdesc, vdesc, j0, i0, cq, T_,
+                                        vf, causal, window, cap_l2, sc);
+                else
+                    tc_tile<HDP, true>(O, m0, m1, l0, l1, qdesc, kdesc, vdesc, j0, i0, cq, T_,
+                                       vf, causal, window, cap_l2, sc);
             }
-            ps0 += p[0] + p[1];
-            ps1 += p[2] + p[3];
-            pa[n][0] = pack_bf16(p[0], p[1]);
-            pa[n][1] = pack_bf16(p[2], p[3]);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * s);
         }
-        l0 = l0 * al0 + ps0;
-        l1 = l1 * al1 + ps1;
-#pragma unroll
-        for (int n = 0; n < HDP / 8; ++n) {
-            acc[n][0] *= al0; acc[n][1] *= al0;
-            acc[n][2] *= al1; acc[n][3] *= al1;
-        }
-        // O += P . V, 16 keys a step
-#pragma unroll
-        for (int kk = 0; kk < TC_BK / 16; ++kk) {
-            const uint32_t a0 = pa[2 * kk][0], a1 = pa[2 * kk][1];
-            const uint32_t a2 = pa[2 * kk + 1][0], a3 = pa[2 * kk + 1][1];
-            const __nv_bfloat16* vr = vs + (kk * 16 + tq * 2) * LDS + g;
-#pragma unroll
-            for (int n = 0; n < HDP / 8; ++n) {
-                if (n * 8 >= hd) break;
-                const __nv_bfloat16* vp = vr + n * 8;
-                mma_bf16(acc[n], a0, a1, a2, a3, pack_u16(vp[0], vp[LDS]),
-                         pack_u16(vp[8 * LDS], vp[9 * LDS]));
-            }
-        }
-    }
 
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-        l0 += __shfl_xor_sync(FULL_MASK, l0, off);
-        l1 += __shfl_xor_sync(FULL_MASK, l1, off);
-    }
-    __nv_bfloat16* ob = o + b * osb + h * osh;
-#pragma unroll
-    for (int n = 0; n < HDP / 8; ++n) {
-        const int d = n * 8 + tq * 2;
-        if (d >= hd) break;
-        if (i0 < S) {
-            const float r0 = l0 > 0.f ? acc[n][0] / fmaxf(l0, 1e-37f) : 0.f;
-            const float r1 = l0 > 0.f ? acc[n][1] / fmaxf(l0, 1e-37f) : 0.f;
-            *reinterpret_cast<__nv_bfloat162*>(ob + i0 * oss + d) = __floats2bfloat162_rn(r0, r1);
+        for (int off = 1; off <= 2; off <<= 1) {
+            l0 += __shfl_xor_sync(FULL_MASK, l0, off);
+            l1 += __shfl_xor_sync(FULL_MASK, l1, off);
         }
-        if (i1 < S) {
-            const float r0 = l1 > 0.f ? acc[n][2] / fmaxf(l1, 1e-37f) : 0.f;
-            const float r1 = l1 > 0.f ? acc[n][3] / fmaxf(l1, 1e-37f) : 0.f;
-            *reinterpret_cast<__nv_bfloat162*>(ob + i1 * oss + d) = __floats2bfloat162_rn(r0, r1);
+        __nv_bfloat16* ob = o + b * osb + head * osh;
+        const int i1 = i0 + 8;
+#pragma unroll
+        for (int n = 0; n < HDP / 8; ++n) {
+            const int d = n * 8 + cq;
+            if (d >= hd) break;
+            if (i0 < S) {
+                const float r0 = l0 > 0.f ? O[4 * n] / fmaxf(l0, 1e-37f) : 0.f;
+                const float r1 = l0 > 0.f ? O[4 * n + 1] / fmaxf(l0, 1e-37f) : 0.f;
+                *reinterpret_cast<__nv_bfloat162*>(ob + i0 * oss + d) = __floats2bfloat162_rn(r0, r1);
+            }
+            if (i1 < S) {
+                const float r0 = l1 > 0.f ? O[4 * n + 2] / fmaxf(l1, 1e-37f) : 0.f;
+                const float r1 = l1 > 0.f ? O[4 * n + 3] / fmaxf(l1, 1e-37f) : 0.f;
+                *reinterpret_cast<__nv_bfloat162*>(ob + i1 * oss + d) = __floats2bfloat162_rn(r0, r1);
+            }
         }
     }
 }
 
 // ---------------------------------------------------------------------------
-// One launcher for both bodies
+// Launchers
 // ---------------------------------------------------------------------------
 
-// The body of each element type at compile-time width HDP: its kernel, its
-// query tile and CTA size, and the dynamic shared memory a launch takes.
-template <typename T, int HDP> struct Fwd;
-template <int HDP> struct Fwd<float, HDP> {
-    static constexpr auto kernel = flash_fwd_kernel<HDP>;
-    static constexpr int BQ = FA_BQ, THREADS = FA_THREADS;
-    static size_t bytes(int hd) { return smem_bytes(hd); }
-};
-template <int HDP> struct Fwd<__nv_bfloat16, HDP> {
-    static constexpr auto kernel = flash_fwd_tc_kernel<HDP>;
-    static constexpr int BQ = TC_BQ, THREADS = TC_THREADS;
-    static size_t bytes(int) { return tc_smem_bytes(HDP); }
-};
-
-template <typename T, int HDP>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
-                  const long long* st, int causal, int window, float cap, float scale,
-                  cudaStream_t stream)
+template <int HDP>
+static int launch_f32(const void* q, const void* k, const void* v, void* o,
+                      const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
+                      const long long* st, int causal, int window, float cap, float scale,
+                      cudaStream_t stream)
 {
-    using F = Fwd<T, HDP>;
-    const auto kernel = F::kernel;
-    const size_t bytes = F::bytes(hd);
+    const auto kernel = flash_fwd_kernel<HDP>;
     // per instantiation: raise the limit once, to the widest launch (hd = HDP)
     static bool raised = false;
-    if (bytes > 48 * 1024 && !raised) {
+    if (smem_bytes(hd) > 48 * 1024 && !raised) {
         const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::bytes(HDP));
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(HDP));
         if (err != cudaSuccess) return (int)err;
         raised = true;
     }
-    const dim3 grid((S + F::BQ - 1) / F::BQ, H, B);
-    kernel<<<grid, F::THREADS, bytes, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (const int*)valid_from, H / KV, S, T_,
-        hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-        st[11], causal, window, cap, scale);
+    const dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
+    kernel<<<grid, FA_THREADS, smem_bytes(hd), stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, (const int*)valid_from,
+        H / KV, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+        st[10], st[11], causal, window, cap, scale);
+    return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled()
+{
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+    }
+    return fn;
+}
+
+// The 4-D map (hd, rows, heads, B) of a bf16 tensor [B][heads][rows][hd]
+// with element strides (sb, sh, sr) and a contiguous hd axis; boxes of
+// Tc<HDP>::BOXC columns by 64 rows.  Returns 0, or an error code to raise.
+template <int HDP>
+static int tile_map(CUtensorMap* map, const void* ptr, int B, int heads, int rows, int hd,
+                    long long sb, long long sh, long long sr)
+{
+    using C = Tc<HDP>;
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)C::BOXC, (cuuint32_t)TC_BK, 1, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              C::SWIZZLE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HDP>
+static int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                       const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
+                       const long long* st, int causal, int window, float cap, float scale,
+                       cudaStream_t stream)
+{
+    using C = Tc<HDP>;
+    const auto kernel = flash_fwd_wgmma_kernel<HDP>;
+    static bool raised = false;
+    if (!raised) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+        if (err != cudaSuccess) return (int)err;
+        raised = true;
+    }
+    const int G = H / KV;
+    const int rows = G == 1 ? 2 * TC_BQ : TC_BQ;  // query rows of one CTA
+    const dim3 grid(KV * (G == 1 ? 1 : (G + 1) / 2), B, (S + rows - 1) / rows);
+    if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
+    CUtensorMap qm, km, vm;
+    int rc = tile_map<HDP>(&qm, q, B, H, S, hd, st[0], st[1], st[2]);
+    if (rc == 0) rc = tile_map<HDP>(&km, k, B, KV, T_ > 0 ? T_ : 1, hd, st[3], st[4], st[5]);
+    if (rc == 0) rc = tile_map<HDP>(&vm, v, B, KV, T_ > 0 ? T_ : 1, hd, st[6], st[7], st[8]);
+    if (rc != 0) return rc;
+    kernel<<<grid, TC_THREADS, C::SMEM, stream>>>(qm, km, vm, (__nv_bfloat16*)o,
+                                                  (const int*)valid_from, G, S, T_, hd, st[9],
+                                                  st[10], st[11], causal, window, cap, scale);
     return (int)cudaGetLastError();
 }
 
@@ -456,10 +813,15 @@ static int dispatch(const void* q, const void* k, const void* v, void* o,
                     const long long* st, int causal, int window, float cap, float scale,
                     cudaStream_t stream)
 {
-#define FA_CASE(W)                                                                      \
-    if (hd <= W)                                                                        \
-        return launch<T, W>(q, k, v, o, valid_from, B, H, KV, S, T_, hd, st, causal,    \
-                            window, cap, scale, stream);
+#define FA_CASE(W)                                                                          \
+    if (hd <= W) {                                                                          \
+        if constexpr (std::is_same<T, float>::value)                                        \
+            return launch_f32<W>(q, k, v, o, valid_from, B, H, KV, S, T_, hd, st, causal,   \
+                                 window, cap, scale, stream);                               \
+        else                                                                                \
+            return launch_bf16<W>(q, k, v, o, valid_from, B, H, KV, S, T_, hd, st, causal,  \
+                                  window, cap, scale, stream);                              \
+    }
     FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(128) FA_CASE(256)
 #undef FA_CASE
     return (int)cudaErrorInvalidValue;
@@ -469,8 +831,10 @@ static int dispatch(const void* q, const void* k, const void* v, void* o,
 // [B, KV, T, hd] by strides (ksb, ksh, kst) / (vsb, vsh, vst); the hd axis
 // is contiguous.  dtype 0 = float32, 1 = bfloat16 (all four tensors).
 // valid_from [B] int32 or null (all 0); window < 0 = none; cap <= 0 =
-// none.  S >= 1, H % KV == 0, hd a multiple of 8 in [8, 256].  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// none.  S >= 1, H % KV == 0, hd a multiple of 8 in [8, 256]; for
+// bfloat16, TMA reads q, k and v: 16-byte aligned bases and strides in
+// multiples of 8 elements.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or the error that stopped the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* valid_from, int dtype, int B, int H,
                                       int KV, int S, int T, int hd,
@@ -488,7 +852,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
         return dispatch<float>(q, k, v, o, valid_from, B, H, KV, S, T, hd, st, causal,
                                window, cap, scale, (cudaStream_t)stream);
     if (dtype == 1) {
-        // the tensor-core path reads 16-byte chunks: 8-element-aligned rows
         for (int i = 0; i < 12; ++i)
             if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
         if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)

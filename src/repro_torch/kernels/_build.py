@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (``extern "C"``), loaded with
 ``ctypes``.  Builds happen at first use, into ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``); the file name carries a
-hash of the sources and flags, so an edited source builds anew.
+hash of the sources and flags, so an edited source builds anew, and
+the ``ptxas`` report of its build lies beside it (:func:`ptxas_report`).
 :func:`build` compiles every stale source at once, one ``nvcc`` process
 per source, all started together.
 """
@@ -55,12 +56,18 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> dict[str, dict]:
-    """Compile every source in ``names`` whose library is missing.
+def ptxas_report(name: str) -> str:
+    """The ``nvcc -Xptxas -v`` report (registers, shared memory, spills
+    of every kernel) of the library built from ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".ptxas").read_text()
 
-    Returns, per compiled source, its build seconds and ``ptxas`` report
-    (registers, shared memory, spills).  Waits for every ``nvcc`` it
-    started before raising on the first failure.
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every source in ``names`` whose library or report is
+    missing.
+
+    Returns, per compiled source, its build seconds.  Waits for every
+    ``nvcc`` it started before raising on the first failure.
     """
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,7 +75,7 @@ def build(names=SOURCES) -> dict[str, dict]:
     t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".ptxas").exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -82,11 +89,9 @@ def build(names=SOURCES) -> dict[str, dict]:
         if proc.returncode:
             failures.append(f"nvcc failed on {name}.cu:\n{stdout}{stderr}")
             continue
+        out.with_suffix(".ptxas").write_text(stderr.strip())
         os.replace(tmp, out)
-        report[name] = {
-            "seconds": time.perf_counter() - t0,
-            "ptxas": stderr.strip(),
-        }
+        report[name] = {"seconds": time.perf_counter() - t0}
     if failures:
         raise RuntimeError("\n".join(failures))
     return report

@@ -3,8 +3,8 @@
 ``softmax(softcap(q·kᵀ/√hd)) · v`` over the valid keys, with GQA (query
 head ``h`` reads KV head ``h // G``, no repeated K/V), causal masking, a
 sliding ``window`` and the gemma2 ``logit_cap``.  Two wrappers launch K7
-(``csrc/attention.cu``: bfloat16 on the tensor cores, float32 on the FMA
-pipes):
+(``csrc/attention.cu``: bfloat16 through wgmma behind a TMA ring, float32
+on the FMA pipes):
 
 :func:`flash_attention` — the contract of the reference's Pallas kernel
     (``src/repro/kernels/flash_attention.py:109``): q ``[B, H, S, hd]``,
@@ -150,9 +150,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def _aligned(*xs: torch.Tensor):
-    """The bf16 tensor-core path reads rows in 16-byte chunks: a 16-byte
-    aligned base and strides in multiples of 8 elements.  A tensor that is
-    not so is copied into a fresh contiguous one, which is."""
+    """The bf16 body reads q, k and v through TMA, which takes a 16-byte
+    aligned base and strides in multiples of 16 bytes (8 elements).  A
+    tensor that is not so is copied into a fresh contiguous one, which
+    is; the kernel raises on anything else."""
     return tuple(
         x if x.dtype != torch.bfloat16 or (x.data_ptr() % 16 == 0 and all(
             st % 8 == 0 for st in x.stride()[:3])) else
