@@ -8,8 +8,10 @@ checks, on the card:
 
   1. device  — the card's name and power limit (``nvidia-smi``);
   2. build   — every kernel source, one ``nvcc`` per source, in parallel;
-     each library's ptxas report, kept beside it, in which every width of
-     K7's bf16 body must show no spill stores or loads;
+     each library's ptxas report, kept beside it (read whether the library
+     was built now or before), in which every instantiation of K7's bf16
+     body and of K2/K3's tensor-core body must show no stack frame and no
+     spill stores or loads;
   3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
      map), K4 (multi-shard filter), K5 (contains top-k) and K6 (rules
      top-k) against their plain PyTorch versions on seeded inputs, bit for
@@ -20,7 +22,13 @@ checks, on the card:
      reference kernels' 2**22 cells), W ∈ {4, 5}, k ∈ {1, 5, 64} and,
      past one launch's 64 winners, k ∈ {65, 100, 128, C + 1}, live counts
      below the table size, forced ties, min_conf 0.1 and 0.7, and cases
-     where no row matches; K7 (flash attention) against its plain version
+     where no row matches; K2 and K3's tensor-core body at its edges
+     (``TC_EDGE_*``): W ∈ {1, 4, 5, 10, 11} (11: the SIMT body), N and B ∈
+     {1, 63, 65, 8191}, K3 over k ∈ {1, 2, 8}, every K2 variant and scalar
+     triple, rows with bit 31 set and all-ones pad rows or candidates that
+     match no row, and the row split (B = 8 against census-income's
+     13,056-row shards), each launch through the tensor body exactly where
+     W <= TC_MAX_W; K7 (flash attention) against its plain version
      within ``K7_TOL`` in float32 and bfloat16, on every case shape of
      tests/test_flash_attention.py and at gemma2-9b's head shape for
      S ∈ {1, 63, 64, 65, 4097, 5000}, causal or not, window 4096 or none,
@@ -34,14 +42,16 @@ checks, on the card:
      full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
      reference's, concept sets equal the ``backend="torch"`` run's, and
-     every kernel of the path was launched; one more kernel run keeps a
-     copy of the operands of every launch;
+     every kernel of the path was launched, every K2 launch through the
+     tensor-core body; one more kernel run keeps a copy of the operands of
+     every launch;
   5. main path, k object shards — the same two drivers through
      ``ClosureEngine(ctx, n_parts=k, reduce_impl=...)`` for every
      AND-allreduce schedule at k = 8 and for rsag at k = 2 and 4: the same
      counts, the reference's modeled wire bytes, concept sets equal the
-     ``backend="torch"`` run's at the same plan, K3 and K4 launched and K2
-     not; MRCbo at k = 8 through ``backend="matmul"``; census-income at its
+     ``backend="torch"`` run's at the same plan, K3 (every launch through
+     the tensor-core body) and K4 launched and K2 not; MRCbo at k = 8
+     through ``backend="matmul"``; census-income at its
      published shape (103,950 x 133) at k = 8, rsag, against the
      reference's counts and bytes; one more kernel run of the k = 8 rsag
      plans keeps a copy of the operands of every K3/K4 launch;
@@ -88,7 +98,10 @@ checks, on the card:
      work alone; median of 25 after warm-up): the sum over the run and its
      bound, and the costliest chunk beside its plain version, its bound,
      and its time without the spin kernel (``unqueued_ms``, the host's
-     launch path included).
+     launch path included); for K2 and K3 also the bound of their two
+     int8 tensor-core products (``tc_bound_ms``), the smaller of the two
+     routes' bounds (``table_bound_ms``) and the port's ``closure_matmul``
+     on the costliest chunk (``matmul_backend_ms``).
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -198,6 +211,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput table); times the SM count and the maximum SM clock.
 INT32_OPS_PER_CLK_PER_SM = 64
+# dense int8 tensor-core operations per second of the H100 SXM (NVIDIA data
+# sheet): the rate of K2/K3's two 0/1 products over complement bit-planes
+INT8_TENSOR_OPS_PER_S = 1.979e15
 TIMING_REPS = 25
 SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's SM clock: longer than any wrapper's host path
 # The LM serving path (phases 10 and 11).  Reduced (phase 10): gemma2-9b
@@ -470,6 +486,106 @@ def check_sharded_kernels(device) -> list[dict]:
     return records
 
 
+# The widest rows, in words, on which K2/K3's launchers must take the
+# tensor-core body (TCF_MAX_W in csrc/frontier.cu): phases 3-5 hold the
+# launchers' reports in the wrappers' tc_launches counters to it, and the
+# ptxas gate expects its instantiations for W = 1..TC_MAX_W.
+TC_MAX_W = 10
+
+# K2/K3's tensor body at its edges (phase 3): W at 1, 4, 5, 10 (TC_MAX_W,
+# the widest it takes) and 11 (the SIMT body); N and B at 1, 63, 65 and 8191,
+# beside the 64-row stages, the 64-candidate warpgroups and the 128-candidate
+# CTAs; K3 over k in {1, 2, 8} shards; rows with bit 31 set and the engine's
+# all-ones pad rows, or candidates that match no row; the row split at B = 8
+# against census-income's shards (CENSUS_PADDED / 8 rows, k = 8).
+TC_EDGE_W = (1, 4, 5, 10, 11)
+TC_EDGE_NB = ((1, 1), (63, 65), (65, 63), (8191, 8191))
+TC_SPLIT_N = CENSUS_PADDED // 8
+
+
+def tc_case(rng, n_rows: int, W: int, B: int, pad: bool):
+    """Rows with bit 31 set in every word of every third row.  ``pad``: the
+    last rows all-ones, as the engine pads.  Else bit 30 of word 0 cleared in
+    every row and set in every third candidate from the second on, so that
+    those candidates match no row (the all-ones candidate matches none
+    either)."""
+    import numpy as np
+
+    rows = bitsets(rng, n_rows, W, 0.7)
+    rows[::3] |= np.uint32(1 << 31)
+    if pad:
+        rows[-min(5, n_rows):] = 0xFFFFFFFF
+    else:
+        rows[:, 0] &= ~np.uint32(1 << 30)
+    cands = candidates(rng, rows, B)
+    if not pad:
+        cands[1::3, 0] |= np.uint32(1 << 30)
+    return rows, cands
+
+
+def check_tc_kernels(device) -> list[dict]:
+    """Phase 3, the K2/K3 tensor body at its edges (``TC_EDGE_*``) and on
+    the row split, against the plain versions, bit for bit; each launch
+    took the tensor body exactly where W <= TC_MAX_W."""
+    import numpy as np
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import frontier as fk
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(20121015)
+    records = []
+
+    def run(name, kern, plain, args, kw, W, rec):
+        before = kern.tc_launches
+        want = plain(*args, **kw)
+        require_equal(name, kern(*args, **kw), want)
+        if kern.tc_launches - before != int(W <= TC_MAX_W):
+            raise AssertionError(f"{name}: tensor body taken {kern.tc_launches - before} "
+                                 f"times at W = {W} (TC_MAX_W = {TC_MAX_W})")
+        records.append({"tc_edge": True, "tensor_body": W <= TC_MAX_W,
+                        "zero_support": int((want[1] == 0).sum()), **rec})
+
+    def k3_cases(W, n, B, ks, pad):
+        mask = ops.attr_mask_tensor(W * 32 - 3, W, device)[None, :]
+        for k in ks:
+            rows_np, cands_np = tc_case(rng, k * n, W, B, pad(k))
+            rows = device_bits(rows_np, device)
+            rows = rows if k == 1 else rows.reshape(k, n, W)
+            cands = device_bits(cands_np, device)
+            run(f"K3 tensor edge k={k} W={W} n={n} B={B}", fk.map_closure,
+                fk.map_closure_plain, (rows, cands, mask), {}, W,
+                {"kernel": "map_closure", "k": k, "W": W, "n": n, "B": B, "pad": pad(k)})
+
+    def k2_cases(W, N, B, pad):
+        rows_np, cands_np = tc_case(rng, N, W, B, pad)
+        rows = device_bits(rows_np, device)
+        cands = device_bits(cands_np, device)
+        mask = ops.attr_mask_tensor(W * 32 - 7, W, device)[None, :]
+        parent = device_bits(cands_np & bitsets(rng, B, W, 0.5), device)
+        lowrow = device_bits(bitsets(rng, B, W, 0.3), device)
+        for variant, (iceberg, cbo, _) in fk.VARIANTS.items():
+            for sc in ((B, 1, 0, 0), (B - B // 3, N // 50, 5, 0), (B // 2 + 1, 3, 1, B // 4)):
+                sc = fk.pack_scalars(*sc)
+                kw = dict(iceberg=iceberg, cbo=cbo)
+                if cbo:
+                    kw.update(parent=parent, lowrow=lowrow)
+                run(f"K2 tensor edge {variant} W={W} N={N} B={B} {sc}", fk.fused_step,
+                    fk.fused_step_plain, (rows, cands, mask, sc), kw, W,
+                    {"kernel": "fused_step", "variant": variant, "W": W, "N": N, "B": B,
+                     "pad": pad, "scalars": list(sc)})
+
+    for W in TC_EDGE_W:
+        for i, (N, B) in enumerate(TC_EDGE_NB):
+            k3_cases(W, N, B, (1, 2, 8), lambda k: k != 2)
+            k2_cases(W, N, B, pad=i % 2 == 0)
+    # the row split: few candidate tiles against long shards
+    for W in (4, 5):
+        k3_cases(W, TC_SPLIT_N, 8, (8,), lambda k: True)
+        k2_cases(W, TC_SPLIT_N, 8, pad=True)
+    return records
+
+
 def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | None = None,
                     min_support: int = MAIN_MIN_SUPPORT):
     """One run of a main path through the port's entry points; launch
@@ -491,7 +607,26 @@ def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | N
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    check_tensor_body(ctx.W)
     return res, eng, wall, launches
+
+
+def check_tensor_body(W: int) -> None:
+    """Every K2 and K3 launch of a run whose rows are at most TC_MAX_W
+    words wide took the tensor-core body, read just after the run from the
+    counters set to 0 before it.  The counters are read on the module-level
+    names the wrappers count on: the wrappers themselves, or
+    capture_launches' recorders (fresh, at 0) while it runs, so that
+    captured runs are checked as well."""
+    from repro_torch.kernels import frontier as fk
+
+    if W > TC_MAX_W:
+        return
+    for name in ("fused_step", "map_closure"):
+        k = getattr(fk, name)
+        if k.tc_launches != k.launches:
+            raise AssertionError(f"{name}: {k.launches} launches at W = {W}, "
+                                 f"{k.tc_launches} of them through the tensor body")
 
 
 def capture_launches(names, drive):
@@ -499,7 +634,8 @@ def capture_launches(names, drive):
     recorders that keep a copy of the operands of every launch, so that
     phase 7 times and bounds the chunks a path really gave each kernel.
     The wrapper counts on its module-level name, which is then the
-    recorder: a copy is kept exactly when the wrapper counted a launch.
+    recorder: a copy is kept exactly when the wrapper counted a launch,
+    and ``check_tensor_body`` reads the recorder's ``tc_launches``.
     Returns what ``drive`` returned and the chunks by name; the caller
     holds the number of chunks against the counts of an unwrapped run."""
     import torch
@@ -520,6 +656,7 @@ def capture_launches(names, drive):
                 chunks[name].append(copy)
             return out
         call.launches = 0
+        call.tc_launches = 0
         return call
 
     for name in names:
@@ -1086,17 +1223,24 @@ def check_attention_edges(device) -> list[dict]:
     return records
 
 
-def k7_ptxas(report: str) -> dict:
-    """Registers, stack and spill bytes of each width of K7's bf16 body
-    (``flash_fwd_wgmma_kernel<HDP>``) in an ``nvcc -Xptxas -v`` report."""
+# The kernel bodies whose every instantiation must show no stack and no
+# spills in its library's ptxas report: K7's bf16 body (one per head-dim
+# width) and K2/K3's tensor-core body (per W, map or fused, ICEBERG, CBO).
+PTXAS_BODIES = {"flash_fwd_wgmma_kernel": "attention", "closure_tc_kernel": "frontier"}
+
+
+def body_ptxas(report: str, kernel: str) -> dict:
+    """Registers, stack and spill bytes of each instantiation of the
+    template ``kernel`` in an ``nvcc -Xptxas -v`` report, keyed
+    ``kernel<template arguments>``."""
     import re
 
-    found = re.findall(r"Function properties for \S*flash_fwd_wgmma_kernelILi(\d+)E\S*\n"
+    found = re.findall(rf"Function properties for \S*?{kernel}I(\S*?)EEv\S*\n"
                        r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                        r"loads\nptxas info\s*: Used (\d+) registers", report)
-    return {f"flash_fwd_wgmma_kernel<{w}>": dict(zip(
+    return {f"{kernel}<{','.join(re.findall(r'L[ib](\d+)E', args + 'E'))}>": dict(zip(
         ("stack", "spill_stores", "spill_loads", "registers"), map(int, rest)))
-        for w, *rest in found}
+        for args, *rest in found}
 
 
 def digest(*arrays) -> str:
@@ -1844,6 +1988,32 @@ def rules_bound(args, kw):
                                  "firing_pairs": n_fire}
 
 
+def tc_ops(args) -> int:
+    """K2/K3 as two 0/1 products over complement bit-planes: 2 · B · rows ·
+    32W operations each (miss = C·R̄ᵀ, absent = match·R̄), rows summed over
+    the shards."""
+    rows, cands = args[0], args[1]
+    W = rows.shape[-1]
+    return 2 * 2 * cands.shape[0] * (rows.numel() // W) * 32 * W
+
+
+def matmul_backend_ms(name: str, args, kw, got) -> float:
+    """The port's library route on a K2/K3 chunk: ``ops.closure_matmul``
+    (two bf16 ``torch.matmul`` products over the mask's attributes), held
+    against the kernel's closures and supports ``got``, then timed."""
+    from repro_torch.kernels import ops
+
+    rows, cands, mask = args[0], args[1], args[2]
+    n_attrs = sum(bin(int(x) & 0xFFFFFFFF).count("1") for x in mask.flatten().tolist())
+    n_pad = args[3][2] if name == "fused_step" else 0
+
+    def fn():
+        return ops.closure_matmul(rows, cands, n_attrs, n_valid_rows=rows.shape[-2] - n_pad)
+
+    require_equal(f"{name}: closure_matmul on its costliest chunk", fn(), got[:2])
+    return cuda_time_ms(fn)
+
+
 def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     """Phase 7: each kernel on the chunks its main path gave it (captured
     in phases 4, 5, 8 and 9), beside its plain version and its bound.
@@ -1854,7 +2024,12 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     and ``bound_ms`` are those of its costliest chunk.  K1 and K2 time
     their phase-4 chunks (one shard); K3 and K4 the chunks of the k = 8
     rsag runs of phase 5 (both mushroom drivers and census-income); K5
-    and K6 those of the kernel runs of phases 8 and 9."""
+    and K6 those of the kernel runs of phases 8 and 9.  K2 and K3 also
+    carry ``tc_bound_ms`` (their two products over the int8 tensor-core
+    rate, or the bytes if longer), ``table_bound_ms`` (the smaller of that
+    and ``bound_ms``: the faster route's bound), both summed over the run,
+    and ``matmul_backend_ms``, the port's ``closure_matmul`` on the costliest
+    chunk."""
     from repro_torch.kernels import closure as k1
     from repro_torch.kernels import frontier as fk
     from repro_torch.kernels import serve as sk
@@ -1879,18 +2054,28 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     }
     out = []
     for name, (kern, plain, source, replaces, bound) in specs.items():
+        tensor = name in ("fused_step", "map_closure")
         timed = []
         for label, args, kw in chunks[name]:
             ms = cuda_time_ms(lambda: kern(*args, **kw))
             ops, nbytes, census, shape = bound(args, kw)
-            timed.append((ms, ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3, label, args,
-                          kw, census, shape))
-        ms, t_ops, t_bytes, label, args, kw, census, shape = max(timed, key=lambda t: t[0])
-        err = require_equal(f"{name} on its costliest main-path chunk",
-                            kern(*args, **kw), plain(*args, **kw))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_tc = max(tc_ops(args) / INT8_TENSOR_OPS_PER_S * 1e3, t_bytes) if tensor else None
+            timed.append((ms, ops / rate * 1e3, t_bytes, label, args, kw, census, shape, t_tc))
+        ms, t_ops, t_bytes, label, args, kw, census, shape, t_tc = max(timed, key=lambda t: t[0])
+        got = kern(*args, **kw)
+        err = require_equal(f"{name} on its costliest main-path chunk", got, plain(*args, **kw))
         plain_ms = cuda_time_ms(lambda: plain(*args, **kw))
         unqueued_ms = cuda_time_ms(lambda: kern(*args, **kw), queued=False)
         scalars = {"fused_step": 3, "filter_step": 2}.get(name)
+        routes = {} if not tensor else {
+            "tc_bound_ms": t_tc,
+            "table_bound_ms": min(max(t_ops, t_bytes), t_tc),
+            "matmul_backend_ms": matmul_backend_ms(name, args, kw, got),
+            "run_tc_bound_ms": sum(t[8] for t in timed),
+            "run_table_bound_ms": sum(min(max(t[1], t[2]), t[8]) for t in timed),
+            "int8_tensor_ops_per_s": INT8_TENSOR_OPS_PER_S,
+        }
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1910,6 +2095,7 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
                     t[3] for t in timed)
             },
             "int32_ops_per_s": rate,
+            **routes,
         })
     return out
 
@@ -1944,24 +2130,33 @@ def main() -> int:
           "built": {k: v["seconds"] for k, v in built.items()}})
     for name in _build.SOURCES:
         print(f"ptxas {name}: {_build.ptxas_report(name)}", flush=True)
-    # K7's bf16 body, from the report of the library in use (built now or
-    # before): registers and no spill stores or loads in any width
-    body = k7_ptxas(_build.ptxas_report("attention"))
-    emit({"phase": "ptxas", "k7_bf16": body})
-    if not body:
-        raise AssertionError("the ptxas report of attention.cu lacks K7's bf16 body")
-    spilled = [n for n, r in body.items() if r["spill_stores"] or r["spill_loads"]]
-    if spilled:
-        raise AssertionError(f"K7's bf16 body spills: {spilled}")
+    # K7's bf16 body and K2/K3's tensor-core body, from the report of the
+    # library in use (built now or before): registers, and no stack frame,
+    # spill stores or spill loads in any instantiation
+    bodies = {kernel: body_ptxas(_build.ptxas_report(source), kernel)
+              for kernel, source in PTXAS_BODIES.items()}
+    emit({"phase": "ptxas", **bodies})
+    want = {"flash_fwd_wgmma_kernel": 5, "closure_tc_kernel": 5 * TC_MAX_W}
+    for kernel, body in bodies.items():
+        if len(body) != want[kernel]:
+            raise AssertionError(f"the ptxas report holds {len(body)} instantiations of "
+                                 f"{kernel}, not {want[kernel]}")
+        spilled = [n for n, r in body.items()
+                   if r["stack"] or r["spill_stores"] or r["spill_loads"]]
+        if spilled:
+            raise AssertionError(f"stack or spills in {spilled}")
 
     t0 = time.perf_counter()
-    records = (check_kernels(device) + check_sharded_kernels(device)
+    records = (check_kernels(device) + check_sharded_kernels(device) + check_tc_kernels(device)
                + check_serve_kernels(device) + check_attention_kernel(device)
                + check_attention_edges(device))
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
                         for k in dict.fromkeys(r["kernel"] for r in records)},
-          "bit_exact": "K1-K6", "k7_tolerance": K7_TOL,
+          "bit_exact": "K1-K6", "tc_edge_cases": {
+              k: sum(r["kernel"] == k for r in records if r.get("tc_edge"))
+              for k in ("map_closure", "fused_step")},
+          "k7_tolerance": K7_TOL,
           "k7_max_abs_err": {d: max((r["max_abs_err"] for r in records
                                      if r.get("dtype") == d), default=None) for d in K7_TOL},
           "k7_bf16_row_rel_err": max(r.get("row_rel_err", 0.0) for r in records),

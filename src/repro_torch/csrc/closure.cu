@@ -13,7 +13,10 @@
 // reads N*W + B*W words and writes B*(W+1), but does about 4*B*N*W word
 // operations (the census of benchmarks/roofline.py); at the main path's
 // shapes (B = N = 8192, W = 4) that is ~1.1 G operations against ~0.3 MB
-// of traffic.  Tensor cores and TMA do not help a bitwise AND-reduction.
+// of traffic.  As a bitwise AND-reduction it runs on the int32 pipes; the
+// same function is also two 0/1 matrix products over complement
+// bit-planes, which K2 and K3 run on the int8 tensor cores for W <=
+// TCF_MAX_W (frontier.cu).  K1 keeps the loop below for now.
 //
 // What the design does about it: one CTA per 8 candidates keeps the
 // candidates in shared memory and streams the rows through L1/L2 (each

@@ -13,7 +13,8 @@ its plain version (``closure_plain``, ``fused_step_plain``,
 ``flash_attention.flash_attention`` (the reference kernel's layout) and
 ``flash_attention.blockwise_attention`` (the model's layout, with
 left-pad ``valid_from``), whose plain version is ``attention_plain``.
-Each wrapper counts its launches in a plain ``launches`` attribute.
+Each wrapper counts its launches in a plain ``launches`` attribute; K2 and
+K3 also count those that took their tensor-core body in ``tc_launches``.
 """
 
 from repro_torch.kernels import closure as _k1
@@ -26,6 +27,8 @@ KERNELS = (_k1.closure, _fr.fused_step, _fr.map_closure, _fr.filter_step,
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+        if hasattr(k, "tc_launches"):
+            k.tc_launches = 0

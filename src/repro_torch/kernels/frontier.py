@@ -33,6 +33,14 @@ collective (:meth:`repro_torch.core.engine.ClosureEngine.spmd_step_fused`):
 The mask folds into K3 because AND distributes over it: masked local
 closures AND-reduce to the masked global closure.  No pad correction
 happens in K3; the engine corrects the summed supports once.
+
+K2 and K3 share one closure body in ``csrc/frontier.cu``, which the C
+launchers choose by the word width alone: for rows of at most
+``TCF_MAX_W`` (10) words the tensor-core body (the closure as two int8
+``wgmma`` products over complement bit-planes), for wider rows, up to
+``closure.MAX_W``, the SIMT body K1 uses.  Each wrapper counts its
+launches in ``launches`` and, as the launcher reports them, those that
+took the tensor body in ``tc_launches``.
 """
 
 from __future__ import annotations
@@ -98,12 +106,13 @@ def fused_step_plain(
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frontier")
+    flag = ctypes.POINTER(ctypes.c_int)
     lib.fused_step_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [flag, ctypes.c_void_p]
     )
     lib.fused_step_launch.restype = ctypes.c_int
     lib.map_closure_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [flag, ctypes.c_void_p]
     )
     lib.map_closure_launch.restype = ctypes.c_int
     lib.filter_launch.argtypes = (
@@ -111,6 +120,13 @@ def _lib() -> ctypes.CDLL:
     )
     lib.filter_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _tc_cands() -> int:
+    """The tensor body's candidates per CTA: ``fused_step`` gives it one
+    arrival counter for each."""
+    return _lib().frontier_tc_cands()
 
 
 def fused_step(
@@ -128,7 +144,10 @@ def fused_step(
 
     rows [N, W], cands [B, W] and mask [1, W] are int32 bitset blocks;
     ``scalars`` is :func:`pack_scalars`' tuple.  CbO variants also take
-    parent/lowrow [B, W].  ``fused_step.launches`` counts kernel launches.
+    parent/lowrow [B, W].  ``fused_step.launches`` counts kernel launches;
+    ``fused_step.tc_launches`` those that took the tensor-core body, which
+    the launcher chooses for rows of at most 10 words (wider rows take the
+    SIMT body).
     """
     check_closure_operands(rows, cands)
     N, W = rows.shape
@@ -156,22 +175,28 @@ def fused_step(
     keep = torch.empty((B,), dtype=torch.bool, device=rows.device)
     if B == 0:
         return out_c, out_s, keep
+    # the tensor body's arrival counters, one per CTA of candidates (used
+    # where it splits the row axis; the SIMT body ignores them)
+    arrived = torch.empty((-(-B // _tc_cands()),), dtype=torch.int32, device=rows.device)
+    tensor_body = ctypes.c_int(0)
     with torch.cuda.device(rows.device):
         rc = _lib().fused_step_launch(
             rows.data_ptr(), cands.data_ptr(), mask.data_ptr(),
             parent.data_ptr() if cbo else None,
             lowrow.data_ptr() if cbo else None,
             out_c.data_ptr(), out_s.data_ptr(), keep.data_ptr(),
-            N, B, W, *scalars, int(iceberg), int(cbo),
-            torch.cuda.current_stream(rows.device).cuda_stream,
+            arrived.data_ptr(), N, B, W, *scalars, int(iceberg), int(cbo),
+            ctypes.byref(tensor_body), torch.cuda.current_stream(rows.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused step kernel launch failed: CUDA error {rc}")
     fused_step.launches += 1
+    fused_step.tc_launches += tensor_body.value
     return out_c, out_s, keep
 
 
 fused_step.launches = 0
+fused_step.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +219,10 @@ def map_closure(
     rows ``[K, N, W]`` (K object shards) or ``[N, W]`` (one shard, a
     process-group rank's slice), cands ``[B, W]``, mask ``[1, W]`` →
     ``[K, B, W]`` / ``[K, B]`` (``[B, W]`` / ``[B]`` for 2-D rows).
-    ``map_closure.launches`` counts kernel launches.
+    ``map_closure.launches`` counts kernel launches;
+    ``map_closure.tc_launches`` those that took the tensor-core body, which
+    the launcher chooses for rows of at most 10 words (wider rows take the
+    SIMT body).
     """
     check_closure_operands(rows, cands, sharded=True)
     W = rows.shape[-1]
@@ -211,19 +239,22 @@ def map_closure(
     out_s = torch.empty((*lead, B), dtype=torch.int32, device=rows.device)
     if B == 0 or K == 0:
         return out_c, out_s
+    tensor_body = ctypes.c_int(0)
     with torch.cuda.device(rows.device):
         rc = _lib().map_closure_launch(
             rows.data_ptr(), cands.data_ptr(), mask.data_ptr(),
-            out_c.data_ptr(), out_s.data_ptr(), K, N, B, W,
+            out_c.data_ptr(), out_s.data_ptr(), K, N, B, W, ctypes.byref(tensor_body),
             torch.cuda.current_stream(rows.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"map closure kernel launch failed: CUDA error {rc}")
     map_closure.launches += 1
+    map_closure.tc_launches += tensor_body.value
     return out_c, out_s
 
 
 map_closure.launches = 0
+map_closure.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,33 @@ def subset_candidates(rng, rows: np.ndarray, B: int, keep: float = 0.2) -> np.nd
     return cands
 
 
+def edge_rows(rng, n_rows: int, W: int, B: int, pad: bool):
+    """Rows and candidates at the closure bodies' edges: bit 31 set in every
+    word of every third row; with ``pad`` the last rows all-ones (the
+    engine's padding), else bit 30 of word 0 cleared in every row and set in
+    every third candidate from the second on, so that those (and the
+    all-ones candidate) match no row."""
+    rows = random_bits(rng, n_rows, W, 0.8)
+    rows[::3] |= np.uint32(1 << 31)
+    if pad:
+        rows[-min(5, n_rows):] = 0xFFFFFFFF
+    else:
+        rows[:, 0] &= ~np.uint32(1 << 30)
+    cands = subset_candidates(rng, rows, B)
+    if not pad:
+        cands[1::3, 0] |= np.uint32(1 << 30)
+    return rows, cands
+
+
+def pad_ones(x: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
+    """Pad the rows of ``x`` with all-ones rows to a multiple of
+    ``multiple`` (the reference kernels' block shapes); returns the padded
+    array and the number of rows added."""
+    pad = -x.shape[0] % multiple
+    fill = np.full((pad, x.shape[1]), 0xFFFFFFFF, dtype=np.uint32)
+    return np.concatenate([x, fill]), pad
+
+
 def smoke_constants() -> dict:
     """The reference values of chip_smoke.py's serve and rules phases.
 

@@ -31,7 +31,7 @@ from repro_torch.kernels import frontier as fkern
 from repro_torch.kernels import ops
 
 from _torch_reference import (  # noqa: F401
-    jax_reference, port_context, random_bits, subset_candidates, t, u32,
+    edge_rows, jax_reference, pad_ones, port_context, random_bits, subset_candidates, t, u32,
 )
 
 N_LOCAL = 256  # rows per shard: the reference kernels' row block
@@ -80,6 +80,66 @@ def test_map_closure_plain_matches_pallas_interpret(k, n_attrs):
         gc, gs = fkern.map_closure(t(rows), t(cands), t(mask))
         np.testing.assert_array_equal(u32(gc), want_c[0])
         np.testing.assert_array_equal(gs.numpy(), want_s[0])
+
+
+# The closure bodies' edges (as in test_torch_fused.py): W at 1, 5, 10 (the
+# tensor body's widest) and 11; rows per shard and B beside the tensor
+# body's 64-row stages and 64/128-candidate tiles; all-ones pad rows in the
+# last shard, or candidates that match no row.  Each shard goes through the
+# reference kernel padded with all-ones rows to its 256-row block (their
+# matches subtracted from its raw supports), the candidates to 8 rows.
+EDGE_W = [1, 5, 10, 11]
+EDGE_NB = [(1, 1), (63, 65), (65, 63), (300, 9)]
+
+
+@pytest.mark.parametrize("n,B", EDGE_NB)
+@pytest.mark.parametrize("W", EDGE_W)
+def test_map_closure_plain_matches_pallas_interpret_at_the_body_edges(W, n, B):
+    rng = np.random.default_rng(2000 * W + n + B)
+    mask = bitset.attr_mask(32 * W - 3, W)[None, :]
+    for k, pad in ((1, True), (2, False)):
+        rows, cands = edge_rows(rng, k * n, W, B, pad)
+        cands_ref, _ = pad_ones(cands, 8)
+        want_c, want_s = [], []
+        for i in range(k):
+            shard, n_added = pad_ones(rows[i * n:(i + 1) * n], N_LOCAL)
+            c, s_ = ref_fkern.map_closure_call(jnp.asarray(shard), jnp.asarray(cands_ref),
+                                               jnp.asarray(mask), interpret=True)
+            want_c.append(u32(c)[:B])
+            want_s.append(np.asarray(s_)[:B] - n_added)
+        shards = t(rows) if k == 1 else t(rows).reshape(k, n, W)
+        for fn in (fkern.map_closure_plain, fkern.map_closure):
+            gc, gs = fn(shards, t(cands), t(mask))
+            np.testing.assert_array_equal(u32(gc).reshape(k, B, W), np.stack(want_c))
+            np.testing.assert_array_equal(gs.numpy().reshape(k, B), np.stack(want_s))
+        if not pad and B > 1:  # the candidates that match no row, in every shard
+            assert (gs.numpy()[:, 1::3] == 0).all()
+
+
+def test_the_wrappers_count_no_cpu_call_and_reset_clears_both_counters():
+    """On the CPU K2 and K3 run their plain versions on both sides of the
+    tensor body's widest W and count no launch of either body (on the card
+    chip_smoke.py holds the launchers' choice by W to the counters);
+    ``reset_launches`` sets ``launches`` and ``tc_launches`` to 0."""
+    kernels.reset_launches()
+    rng = np.random.default_rng(7)
+    for W in (10, 11):
+        rows, cands = edge_rows(rng, 70, W, 9, True)
+        mask = t(bitset.attr_mask(32 * W, W)[None, :])
+        for got, want in (
+            (fkern.map_closure(t(rows), t(cands), mask),
+             fkern.map_closure_plain(t(rows), t(cands), mask)),
+            (fkern.fused_step(t(rows), t(cands), mask, (9, 0, 5, 0)),
+             fkern.fused_step_plain(t(rows), t(cands), mask, (9, 0, 5, 0))),
+        ):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    for fn in (fkern.fused_step, fkern.map_closure):
+        assert fn.launches == 0 and fn.tc_launches == 0
+        fn.launches = fn.tc_launches = 3
+    kernels.reset_launches()
+    for fn in (fkern.fused_step, fkern.map_closure):
+        assert fn.launches == fn.tc_launches == 0
 
 
 @pytest.mark.parametrize("window", sorted(WINDOWS))
