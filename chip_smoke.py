@@ -10,8 +10,8 @@ checks, on the card:
   2. build   — every kernel source, one ``nvcc`` per source, in parallel;
      each library's ptxas report, kept beside it (read whether the library
      was built now or before), in which every instantiation of K7's bf16
-     body and of K2/K3's tensor-core body must show no stack frame and no
-     spill stores or loads;
+     body and of K1/K2/K3's tensor-core body must show no stack frame and
+     no spill stores or loads;
   3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
      map), K4 (multi-shard filter), K5 (contains top-k) and K6 (rules
      top-k) against their plain PyTorch versions on seeded inputs, bit for
@@ -22,13 +22,17 @@ checks, on the card:
      reference kernels' 2**22 cells), W ∈ {4, 5}, k ∈ {1, 5, 64} and,
      past one launch's 64 winners, k ∈ {65, 100, 128, C + 1}, live counts
      below the table size, forced ties, min_conf 0.1 and 0.7, and cases
-     where no row matches; K2 and K3's tensor-core body at its edges
-     (``TC_EDGE_*``): W ∈ {1, 4, 5, 10, 11} (11: the SIMT body), N and B ∈
-     {1, 63, 65, 8191}, K3 over k ∈ {1, 2, 8}, every K2 variant and scalar
-     triple, rows with bit 31 set and all-ones pad rows or candidates that
-     match no row, and the row split (B = 8 against census-income's
-     13,056-row shards), each launch through the tensor body exactly where
-     W <= TC_MAX_W; K7 (flash attention) against its plain version
+     where no row matches; K6's table split across CTAs at its edges
+     (``RULES_SPLIT_*``): S ∈ {1, 8, 63, 64, 1000}, k ∈ {1, 5, 64, 65,
+     100, C + 1}, live counts of 1, of whole slices and one row either side,
+     equal (metric, rule id) in different slices, rules firing in every
+     slice, in one or in none; K1, K2 and K3's tensor-core body at its
+     edges (``TC_EDGE_*``): W ∈ {1, 4, 5, 10, 11} (11: the SIMT body), N
+     and B ∈ {1, 63, 65, 8191}, K1 and K3 over k ∈ {1, 2, 8}, every K2
+     variant and scalar triple, rows with bit 31 set and all-ones pad rows
+     or candidates that match no row, and the row split (B = 8 against
+     census-income's 13,056-row shards), each launch through the tensor
+     body exactly where W <= TC_MAX_W; K7 (flash attention) against its plain version
      within ``K7_TOL`` in float32 and bfloat16, on every case shape of
      tests/test_flash_attention.py and at gemma2-9b's head shape for
      S ∈ {1, 63, 64, 65, 4097, 5000}, causal or not, window 4096 or none,
@@ -42,19 +46,19 @@ checks, on the card:
      full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
      reference's, concept sets equal the ``backend="torch"`` run's, and
-     every kernel of the path was launched, every K2 launch through the
-     tensor-core body; one more kernel run keeps a copy of the operands of
-     every launch;
+     every kernel of the path was launched, every K1 and K2 launch through
+     the tensor-core body; one more kernel run keeps a copy of the operands
+     of every launch;
   5. main path, k object shards — the same two drivers through
      ``ClosureEngine(ctx, n_parts=k, reduce_impl=...)`` for every
      AND-allreduce schedule at k = 8 and for rsag at k = 2 and 4: the same
      counts, the reference's modeled wire bytes, concept sets equal the
-     ``backend="torch"`` run's at the same plan, K3 (every launch through
-     the tensor-core body) and K4 launched and K2 not; MRCbo at k = 8
+     ``backend="torch"`` run's at the same plan, K1 and K3 (every launch
+     through the tensor-core body) and K4 launched and K2 not; MRCbo at k = 8
      through ``backend="matmul"``; census-income at its
      published shape (103,950 x 133) at k = 8, rsag, against the
      reference's counts and bytes; one more kernel run of the k = 8 rsag
-     plans keeps a copy of the operands of every K3/K4 launch;
+     plans keeps a copy of the operands of every K1/K3/K4 launch;
   6. full lattice — MRGanter+ and MRCbo on mushroom at scale 0.01, and all
      three drivers on the paper's example and a seeded synthetic context
      (on one shard and on 8 shards), against the NextClosure / CloseByOne
@@ -65,12 +69,13 @@ checks, on the card:
      reads through ``backend="kernel"`` and ``"torch"``: answers equal
      between the backends, their SHA-256, the closure hit rate, the
      modeled bytes and the per-schedule rounds equal the reference's, K5
-     launched once per top-k micro-batch and K1 once per closure round
-     (counts read from a plain kernel run; one more run keeps a copy of the
-     operands of every K5 launch and must launch as often);
-     then 8 seeded rows streamed onto the full lattice of mushroom at scale
-     0.01 at k = 1 and 8: the reference's grown concept count and intents,
-     version 1, post-update lookup hit rate 1.0;
+     launched once per top-k micro-batch and K1 once per closure round,
+     every K1 launch through the tensor-core body (counts read from a plain
+     kernel run; one more run keeps a copy of the operands of every K5 and
+     K1 launch and must launch as often); then 8 seeded rows streamed onto
+     the full lattice of mushroom at scale 0.01 at k = 1 and 8: the
+     reference's grown concept count and intents, version 1, post-update
+     lookup hit rate 1.0, every K1 launch through the tensor-core body;
   9. rules — full-scale mushroom mined at min_support=812 on k = 8 rsag,
      the DG and Luxenburger bases at min_conf 0.5, the rule index, and
      1024 seeded rule queries at k = 5 ranked by confidence and by lift
@@ -95,13 +100,14 @@ checks, on the card:
      of its bound on both and its time over SDPA's;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
-     work alone; median of 25 after warm-up): the sum over the run and its
-     bound, and the costliest chunk beside its plain version, its bound,
-     and its time without the spin kernel (``unqueued_ms``, the host's
-     launch path included); for K2 and K3 also the bound of their two
-     int8 tensor-core products (``tc_bound_ms``), the smaller of the two
-     routes' bounds (``table_bound_ms``) and the port's ``closure_matmul``
-     on the costliest chunk (``matmul_backend_ms``).
+     work alone; median of 25 after warm-up): the sum over the run, by the
+     run that gave the chunks, and its bound, and the costliest chunk
+     beside its plain version, its bound, and its time without the spin
+     kernel (``unqueued_ms``, the host's launch path included); for K1, K2
+     and K3 also the bound of their two int8 tensor-core products
+     (``tc_bound_ms``), the smaller of the two routes' bounds
+     (``table_bound_ms``) and the port's ``closure_matmul`` on the
+     costliest chunk (``matmul_backend_ms``).
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -486,18 +492,18 @@ def check_sharded_kernels(device) -> list[dict]:
     return records
 
 
-# The widest rows, in words, on which K2/K3's launchers must take the
-# tensor-core body (TCF_MAX_W in csrc/frontier.cu): phases 3-5 hold the
-# launchers' reports in the wrappers' tc_launches counters to it, and the
-# ptxas gate expects its instantiations for W = 1..TC_MAX_W.
+# The widest rows, in words, on which K1/K2/K3's launchers must take the
+# tensor-core body (TCF_MAX_W in csrc/frontier.cu): phases 3-5 and 8 hold
+# the launchers' reports in the wrappers' tc_launches counters to it, and
+# the ptxas gate expects its instantiations for W = 1..TC_MAX_W.
 TC_MAX_W = 10
 
-# K2/K3's tensor body at its edges (phase 3): W at 1, 4, 5, 10 (TC_MAX_W,
+# K1/K2/K3's tensor body at its edges (phase 3): W at 1, 4, 5, 10 (TC_MAX_W,
 # the widest it takes) and 11 (the SIMT body); N and B at 1, 63, 65 and 8191,
 # beside the 64-row stages, the 64-candidate warpgroups and the 128-candidate
-# CTAs; K3 over k in {1, 2, 8} shards; rows with bit 31 set and the engine's
-# all-ones pad rows, or candidates that match no row; the row split at B = 8
-# against census-income's shards (CENSUS_PADDED / 8 rows, k = 8).
+# CTAs; K1 and K3 over k in {1, 2, 8} shards; rows with bit 31 set and the
+# engine's all-ones pad rows, or candidates that match no row; the row split
+# at B = 8 against census-income's shards (CENSUS_PADDED / 8 rows, k = 8).
 TC_EDGE_W = (1, 4, 5, 10, 11)
 TC_EDGE_NB = ((1, 1), (63, 65), (65, 63), (8191, 8191))
 TC_SPLIT_N = CENSUS_PADDED // 8
@@ -524,12 +530,13 @@ def tc_case(rng, n_rows: int, W: int, B: int, pad: bool):
 
 
 def check_tc_kernels(device) -> list[dict]:
-    """Phase 3, the K2/K3 tensor body at its edges (``TC_EDGE_*``) and on
+    """Phase 3, the K1/K2/K3 tensor body at its edges (``TC_EDGE_*``) and on
     the row split, against the plain versions, bit for bit; each launch
     took the tensor body exactly where W <= TC_MAX_W."""
     import numpy as np
 
     from repro_torch.device import device_bits
+    from repro_torch.kernels import closure as k1
     from repro_torch.kernels import frontier as fk
     from repro_torch.kernels import ops
 
@@ -553,9 +560,12 @@ def check_tc_kernels(device) -> list[dict]:
             rows = device_bits(rows_np, device)
             rows = rows if k == 1 else rows.reshape(k, n, W)
             cands = device_bits(cands_np, device)
+            rec = {"k": k, "W": W, "n": n, "B": B, "pad": pad(k)}
             run(f"K3 tensor edge k={k} W={W} n={n} B={B}", fk.map_closure,
                 fk.map_closure_plain, (rows, cands, mask), {}, W,
-                {"kernel": "map_closure", "k": k, "W": W, "n": n, "B": B, "pad": pad(k)})
+                {"kernel": "map_closure", **rec})
+            run(f"K1 tensor edge k={k} W={W} n={n} B={B}", k1.closure, k1.closure_plain,
+                (rows, cands), {}, W, {"kernel": "closure", **rec})
 
     def k2_cases(W, N, B, pad):
         rows_np, cands_np = tc_case(rng, N, W, B, pad)
@@ -612,18 +622,19 @@ def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | N
 
 
 def check_tensor_body(W: int) -> None:
-    """Every K2 and K3 launch of a run whose rows are at most TC_MAX_W
+    """Every K1, K2 and K3 launch of a run whose rows are at most TC_MAX_W
     words wide took the tensor-core body, read just after the run from the
     counters set to 0 before it.  The counters are read on the module-level
     names the wrappers count on: the wrappers themselves, or
     capture_launches' recorders (fresh, at 0) while it runs, so that
     captured runs are checked as well."""
+    from repro_torch.kernels import closure as k1
     from repro_torch.kernels import frontier as fk
 
     if W > TC_MAX_W:
         return
-    for name in ("fused_step", "map_closure"):
-        k = getattr(fk, name)
+    for module, name in ((k1, "closure"), (fk, "fused_step"), (fk, "map_closure")):
+        k = getattr(module, name)
         if k.tc_launches != k.launches:
             raise AssertionError(f"{name}: {k.launches} launches at W = {W}, "
                                  f"{k.tc_launches} of them through the tensor body")
@@ -757,7 +768,7 @@ def run_multi_shard_path(device):
     """Phase 5: the main path over k object shards, every schedule, both
     drivers, plus the matmul backend and census-income at its published
     shape.  Returns the report, the summed launch counts of the kernel
-    runs, and the K3/K4 chunks of one more kernel run of each k = 8 rsag
+    runs, and the K1/K3/K4 chunks of one more kernel run of each k = 8 rsag
     plan."""
     from repro_torch.data import fca_datasets
 
@@ -830,8 +841,8 @@ def run_multi_shard_path(device):
           "attributes": cctx.n_attrs, "min_support": CENSUS_MIN_SUPPORT, "n_parts": 8,
           "reduce_impl": "rsag", **census})
 
-    # K3/K4 chunks: one more kernel run of each k = 8 rsag plan
-    chunks = {"map_closure": [], "filter_step": []}
+    # K1/K3/K4 chunks: one more kernel run of each k = 8 rsag plan
+    chunks = {"closure": [], "map_closure": [], "filter_step": []}
     captures = [("mrganter+", ctx, MAIN_MIN_SUPPORT, report["mrganter+/k=8/rsag"]["launches"]),
                 ("mrcbo", ctx, MAIN_MIN_SUPPORT, report["mrcbo/k=8/rsag"]["launches"]),
                 ("census", cctx, CENSUS_MIN_SUPPORT, census["launches"])]
@@ -841,7 +852,7 @@ def run_multi_shard_path(device):
             c, "kernel", algorithm, device, plan_kw, ms)[0])
         check_captured(f"multi-shard {label} k=8 rsag", captured, counts)
         for kname in chunks:
-            chunks[kname] += [(label, args, kw) for args, kw in captured[kname]]
+            chunks[kname] += [(f"{label} k=8 rsag", args, kw) for args, kw in captured[kname]]
     return report, census, launches, chunks
 
 
@@ -968,6 +979,123 @@ def check_serve_kernels(device) -> list[dict]:
                         "live": live, "hits": hits5})
         records.append({"kernel": "rules_topk", "S": S, "R": C, "W": W, "k": k,
                         "live": live, "hits": hits6})
+    return records
+
+
+# K6's split of the live table at its edges (phase 3): S at 1, 8, 63, 64 (a
+# serve micro-batch) and 1000; k at 1, 5 (the serve phase's), 64 (one pass),
+# 65 and 100 (two passes) and, at S in {1, 64}, C + 1 (every row); live counts
+# of 1, of a whole number of slices under their own plan and one row either
+# side, and of the rules phase's table (4,999 + 356 rows).
+RULES_SPLIT_S = (1, 8, 63, 64, 1000)
+RULES_SPLIT_K = (1, 5, 64, 65, 100)
+RULES_LIVE = 4999 + 356
+# K6's plan (rules_topk_plan in csrc/serve.cu) is held at these live counts
+# too, on this card and on cards of 1 and 132 SMs.
+RULES_PLAN_LIVE = (-1, 0, 1, 255, 256, 257, RULES_LIVE, 2**20 + 3)
+
+
+def check_rule_plan(S: int, live: int, sms: int) -> tuple[int, int, int]:
+    """K6's plan of S queries against ``live`` rules: at least one slice,
+    at most 32 (one per lane of the merging warp) and one per 256-row tile,
+    every live rule in exactly one slice, none empty when there are more,
+    and one query block per 8 queries."""
+    from repro_torch.kernels import serve as sk
+
+    slice_rows, nslice, blocks = sk.rule_plan(S, live, sms)
+    tiles = -(-max(0, live) // 256)
+    covered = nslice * slice_rows >= live
+    none_empty = nslice == 1 or (nslice - 1) * slice_rows < live
+    ok = (slice_rows >= 1 and slice_rows % 256 == 0 and 1 <= nslice <= min(32, max(1, tiles))
+          and blocks == -(-S // 8) and covered and none_empty)
+    if not ok:
+        raise AssertionError(f"K6 plan S={S} live={live} sms={sms}: {slice_rows} rows x "
+                             f"{nslice} slices, {blocks} query blocks")
+    return slice_rows, nslice, blocks
+
+
+def check_rules_split(device) -> list[dict]:
+    """Phase 3, K6 with its table split across CTAs (``RULES_SPLIT_*``)
+    against the plain version, bit for bit: equal (metric, rule id) at
+    positions in different slices (the lower position wins), rules firing in
+    every slice, in one slice only or in none, min_conf 0.1 and 0.7."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import serve as sk
+
+    rng = np.random.default_rng(20121016)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if check_rule_plan(64, RULES_LIVE, 132)[:2] != (256, 21):
+        raise AssertionError("K6 plan: 64 slots against the rules phase's table on 132 SMs "
+                             "is not 21 slices of one tile")
+    W, off = 4, np.uint32(1 << 30)  # bit 30 of word 0: set where a rule must not fire
+    records = []
+    for S in RULES_SPLIT_S:
+        for live in RULES_PLAN_LIVE:
+            for n_sm in (1, 132, sms):
+                check_rule_plan(S, live, n_sm)
+
+        def plan(live):
+            return check_rule_plan(S, live, sms)
+
+        whole = [L for L in range(2, 6145)
+                 if plan(L)[1] > 1 and L % plan(L)[0] == 0]
+        lives = sorted({1, RULES_LIVE, *(L + d for L in (whole[0], whole[-1])
+                                         for d in (-1, 0, 1))})
+        for live in lives:
+            edge, nslice, _ = plan(live)
+            for fire in ("every", "one slice", "none"):
+                R = live + 3  # pad rows past the live count
+                prem = bitsets(rng, R, W, 0.06)
+                added = bitsets(rng, R, W, 0.2) & ~prem
+                conf = rng.choice(np.asarray([0.1, 0.7, 0.5, 1.0], np.float32), size=R)
+                metric = rng.choice(np.asarray([0.0, 0.25, 1.0, 2.0], np.float32), size=R)
+                rid = rng.integers(0, 8, size=R).astype(np.int32)  # ties at far positions
+                queries = bitsets(rng, S, W, 0.85)
+                queries[0] = 0xFFFFFFFF
+                if fire == "every":
+                    # the best entry twice, in the first and in the last slice
+                    prem[[0, live - 1]] = 0
+                    conf[[0, live - 1]] = 1.0
+                    metric[[0, live - 1]] = 3.0
+                    rid[[0, live - 1]] = 0
+                else:
+                    queries[:, 0] &= ~off
+                    prem[:, 0] |= off
+                    if fire == "one slice":
+                        j = nslice // 2
+                        prem[j * edge: (j + 1) * edge, 0] &= ~off
+                args = (device_bits(prem, device), device_bits(added, device),
+                        torch.from_numpy(conf).to(device), torch.from_numpy(metric).to(device),
+                        torch.from_numpy(rid).to(device), live, device_bits(queries, device))
+                ks = RULES_SPLIT_K + ((R + 1,) if S in (1, 64) else ()) if fire == "every" \
+                    else (5,)
+                for k in ks:
+                    for min_conf in (0.1, 0.7):
+                        name = (f"K6 split S={S} live={live} ({nslice} x {edge} rows) "
+                                f"fire={fire} k={k} min_conf={min_conf}")
+                        before = sk.rules_topk.launches
+                        got = sk.rules_topk(*args, min_conf, k=k)
+                        want = sk.rules_topk_plain(*args, min_conf, k=k)
+                        torch.cuda.synchronize()
+                        for g, w, what in zip(got, want, ("ids", "scores", "union")):
+                            if not torch.equal(g, w):
+                                raise AssertionError(f"{name}: {what} differ from the plain "
+                                                     "version")
+                        if sk.rules_topk.launches - before != -(-k // sk.PASS_K):
+                            raise AssertionError(f"{name}: {sk.rules_topk.launches - before} "
+                                                 "launches")
+                        hits = int((want[0] >= 0).sum())
+                        if fire == "none" and hits:
+                            raise AssertionError(f"{name}: a rule fired")
+                        if fire == "every" and int(want[0][0, 0]) != 0:
+                            raise AssertionError(f"{name}: the tied best entry is missing")
+                        records.append({"kernel": "rules_topk", "split_edge": True, "S": S,
+                                        "live": live, "slices": nslice, "slice_rows": edge,
+                                        "fire": fire, "k": k, "min_conf": min_conf,
+                                        "hits": hits})
     return records
 
 
@@ -1225,7 +1353,7 @@ def check_attention_edges(device) -> list[dict]:
 
 # The kernel bodies whose every instantiation must show no stack and no
 # spills in its library's ptxas report: K7's bf16 body (one per head-dim
-# width) and K2/K3's tensor-core body (per W, map or fused, ICEBERG, CBO).
+# width) and K1/K2/K3's tensor-core body (per W, map or fused, ICEBERG, CBO).
 PTXAS_BODIES = {"flash_fwd_wgmma_kernel": "attention", "closure_tc_kernel": "frontier"}
 
 
@@ -1327,13 +1455,13 @@ def drive_queries(fn, device):
     return out, wall, {k.__name__: k.launches for k in kernels.KERNELS}
 
 
-def run_serve_phase(device, intents) -> tuple[dict, dict, int]:
+def run_serve_phase(device, intents) -> tuple[dict, dict, dict]:
     """Phase 8: the serving tier at phase 4's context, threshold and intents
     — a ConceptStore on one shard and on k = 8 (rsag), the reference CLI's
     seeded query batch through ``backend="kernel"`` and ``"torch"``; then
     streaming updates on the full lattice of mushroom at scale 0.01.
-    Returns the report, the K5 chunks of the kernel runs and their launch
-    count."""
+    Returns the report, the K5 and K1 chunks of the kernel runs and their
+    launch counts; every K1 launch took the tensor-core body."""
     import numpy as np
 
     from repro_torch.data import fca_datasets
@@ -1345,7 +1473,15 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, int]:
     queries = serve_queries(ctx, SERVE_QUERIES, np.random.default_rng(0))
     n_batches = {"closure": -(-SERVE_QUERIES // SERVE_SLOTS),
                  "topk": -(-SERVE_TOPK // SERVE_SLOTS)}
-    report, chunks, launches = {}, [], 0
+    report = {}
+    chunks = {"contains_topk": [], "closure": []}
+    launches = dict.fromkeys(chunks, 0)
+
+    def answer(qe):
+        out = serve_answers(qe, queries)
+        check_tensor_body(ctx.W)
+        return out
+
     for k, want in SERVE_EXPECTED.items():
         plan = ShardPlan.simulated(k, reduce_impl="rsag")
         t0 = time.perf_counter()
@@ -1356,7 +1492,7 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, int]:
         answers = {}
         for backend in ("kernel", "torch"):
             qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend=backend))
-            got, wall, counts = drive_queries(lambda: serve_answers(qe, queries), device)
+            got, wall, counts = drive_queries(lambda: answer(qe), device)
             rec_got = serve_record(qe, got)
             if rec_got != want:
                 raise AssertionError(f"serve k={k} {backend}: {rec_got} != reference {want}")
@@ -1368,13 +1504,14 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, int]:
                     raise AssertionError(f"serve k={k}: launches {counts} for {n_batches}")
                 if counts["rules_topk"] or counts["fused_step"] or counts["map_closure"]:
                     raise AssertionError(f"serve k={k}: stray launches {counts}")
-                again, captured = capture_launches(
-                    ("contains_topk",), lambda: serve_answers(qe, queries))
+                again, captured = capture_launches(tuple(chunks), lambda: answer(qe))
                 check_captured(f"serve k={k}", captured, counts)
                 if not same_arrays(flat(again), flat(got)):
                     raise AssertionError(f"serve k={k}: the captured run answered otherwise")
-                chunks += [(f"serve k={k}", args, kw) for args, kw in captured["contains_topk"]]
-                launches += counts["contains_topk"]
+                for kname in chunks:
+                    chunks[kname] += [(f"serve k={k}", args, kw)
+                                      for args, kw in captured[kname]]
+                    launches[kname] += counts[kname]
             elif any(counts.values()):
                 raise AssertionError(f"serve k={k}: the torch backend launched {counts}")
             report[f"k={k}/{backend}"] = {"wall_s": wall, "launches": counts,
@@ -1387,7 +1524,7 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, int]:
           "min_support": MAIN_MIN_SUPPORT, "queries": SERVE_QUERIES, "topk": SERVE_TOPK,
           "slots": SERVE_SLOTS, "runs": report})
     report["stream"] = run_stream(device)
-    return report, {"contains_topk": chunks}, launches
+    return report, chunks, launches
 
 
 def run_stream(device) -> dict:
@@ -1396,6 +1533,7 @@ def run_stream(device) -> dict:
     staged and committed at k = 1 and k = 8."""
     import numpy as np
 
+    from repro_torch import kernels
     from repro_torch.core import ClosureEngine, bitset, mrcbo
     from repro_torch.data import fca_datasets
     from repro_torch.dist import ShardPlan
@@ -1408,6 +1546,7 @@ def run_stream(device) -> dict:
     for k in (1, 8):
         store = ConceptStore.build(ctx, intents, plan=ShardPlan.simulated(k), device=device)
         qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend="kernel"))
+        kernels.reset_launches()
         rng = np.random.default_rng(0)
         closed = qe.closure_batch(serve_queries(ctx, 256, rng))[0]
         rows = bitset.pack_bool(rng.random((STREAM_ROWS, ctx.n_attrs)) < max(0.05, spec.density),
@@ -1418,6 +1557,7 @@ def run_stream(device) -> dict:
         upd.commit()
         wall = time.perf_counter() - t0
         post = qe.lookup_batch(closed)
+        check_tensor_body(ctx.W)
         got = {"n_concepts_before": receipt.n_concepts_before,
                "n_concepts_after": receipt.n_concepts_after,
                "version": store.snapshot.version,
@@ -1867,9 +2007,11 @@ def needed_word_ops(rows, cands, kw: dict | None) -> int:
 
 
 def moved_bytes(rows, cands, kw: dict | None) -> int:
-    """Each input read once and each output written once (K1/K2)."""
+    """Each input read once and each output written once (K1/K2; K1's
+    rows [k, n, W] give k closure blocks and support vectors)."""
     W, N, B = rows.shape[-1], rows.numel() // rows.shape[-1], cands.shape[0]
-    nbytes = (N * W + B * W) * 4 + B * (W + 1) * 4  # rows, cands; closures, supports
+    k = rows.shape[0] if rows.dim() == 3 else 1
+    nbytes = (N * W + B * W) * 4 + k * B * (W + 1) * 4  # rows, cands; closures, supports
     if kw is not None:
         nbytes += W * 4 + 4 * 4 + B  # mask, scalars; keep
         if kw.get("cbo"):
@@ -1878,13 +2020,15 @@ def moved_bytes(rows, cands, kw: dict | None) -> int:
 
 
 def closure_bound(args, kw):
-    """K1 and K2: (ops, bytes, census ops, chunk shape)."""
+    """K1 and K2: (ops, bytes, census ops, chunk shape); K1's rows may hold
+    k shards, whose N counts all k·n rows."""
     rows, cands = args[0], args[1]
     epi = kw if len(args) > 2 else None  # K2 carries mask and scalars
     W, N, B = rows.shape[-1], rows.numel() // rows.shape[-1], cands.shape[0]
+    k = rows.shape[0] if rows.dim() == 3 else 1
     census = 4 * B * N * W + B * N + (3 * B * W if epi is not None else 0)
     return (needed_word_ops(rows, cands, epi), moved_bytes(rows, cands, epi), census,
-            {"B": B, "N": N, "W": W})
+            {"k": k, "B": B, "N": N, "W": W})
 
 
 def map_bound(args, kw):
@@ -1989,7 +2133,7 @@ def rules_bound(args, kw):
 
 
 def tc_ops(args) -> int:
-    """K2/K3 as two 0/1 products over complement bit-planes: 2 · B · rows ·
+    """K1/K2/K3 as two 0/1 products over complement bit-planes: 2 · B · rows ·
     32W operations each (miss = C·R̄ᵀ, absent = match·R̄), rows summed over
     the shards."""
     rows, cands = args[0], args[1]
@@ -1998,13 +2142,15 @@ def tc_ops(args) -> int:
 
 
 def matmul_backend_ms(name: str, args, kw, got) -> float:
-    """The port's library route on a K2/K3 chunk: ``ops.closure_matmul``
-    (two bf16 ``torch.matmul`` products over the mask's attributes), held
+    """The port's library route on a K1/K2/K3 chunk: ``ops.closure_matmul``
+    (two bf16 ``torch.matmul`` products over the mask's attributes; for K1
+    over all 32W lanes with every row valid, its raw function), held
     against the kernel's closures and supports ``got``, then timed."""
     from repro_torch.kernels import ops
 
-    rows, cands, mask = args[0], args[1], args[2]
-    n_attrs = sum(bin(int(x) & 0xFFFFFFFF).count("1") for x in mask.flatten().tolist())
+    rows, cands = args[0], args[1]
+    n_attrs = 32 * rows.shape[-1] if name == "closure" else sum(
+        bin(int(x) & 0xFFFFFFFF).count("1") for x in args[2].flatten().tolist())
     n_pad = args[3][2] if name == "fused_step" else 0
 
     def fn():
@@ -2022,21 +2168,22 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     of TIMING_REPS after warm-up); ``run_ms`` and ``run_bound_ms`` are the
     sums over all of a kernel's captured launches, and ``ms``, ``plain_ms``
     and ``bound_ms`` are those of its costliest chunk.  K1 and K2 time
-    their phase-4 chunks (one shard); K3 and K4 the chunks of the k = 8
-    rsag runs of phase 5 (both mushroom drivers and census-income); K5
-    and K6 those of the kernel runs of phases 8 and 9.  K2 and K3 also
-    carry ``tc_bound_ms`` (their two products over the int8 tensor-core
-    rate, or the bytes if longer), ``table_bound_ms`` (the smaller of that
-    and ``bound_ms``: the faster route's bound), both summed over the run,
-    and ``matmul_backend_ms``, the port's ``closure_matmul`` on the costliest
-    chunk."""
+    their phase-4 chunks (one shard), K1 also those of phases 5 and 8; K3
+    and K4 the chunks of the k = 8 rsag runs of phase 5 (both mushroom
+    drivers and census-income); K5 and K6 those of the kernel runs of
+    phases 8 and 9; ``run_ms_by_run`` splits the run sum by the run that
+    gave the chunks.  K1, K2 and K3 also carry ``tc_bound_ms`` (their two
+    products over the int8 tensor-core rate, or the bytes if longer),
+    ``table_bound_ms`` (the smaller of that and ``bound_ms``: the faster
+    route's bound), both summed over the run, and ``matmul_backend_ms``,
+    the port's ``closure_matmul`` on the costliest chunk."""
     from repro_torch.kernels import closure as k1
     from repro_torch.kernels import frontier as fk
     from repro_torch.kernels import serve as sk
 
     rate = int32_ops_per_s(device)
     specs = {
-        "closure": (k1.closure, k1.closure_plain, "src/repro_torch/csrc/closure.cu",
+        "closure": (k1.closure, k1.closure_plain, "src/repro_torch/csrc/frontier.cu",
                     "src/repro/kernels/closure.py:99", closure_bound),
         "fused_step": (fk.fused_step, fk.fused_step_plain, "src/repro_torch/csrc/frontier.cu",
                        "src/repro/kernels/frontier.py:173", closure_bound),
@@ -2054,7 +2201,7 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     }
     out = []
     for name, (kern, plain, source, replaces, bound) in specs.items():
-        tensor = name in ("fused_step", "map_closure")
+        tensor = name in ("closure", "fused_step", "map_closure")
         timed = []
         for label, args, kw in chunks[name]:
             ms = cuda_time_ms(lambda: kern(*args, **kw))
@@ -2100,6 +2247,14 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
     return out
 
 
+def add_runs(launches: dict, chunks: dict, more_launches: dict, more_chunks: dict) -> None:
+    """Add a phase's main-path launch counts and captured chunks to those of
+    the phases before it, kernel by kernel."""
+    for name, more in more_chunks.items():
+        launches[name] = launches.get(name, 0) + more_launches[name]
+        chunks[name] = chunks.get(name, []) + more
+
+
 def main() -> int:
     import torch
 
@@ -2130,7 +2285,7 @@ def main() -> int:
           "built": {k: v["seconds"] for k, v in built.items()}})
     for name in _build.SOURCES:
         print(f"ptxas {name}: {_build.ptxas_report(name)}", flush=True)
-    # K7's bf16 body and K2/K3's tensor-core body, from the report of the
+    # K7's bf16 body and K1/K2/K3's tensor-core body, from the report of the
     # library in use (built now or before): registers, and no stack frame,
     # spill stores or spill loads in any instantiation
     bodies = {kernel: body_ptxas(_build.ptxas_report(source), kernel)
@@ -2148,14 +2303,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records = (check_kernels(device) + check_sharded_kernels(device) + check_tc_kernels(device)
-               + check_serve_kernels(device) + check_attention_kernel(device)
+               + check_serve_kernels(device) + check_rules_split(device)
+               + check_attention_kernel(device)
                + check_attention_edges(device))
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
                         for k in dict.fromkeys(r["kernel"] for r in records)},
           "bit_exact": "K1-K6", "tc_edge_cases": {
               k: sum(r["kernel"] == k for r in records if r.get("tc_edge"))
-              for k in ("map_closure", "fused_step")},
+              for k in ("closure", "map_closure", "fused_step")},
+          "k6_split_edge_cases": sum(bool(r.get("split_edge")) for r in records),
           "k7_tolerance": K7_TOL,
           "k7_max_abs_err": {d: max((r["max_abs_err"] for r in records
                                      if r.get("dtype") == d), default=None) for d in K7_TOL},
@@ -2179,25 +2336,24 @@ def main() -> int:
     _, _, multi_launches, multi_chunks = run_multi_shard_path(device)
     emit({"phase": "multi_shard_seconds", "seconds": time.perf_counter() - t0,
           "launches": multi_launches})
-    launches.update({k: multi_launches[k] for k in ("map_closure", "filter_step")})
-    chunks.update(multi_chunks)
+    add_runs(launches, chunks, multi_launches, multi_chunks)
     t0 = time.perf_counter()
     run_full_lattices(device)
     emit({"phase": "full_lattice_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    _, serve_chunks, launches["contains_topk"] = run_serve_phase(device, main_intents)
+    _, serve_chunks, serve_launches = run_serve_phase(device, main_intents)
     emit({"phase": "serve_seconds", "seconds": time.perf_counter() - t0})
+    add_runs(launches, chunks, serve_launches, serve_chunks)
     t0 = time.perf_counter()
     _, rules_chunks, launches["rules_topk"] = run_rules_phase(device)
     emit({"phase": "rules_seconds", "seconds": time.perf_counter() - t0})
+    chunks.update(rules_chunks)
     t0 = time.perf_counter()
     run_lm_reduced(device)
     emit({"phase": "lm_reduced_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     _, k7 = run_lm_full(device)
     emit({"phase": "lm_full_seconds", "seconds": time.perf_counter() - t0})
-    chunks.update(serve_chunks)
-    chunks.update(rules_chunks)
     emit({"kernels": time_kernels(device, launches, chunks) + [k7]})
 
     print(nvidia_smi("name,power.limit"), flush=True)

@@ -1,7 +1,6 @@
-// Shared device code of the SIMT closure body: the closure kernel K1
-// (closure.cu), and K2 / K3 (frontier.cu) for rows wider than TCF_MAX_W
-// words; for W <= TCF_MAX_W, K2 and K3 take the tensor-core body in
-// frontier.cu instead.
+// Device code of the SIMT closure body, which K1, K2 and K3 (frontier.cu)
+// take for rows wider than TCF_MAX_W words; for W <= TCF_MAX_W they take
+// the tensor-core body in frontier.cu instead.
 //
 // Bitsets are uint32 words (PyTorch stores them as int32; the bits are the
 // same).  A CTA owns CLOSURE_GROUP consecutive candidates and walks every

@@ -1,5 +1,15 @@
-// The frontier-step kernels: K2 and K3 (one closure body, two epilogues)
+// The closure kernels: K1, K2 and K3 (one closure body, three epilogues)
 // and K4, hand-written for Hopper (sm_90a), one source and one build.
+//
+// K1 — the batched closure.
+//
+// Replaces: src/repro/kernels/closure.py:closure_pallas (body
+// _closure_kernel, _tree_and).  Per object shard k and candidate b:
+//   closure[k, b] = AND of shard k's matching rows  (identity 0xFFFFFFFF)
+//   support[k, b] = number of shard k's matching rows
+// raw: not masked to the real attributes, not corrected for padding rows
+// (ops.batched_closure does both).  This is K3 without its mask: K1's
+// launcher passes K3's a null mask, which the epilogues read as all ones.
 //
 // K2 — the fused frontier step (closure → support → driver filter).
 //
@@ -28,7 +38,7 @@
 // all-ones pad rows sit in the last shard and are subtracted once, after
 // the support sum.
 //
-// What bounds them on the H100.  As a bitwise AND-reduction on the int32
+// What bounds K1-K3 on the H100.  As a bitwise AND-reduction on the int32
 // pipes (16.7 T ops/s): ~(2W + 4) operations per (candidate, row) pair.
 // The same function is two 0/1 matrix products over complement bit-planes
 // (the reference's closure_matmul, "Perf C2"), exact in integers:
@@ -42,7 +52,7 @@
 //
 // What the design does about it: closure_tc_kernel below, for W <=
 // TCF_MAX_W words; wider rows take the SIMT body (closure_accumulate in
-// closure_common.cuh, K1's loop), chosen by W alone in the launchers.
+// closure_common.cuh), chosen by W alone in the launchers.
 //   * One CTA owns 128 candidates (two consumer warpgroups of 64) and a
 //     range of rows of one shard; a producer warpgroup feeds a ring of
 //     64-row stages.  The candidates' plane C is unpacked once per CTA.
@@ -66,11 +76,12 @@
 //     tile.  support: the popcount of the thread's match bytes, summed
 //     over the quad at the end.
 //   * Epilogue: absent == 0 packed into words across the quad that holds
-//     a candidate's columns, ANDed with mask and written; K2 then runs the
-//     keep test on the written words.
+//     a candidate's columns, ANDed with mask (K2, K3; K1 has none) and
+//     written; K2 then runs the keep test on the written words.
 //   * Filling the card: where (candidate tiles x shards) leave SMs idle,
-//     the launcher splits the row axis (row_split); partial closures then
-//     combine by atomicAnd and supports by atomicAdd on outputs set to
+//     the launcher splits the row axis (row_split; K1 at B = 8 or 64
+//     against 8192 rows: 128 CTAs of one 64-row tile); partial closures
+//     then combine by atomicAnd and supports by atomicAdd on outputs set to
 //     their identities first (exact in any order), and for K2 the last
 //     CTA of a candidate tile (an arrival counter in wrapper scratch)
 //     runs the keep test.
@@ -78,8 +89,8 @@
 #include "hopper.cuh"
 
 // ---------------------------------------------------------------------------
-// The SIMT bodies, for W > TCF_MAX_W (K1's loop: one CTA per 8 candidates
-// and shard, warp ballot + __reduce_and_sync, the epilogue on the shared
+// The SIMT bodies, for W > TCF_MAX_W (one CTA per 8 candidates and shard,
+// warp ballot + __reduce_and_sync, the epilogue on the shared
 // accumulators)
 // ---------------------------------------------------------------------------
 
@@ -138,7 +149,7 @@ map_closure_kernel(const uint32_t* __restrict__ rows,
     ClosureSmem s = closure_setup(smem, cands, b0, G, W);
     closure_accumulate(rows, N, W, G, s);
     for (int i = threadIdx.x; i < G * W; i += blockDim.x)
-        out_c[(size_t)b0 * W + i] = s.acc[i] & mask[i % W];
+        out_c[(size_t)b0 * W + i] = mask ? s.acc[i] & mask[i % W] : s.acc[i];
     for (int i = threadIdx.x; i < G; i += blockDim.x)
         out_s[b0 + i] = (int)s.sup[i];
 }
@@ -183,7 +194,7 @@ template <int W> struct Tcf {
 struct TcfArgs {
     const uint32_t* rows;    // [K][N][W]
     const uint32_t* cands;   // [B][W]
-    const uint32_t* mask;    // [W]
+    const uint32_t* mask;    // [W], or null (K1: raw closures)
     const uint32_t* parent;  // [B][W] (CbO)
     const uint32_t* lowrow;  // [B][W] (CbO)
     uint32_t* out_c;         // [K][B][W]
@@ -479,7 +490,7 @@ __global__ void __launch_bounds__(TCF_THREADS, 1) closure_tc_kernel(const TcfArg
         p0 |= __shfl_xor_sync(0xffffffffu, p0, 2);
         p1 |= __shfl_xor_sync(0xffffffffu, p1, 2);
         if (q == (w & 3)) {
-            const uint32_t mw = __ldg(a.mask + w);
+            const uint32_t mw = a.mask ? __ldg(a.mask + w) : FULL_WORD;
             uint32_t* o0 = out_c + (size_t)b_0 * W + w;
             if (split) {
                 if (v0) atomicAnd(o0, p0 & mw);
@@ -667,8 +678,8 @@ extern "C" int fused_step_launch(const void* rows, const void* cands,
                                       min_sup, n_pad, row_off, tensor_body, st);
 }
 
-// K3.  rows [K, N, W], cands [B, W], mask [W] → out_c [K, B, W], out_s
-// [K, B]; K, B >= 1.  W <= TCF_MAX_W takes the tensor body, wider W the
+// K3.  rows [K, N, W], cands [B, W], mask [W] (null: no mask) → out_c
+// [K, B, W], out_s [K, B]; K, B >= 1.  W <= TCF_MAX_W takes the tensor body, wider W the
 // SIMT body; *tensor_body says which (1 or 0).  Launches on `stream` and
 // returns cudaGetLastError(), or the error that stopped the launch.
 extern "C" int map_closure_launch(const void* rows, const void* cands,
@@ -691,6 +702,17 @@ extern "C" int map_closure_launch(const void* rows, const void* cands,
         (const uint32_t*)rows, (const uint32_t*)cands, (const uint32_t*)mask,
         (uint32_t*)out_c, (int*)out_s, N, B, W);
     return (int)cudaGetLastError();
+}
+
+// K1.  rows [K, N, W], cands [B, W] → raw closures out_c [K, B, W] and
+// supports out_s [K, B]; K, B >= 1.  K3 without a mask: the same bodies,
+// chosen by W alone, *tensor_body saying which.
+extern "C" int closure_launch(const void* rows, const void* cands, void* out_c,
+                              void* out_s, int K, int N, int B, int W, int* tensor_body,
+                              void* stream)
+{
+    return map_closure_launch(rows, cands, nullptr, out_c, out_s, K, N, B, W, tensor_body,
+                              stream);
 }
 
 // ---------------------------------------------------------------------------

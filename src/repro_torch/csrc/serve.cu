@@ -37,22 +37,33 @@
 //
 // What bounds it on the H100 (K5 and K6 alike): integer ALU issue for the
 // subset test at large S (S*C*W word tests), device memory otherwise —
-// every query block streams the whole table once, and at the serving
-// shapes (S = 64 slots, C = a few thousand concepts, W = 4) one launch is
-// a few dozen CTAs and is latency-bound.
+// the table is streamed once per query block.  At the serving shapes (S =
+// 64 slots, a few thousand live rows, W = 4) the work is a few µs of the
+// card's time, so latency bounds a launch: how many tiles one CTA walks
+// one after the other, and how many SMs hold a CTA.
 //
-// What the design does about it: one CTA per SERVE_WARPS queries, one warp
-// per query.  The table is streamed through shared memory in tiles of
+// What the design does about it: one warp per query, SERVE_WARPS queries
+// per CTA.  The table is streamed through shared memory in tiles of
 // TILE_ROWS rows x TILE_WORDS words (rows padded to an odd stride, so the
 // 32 lanes of a warp read 32 banks), and every query of the CTA tests the
 // whole tile: each table word is read from device memory once per CTA.
 // Each lane owns rows lane, lane + 32, ... of the tile and keeps a sorted
 // local top-k of its hits (in local memory; rows arrive in ascending
 // order, so ties need no index compare in K5); after the last tile the
-// warp merges the 32 local lists in kp rounds of a shuffle argmax.  K6 ORs
-// the consequent words of its firing rules per lane and folds them with
-// __reduce_or_sync into the query's union row.  Rows at or past the live
-// count are never read.
+// warp merges the 32 local lists in kp rounds of a shuffle argmax.  Rows
+// at or past the live count are never read.
+//   * K5: one CTA per query block walks the whole table.
+//   * K6 splits the live table across a second grid axis as well, into up
+//     to SERVE_MAX_SLICES slices sized so that query blocks x slices put
+//     about two CTAs on every SM (rules_topk_plan; at S = 64 and 5,355
+//     live rules: 8 x 21 CTAs of one tile each).  Each CTA applies the
+//     cursor filter and the confidence test to its slice and ORs the
+//     consequent words of its firing rules (__reduce_or_sync per warp,
+//     then one atomicOr per word into the union row, zeroed by the
+//     launcher before pass 0); its top kp per query go to scratch, and the
+//     query block's last CTA to arrive merges the slices' lists in kp more
+//     rounds of the shuffle argmax.  Positions are unique, so the merge
+//     keeps the total order exactly.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -227,7 +238,18 @@ extern "C" int contains_topk_launch(const void* gc, const void* intents,
 
 // ---------------------------------------------------------------------------
 // K6
+//
+// grid = (query blocks of SERVE_WARPS, slices of the live table); a slice
+// is `slice_rows` rows, planned from the live count and the SM count by
+// rules_topk_plan.  Each CTA writes its slice's top kp per query to `part`
+// [S][nslice][kp] (metric bits, rule id, position; (-1, INT_MAX, INT_MAX)
+// past its hits), and the last CTA of a query block to arrive (`arrived`,
+// zeroed by the launcher) merges the nslice lists of each of its queries,
+// lane l holding slice l's (with one slice, the one CTA merges one list).
 // ---------------------------------------------------------------------------
+
+#define SERVE_MAX_SLICES 32  // one slice per lane of the merging warp
+#define SERVE_CTAS_PER_SM 2  // the plan's target: query blocks x slices per SM
 
 // (metric desc, rule id asc, position asc): the order of the reference's
 // k selection passes.
@@ -235,6 +257,32 @@ __device__ __forceinline__ bool rule_before(float av, int ar, int ap,
                                             float bv, int br, int bp)
 {
     return av > bv || (av == bv && (ar < br || (ar == br && ap < bp)));
+}
+
+// kp rounds of a warp-wide argmax in rule order over the lanes' sorted
+// lists: head(p, v, r, q) loads entry p of this lane's list ((-1, INT_MAX,
+// INT_MAX) past its end), and emit(t, hit, v, r, q) takes the t-th winner
+// (hit: it is a real entry) on every lane.
+template <typename Head, typename Emit>
+__device__ __forceinline__ void warp_select(int kp, Head head, Emit emit)
+{
+    int p = 0, hr, hp;
+    float hv;
+    head(0, hv, hr, hp);
+    for (int t = 0; t < kp; ++t) {
+        float bv = hv;
+        int br = hr, bp = hp;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
+            const int orr = __shfl_xor_sync(FULL_MASK, br, off);
+            const int op = __shfl_xor_sync(FULL_MASK, bp, off);
+            if (rule_before(ov, orr, op, bv, br, bp)) { bv = ov; br = orr; bp = op; }
+        }
+        const bool hit = bv >= 0.0f;
+        if (hit && hp == bp) head(++p, hv, hr, hp);  // positions are unique
+        emit(t, hit, bv, br, bp);
+    }
 }
 
 template <int KMAX, bool LATER>
@@ -247,16 +295,20 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
                   const uint32_t* __restrict__ queries,
                   int* __restrict__ out_i, float* __restrict__ out_v,
                   uint32_t* __restrict__ out_u, int* __restrict__ cursor,
-                  int S, int limit, int W, float min_conf, int k, int k0, int kp)
+                  int4* __restrict__ part, int* __restrict__ arrived,
+                  int S, int limit, int W, float min_conf, int k, int k0, int kp,
+                  int slice_rows)
 {
     __shared__ ServeSmem sm;
+    __shared__ int last_cta;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int s0 = blockIdx.x * SERVE_WARPS;
     const int s = s0 + warp;
     const bool active = s < S;
-    // the union is every firing rule's: the first pass ORs it
-    if (!LATER && active)
-        for (int w = lane; w < W; w += 32) out_u[(long)s * W + w] = 0u;
+    const int nslice = gridDim.y, slice = blockIdx.y;
+    const long r_lo = (long)slice * slice_rows;
+    const long r_end = r_lo + slice_rows;
+    const int r_hi = r_end < limit ? (int)r_end : limit;
     // the last winner of the previous pass: only entries after it count
     // (metric -1 after a pass that ran out of hits: nothing is after it)
     float cv = __int_as_float(0x7f800000);  // +inf: pass 0 keeps every entry
@@ -270,79 +322,122 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
     float lv[KMAX];
     int lr[KMAX], lp[KMAX];
     int cnt = 0;
-    for (long r0 = 0; r0 < limit; r0 += TILE_ROWS) {
-        const uint32_t fail = tile_fail<true>(sm, prem, queries, r0, limit, s0, S, W,
+    float tv = 0.0f;  // the kp-th entry, once the list is full
+    int tr = 0, tp = 0;
+    for (long r0 = r_lo; r0 < r_hi; r0 += TILE_ROWS) {
+        // this lane's rows' confidences, metrics and rule ids: loaded all at
+        // once, while the tile's premises stream in, not one row after another
+        float rc[ROWS_PER_LANE], rv[ROWS_PER_LANE];
+        int ri[ROWS_PER_LANE];
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_LANE; ++i) {
+            const long r = r0 + 32 * i + lane;
+            const bool in = active && r < r_hi;
+            rc[i] = in ? __ldg(conf + r) : 0.0f;
+            rv[i] = in ? __ldg(metric + r) : -1.0f;
+            ri[i] = in ? __ldg(rid + r) : 0;
+        }
+        const uint32_t fail = tile_fail<true>(sm, prem, queries, r0, r_hi, s0, S, W,
                                               active, warp, lane);
         if (!active) continue;
         uint32_t ok = 0u;
 #pragma unroll
         for (int i = 0; i < ROWS_PER_LANE; ++i) {
             const long r = r0 + 32 * i + lane;
-            if (r >= limit || (fail & (1u << i)) || !(conf[r] >= min_conf)) continue;
+            if (r >= r_hi || (fail & (1u << i)) || !(rc[i] >= min_conf)) continue;
             ok |= 1u << i;
-            const float v = metric[r];
-            const int id = rid[r], pos = (int)r;
+            const float v = rv[i];
+            const int id = ri[i], pos = (int)r;
             if (!(v >= 0.0f)) continue;
             if (LATER && !rule_before(cv, cr, cp, v, id, pos)) continue;  // taken in an earlier pass
-            if (cnt == kp && !rule_before(v, id, pos, lv[kp - 1], lr[kp - 1], lp[kp - 1]))
-                continue;
+            if (cnt == kp && !rule_before(v, id, pos, tv, tr, tp)) continue;
             int j = cnt < kp ? cnt++ : kp - 1;
             while (j > 0 && rule_before(v, id, pos, lv[j - 1], lr[j - 1], lp[j - 1])) {
                 lv[j] = lv[j - 1]; lr[j] = lr[j - 1]; lp[j] = lp[j - 1]; --j;
             }
             lv[j] = v; lr[j] = id; lp[j] = pos;
+            if (cnt == kp) { tv = lv[kp - 1]; tr = lr[kp - 1]; tp = lp[kp - 1]; }
         }
         if constexpr (!LATER) {
-            __syncwarp();  // out_u zeroed / last tile's union row written
             if (!__any_sync(FULL_MASK, ok != 0u)) continue;
-            // the consequent union of this tile's firing rules, word by word
-            for (int w = 0; w < W; ++w) {
-                uint32_t acc = 0u;
+            // the consequent union of this tile's firing rules, four words at
+            // a time (their loads all in flight at once), into the row the
+            // launcher zeroed (slices meet there)
+            for (int w0 = 0; w0 < W; w0 += 4) {
+                uint32_t acc[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-                for (int i = 0; i < ROWS_PER_LANE; ++i)
-                    if (ok & (1u << i)) acc |= added[(r0 + 32 * i + lane) * (long)W + w];
-                acc = __reduce_or_sync(FULL_MASK, acc);
-                if (lane == 0) out_u[(long)s * W + w] |= acc;
+                for (int i = 0; i < ROWS_PER_LANE; ++i) {
+                    const uint32_t* a = added + (r0 + 32 * i + lane) * (long)W + w0;
+#pragma unroll
+                    for (int u = 0; u < 4; ++u)
+                        if ((ok & (1u << i)) && w0 + u < W) acc[u] |= __ldg(a + u);
+                }
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const uint32_t x = __reduce_or_sync(FULL_MASK, acc[u]);
+                    if (lane == 0 && x) atomicOr(out_u + (long)s * W + w0 + u, x);
+                }
             }
         }
     }
-    if (!active) return;
-    int p = 0;
-    for (int t = 0; t < kp; ++t) {
-        const bool has = p < cnt;
-        float bv = has ? lv[p] : -1.0f;
-        int br = has ? lr[p] : INT_MAX_, bp = has ? lp[p] : INT_MAX_;
-        const int mp = bp;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
-            const int orr = __shfl_xor_sync(FULL_MASK, br, off);
-            const int op = __shfl_xor_sync(FULL_MASK, bp, off);
-            if (rule_before(ov, orr, op, bv, br, bp)) { bv = ov; br = orr; bp = op; }
-        }
-        const bool hit = bv >= 0.0f;
-        if (hit && has && mp == bp) ++p;  // positions are unique
-        if (lane == 0) {
-            out_i[(long)s * k + k0 + t] = hit ? br : -1;
-            out_v[(long)s * k + k0 + t] = hit ? bv : -1.0f;
-            if (cursor != nullptr && t == kp - 1) cursor[s] = hit ? bp : -1;
-        }
+
+    if (active) {
+        // the 32 lanes' lists → this CTA's top kp of each query, to scratch
+        int4* mine = part + ((long)s * nslice + slice) * kp;
+        warp_select(kp, [&](int p, float& v, int& r, int& pos) {
+            const bool has = p < cnt;
+            v = has ? lv[p] : -1.0f;
+            r = has ? lr[p] : INT_MAX_;
+            pos = has ? lp[p] : INT_MAX_;
+        }, [&](int t, bool, float v, int r, int pos) {
+            if (lane == 0) mine[t] = make_int4(__float_as_int(v), r, pos, 0);
+        });
     }
+
+    // the query block's last CTA merges the slices' lists
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last_cta = atomicAdd(arrived + blockIdx.x, 1) == nslice - 1;
+    __syncthreads();
+    if (!last_cta || !active) return;
+    __threadfence();
+    const int4* list = part + ((long)s * nslice + lane) * kp;
+    warp_select(kp, [&](int p, float& v, int& r, int& pos) {
+        const int4 e = lane < nslice && p < kp ? __ldcg(list + p)
+                                               : make_int4(__float_as_int(-1.0f), INT_MAX_,
+                                                           INT_MAX_, 0);
+        v = __int_as_float(e.x);
+        r = e.y;
+        pos = e.z;
+    }, [&](int t, bool hit, float v, int r, int pos) {
+        if (lane == 0) {
+            out_i[(long)s * k + k0 + t] = hit ? r : -1;
+            out_v[(long)s * k + k0 + t] = hit ? v : -1.0f;
+            if (cursor != nullptr && t == kp - 1) cursor[s] = hit ? pos : -1;
+        }
+    });
 }
 
 template <int KMAX, bool LATER>
 static int launch_rules(const void* prem, const void* added, const void* conf,
                         const void* metric, const void* rid, const void* queries,
                         void* out_i, void* out_v, void* out_u, void* cursor,
+                        void* part, void* arrived,
                         int S, int limit, int W, float min_conf, int k, int k0, int kp,
-                        cudaStream_t stream)
+                        int slice_rows, int nslice, cudaStream_t stream)
 {
-    const dim3 grid((S + SERVE_WARPS - 1) / SERVE_WARPS);
-    rules_topk_kernel<KMAX, LATER><<<grid, SERVE_THREADS, 0, stream>>>(
+    const int blocks = (S + SERVE_WARPS - 1) / SERVE_WARPS;
+    cudaError_t err = cudaSuccess;
+    if (!LATER)  // the union's identity: the first pass ORs every slice into it
+        err = cudaMemsetAsync(out_u, 0, (size_t)S * W * 4, stream);
+    if (err == cudaSuccess)
+        err = cudaMemsetAsync(arrived, 0, (size_t)blocks * 4, stream);
+    if (err != cudaSuccess) return (int)err;
+    rules_topk_kernel<KMAX, LATER><<<dim3(blocks, nslice), SERVE_THREADS, 0, stream>>>(
         (const uint32_t*)prem, (const uint32_t*)added, (const float*)conf,
         (const float*)metric, (const int*)rid, (const uint32_t*)queries,
         (int*)out_i, (float*)out_v, (uint32_t*)out_u, (int*)cursor,
-        S, limit, W, min_conf, k, k0, kp);
+        (int4*)part, (int*)arrived, S, limit, W, min_conf, k, k0, kp, slice_rows);
     return (int)cudaGetLastError();
 }
 
@@ -351,23 +446,31 @@ static int launch_rules(const void* prem, const void* added, const void* conf,
 // k0 = 0) out_u [S, W]; S >= 1, 0 <= k0, 1 <= kp <= SERVE_MAX_K,
 // k0 + kp <= k.  cursor [S] int32 carries each query's last winner's
 // position from one pass to the next; it may be null when k0 + kp == k
-// and k0 == 0.  min_conf arrives already rounded to float32.  Launches
-// one pass on `stream` and returns cudaGetLastError() (0 on success).
+// and k0 == 0.  min_conf arrives already rounded to float32.  The live
+// rules are split into 1 <= nslice <= SERVE_MAX_SLICES slices of
+// slice_rows rows, which must cover them, as rules_topk_plan gives them;
+// part is int4 scratch [S][nslice][kp] and arrived int32 scratch [the
+// plan's blocks].  Launches one pass on `stream` and returns
+// cudaGetLastError() (0 on success), or the error that stopped the launch.
 extern "C" int rules_topk_launch(const void* prem, const void* added, const void* conf,
                                  const void* metric, const void* rid,
                                  const void* queries, void* out_i, void* out_v,
-                                 void* out_u, void* cursor, int S, int R, int W,
-                                 int n_rules, float min_conf, int k, int k0, int kp,
+                                 void* out_u, void* cursor, void* part, void* arrived,
+                                 int S, int R, int W, int n_rules, float min_conf, int k,
+                                 int k0, int kp, int slice_rows, int nslice,
                                  void* stream)
 {
-    if (kp < 1 || kp > SERVE_MAX_K || k0 < 0 || k0 + kp > k ||
-        (cursor == nullptr && (k0 > 0 || k0 + kp < k)))
-        return (int)cudaErrorInvalidValue;
     const int limit = n_rules < 0 ? 0 : (n_rules < R ? n_rules : R);
+    if (kp < 1 || kp > SERVE_MAX_K || k0 < 0 || k0 + kp > k ||
+        (cursor == nullptr && (k0 > 0 || k0 + kp < k)) || slice_rows < 1 || nslice < 1 ||
+        nslice > SERVE_MAX_SLICES || (long)nslice * slice_rows < limit ||
+        part == nullptr || arrived == nullptr)
+        return (int)cudaErrorInvalidValue;
 #define RULES_CASE(KMAX, LATER)                                                         \
     return launch_rules<KMAX, LATER>(prem, added, conf, metric, rid, queries, out_i,     \
-                                     out_v, out_u, cursor, S, limit, W, min_conf, k, k0, \
-                                     kp, (cudaStream_t)stream)
+                                     out_v, out_u, cursor, part, arrived, S, limit, W,   \
+                                     min_conf, k, k0, kp, slice_rows, nslice,          \
+                                     (cudaStream_t)stream)
     if (kp <= 8) {
         if (k0 == 0) RULES_CASE(8, false);
         RULES_CASE(8, true);
@@ -375,4 +478,25 @@ extern "C" int rules_topk_launch(const void* prem, const void* added, const void
     if (k0 == 0) RULES_CASE(SERVE_MAX_K, false);
     RULES_CASE(SERVE_MAX_K, true);
 #undef RULES_CASE
+}
+
+// K6's plan for S queries against `live` rules on a card of `sms` SMs:
+// rows [0, live) split into *nslice slices of *slice_rows rows (whole
+// tiles), as many as put about SERVE_CTAS_PER_SM CTAs on each SM beside
+// the *blocks query blocks, at most one per tile and SERVE_MAX_SLICES,
+// and at least one (live <= 0 included).  Every live row lies in exactly
+// one slice.  The caller sizes rules_topk_launch's scratch from it.
+extern "C" void rules_topk_plan(int S, int live, int sms, int* slice_rows, int* nslice,
+                                int* blocks)
+{
+    const long tiles = live > 0 ? ((long)live + TILE_ROWS - 1) / TILE_ROWS : 0;
+    *blocks = (S + SERVE_WARPS - 1) / SERVE_WARPS;
+    const long b = *blocks > 1 ? *blocks : 1;
+    const long fill = ((long)SERVE_CTAS_PER_SM * sms + b - 1) / b;
+    long want = tiles < SERVE_MAX_SLICES ? tiles : SERVE_MAX_SLICES;
+    want = fill < want ? fill : want;
+    if (want < 1) want = 1;
+    const long tps = tiles > 0 ? (tiles + want - 1) / want : 1;
+    *slice_rows = (int)(tps * TILE_ROWS);
+    *nslice = tiles > 0 ? (int)((tiles + tps - 1) / tps) : 1;
 }

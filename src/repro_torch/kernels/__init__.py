@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-``closure.closure`` (K1, ``csrc/closure.cu``); in ``csrc/frontier.cu``,
+in ``csrc/frontier.cu``, ``closure.closure`` (K1),
 ``frontier.fused_step`` (K2), ``frontier.map_closure`` (K3) and
 ``frontier.filter_step`` (K4); in ``csrc/serve.cu``, ``serve.contains_topk``
 (K5, the top-k query's contains-mask × support selection) and
@@ -13,8 +13,8 @@ its plain version (``closure_plain``, ``fused_step_plain``,
 ``flash_attention.flash_attention`` (the reference kernel's layout) and
 ``flash_attention.blockwise_attention`` (the model's layout, with
 left-pad ``valid_from``), whose plain version is ``attention_plain``.
-Each wrapper counts its launches in a plain ``launches`` attribute; K2 and
-K3 also count those that took their tensor-core body in ``tc_launches``.
+Each wrapper counts its launches in a plain ``launches`` attribute; K1, K2
+and K3 also count those that took their tensor-core body in ``tc_launches``.
 """
 
 from repro_torch.kernels import closure as _k1

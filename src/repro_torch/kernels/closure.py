@@ -9,12 +9,17 @@ of uint32 bitset words) it computes, per candidate ``b``,
 
 raw: not masked to the real attributes, not corrected for all-ones padding
 rows (``ops.batched_closure`` does both).  :func:`closure` launches the
-CUDA kernel in ``csrc/closure.cu`` for CUDA tensors and runs
-:func:`closure_plain` for CPU tensors; any shape ``N >= 0``, ``B >= 0``
-and ``1 <= W <= MAX_W`` is taken as it is.  Rows ``[K, N, W]`` hold K
-object shards (a simulated plan's context): each shard's closures and
-supports come back separately, ``[K, B, W]`` and ``[K, B]``, from one
-launch.
+CUDA kernel for CUDA tensors and runs :func:`closure_plain` for CPU
+tensors; any shape ``N >= 0``, ``B >= 0`` and ``1 <= W <= MAX_W`` is
+taken as it is.  Rows ``[K, N, W]`` hold K object shards (a simulated
+plan's context): each shard's closures and supports come back
+separately, ``[K, B, W]`` and ``[K, B]``, from one launch.
+
+The kernel is K3's closure body in ``csrc/frontier.cu`` without its mask
+(``closure_launch``), chosen by the word width alone: for rows of at most
+10 words (``TCF_MAX_W``) the tensor-core body (two int8 ``wgmma``
+products over complement bit-planes, the row axis split across CTAs
+where the candidate tiles leave SMs idle), for wider rows the SIMT body.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from repro_torch.device import ALL_ONES
 from repro_torch.kernels import _build
 
-GROUP = 8  # candidates per CTA (CLOSURE_GROUP in csrc/closure_common.cuh)
+GROUP = 8  # candidates per CTA of the SIMT body (CLOSURE_GROUP in csrc/closure_common.cuh)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on the H100
 # Widest word count whose candidates + accumulators fit one block's
 # shared memory (closure_smem_bytes in csrc/closure_common.cuh).
@@ -120,9 +125,9 @@ def check_closure_operands(rows: torch.Tensor, cands: torch.Tensor,
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("closure")
+    lib = _build.load("frontier")
     lib.closure_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
     ]
     lib.closure_launch.restype = ctypes.c_int
     return lib
@@ -133,10 +138,13 @@ def closure(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: raw closures ``[B, W]`` and supports ``[B]`` (int32); for rows
     ``[K, N, W]`` (K object shards) ``[K, B, W]`` and ``[K, B]``, from one
-    launch whose grid's y axis is the shard.
+    launch.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
-    :func:`closure_plain`.  ``closure.launches`` counts kernel launches.
+    :func:`closure_plain`.  ``closure.launches`` counts kernel launches;
+    ``closure.tc_launches`` those that took the tensor-core body, which the
+    launcher chooses for rows of at most 10 words (wider rows take the SIMT
+    body).
     """
     check_closure_operands(rows, cands, sharded=True)
     if rows.device.type == "cpu":
@@ -149,16 +157,19 @@ def closure(
     out_s = torch.empty((*lead, B), dtype=torch.int32, device=rows.device)
     if B == 0 or K == 0:
         return out_c, out_s
+    tensor_body = ctypes.c_int(0)
     with torch.cuda.device(rows.device):
         rc = _lib().closure_launch(
             rows.data_ptr(), cands.data_ptr(), out_c.data_ptr(),
-            out_s.data_ptr(), K, N, B, W,
+            out_s.data_ptr(), K, N, B, W, ctypes.byref(tensor_body),
             torch.cuda.current_stream(rows.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"closure kernel launch failed: CUDA error {rc}")
     closure.launches += 1
+    closure.tc_launches += tensor_body.value
     return out_c, out_s
 
 
 closure.launches = 0
+closure.tc_launches = 0

@@ -22,7 +22,10 @@ Both launch the CUDA kernels of ``csrc/serve.cu`` for CUDA tensors and run
 their plain PyTorch versions (:func:`contains_topk_plain`,
 :func:`rules_topk_plain`: the reference engine's jnp steps, written in
 torch) for CPU tensors; a build or launch error propagates.  Each wrapper
-counts its launches in a plain ``launches`` attribute.
+counts its launches in a plain ``launches`` attribute.  K5 walks the whole
+table in each CTA of 8 queries; K6 also splits the live table across a
+second grid axis (:func:`rule_plan`, stated in ``csrc/serve.cu``), and the
+last CTA of each query block merges the slices' top-k lists.
 
 **Bound change against the reference.**  The reference's
 ``supports_serve`` (``src/repro/kernels/serve.py:53``) sends a table of
@@ -67,6 +70,11 @@ def _check_k(k: int) -> int:
 def _passes(k: int):
     """``(k0, kp)`` of each launch: columns ``[k0, k0 + kp)`` of the output."""
     return [(k0, min(PASS_K, k - k0)) for k0 in range(0, k, PASS_K)]
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_vector(name: str, t: torch.Tensor, n: int, dtype: torch.dtype, device) -> None:
@@ -206,11 +214,25 @@ def _lib() -> ctypes.CDLL:
     )
     lib.contains_topk_launch.restype = ctypes.c_int
     lib.rules_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5
         + [ctypes.c_void_p]
     )
     lib.rules_topk_launch.restype = ctypes.c_int
+    flag = ctypes.POINTER(ctypes.c_int)
+    lib.rules_topk_plan.argtypes = [ctypes.c_int] * 3 + [flag] * 3
+    lib.rules_topk_plan.restype = None
     return lib
+
+
+def rule_plan(S: int, live: int, sms: int) -> tuple[int, int, int]:
+    """K6's split of the live table, from ``rules_topk_plan`` in
+    ``csrc/serve.cu``: ``(slice_rows, nslice, blocks)``, slice ``j``
+    holding rows ``[j·slice_rows, (j + 1)·slice_rows)`` of ``[0, live)``
+    for each of the ``blocks`` query blocks of ``S`` queries on a card of
+    ``sms`` SMs.  Needs the built library (a CUDA machine)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _lib().rules_topk_plan(S, live, sms, *map(ctypes.byref, out))
+    return tuple(o.value for o in out)
 
 
 def contains_topk(
@@ -276,8 +298,11 @@ def rules_topk(
     prem/added [R, W] int32 bitsets, conf/metric [R] float32, rid [R]
     int32, queries [S, W].  Returns ``(rule ids [S, k] int32, scores
     [S, k] float32, unions [S, W] int32)``, any ``k ≥ 1`` (one launch per
-    :data:`PASS_K` columns).  ``rules_topk.launches`` counts kernel
-    launches.
+    :data:`PASS_K` columns).  One launch splits the live table into the
+    slices of :func:`rule_plan`; each CTA's top ``k`` go to scratch
+    allocated here from that plan, and the last CTA of each query block
+    merges them.
+    ``rules_topk.launches`` counts kernel launches.
     """
     k = _check_k(k)
     _check_table(
@@ -298,18 +323,24 @@ def rules_topk(
     if S == 0:
         return out_i, out_v, out_u
     passes = _passes(k)
+    dev = queries.device
     # each query's last winner's table position, from one pass to the next
-    cursor = torch.empty(S, dtype=torch.int32, device=queries.device) if len(passes) > 1 \
-        else None
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
+    cursor = torch.empty(S, dtype=torch.int32, device=dev) if len(passes) > 1 else None
+    slice_rows, nslice, blocks = rule_plan(S, min(n_rules, R), _sm_count(dev))
+    # each slice's top k per query, and each query block's arrivals
+    part = torch.empty((S, nslice, passes[0][1], 4), dtype=torch.int32, device=dev)
+    arrived = torch.empty(blocks, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         for k0, kp in passes:
             rc = _lib().rules_topk_launch(
                 prem.data_ptr(), added.data_ptr(), conf.data_ptr(), metric.data_ptr(),
                 rid.data_ptr(), queries.data_ptr(),
                 out_i.data_ptr(), out_v.data_ptr(), out_u.data_ptr(),
                 None if cursor is None else cursor.data_ptr(),
-                S, R, W, max(-1, min(n_rules, R)), min_conf, k, k0, kp, stream,
+                part.data_ptr(), arrived.data_ptr(),
+                S, R, W, max(-1, min(n_rules, R)), min_conf, k, k0, kp, slice_rows, nslice,
+                stream,
             )
             if rc != 0:
                 raise RuntimeError(f"rules top-k kernel launch failed: CUDA error {rc}")

@@ -20,7 +20,7 @@ from repro_torch.core import closure as core_closure
 from repro_torch.kernels import closure as kclosure
 from repro_torch.kernels import ops, ref
 
-from _torch_reference import random_bits, subset_candidates, t, u32
+from _torch_reference import edge_rows, pad_ones, random_bits, subset_candidates, t, u32
 
 
 def _case(N: int, B: int, W: int, density: float, seed: int):
@@ -45,6 +45,37 @@ def test_closure_plain_matches_pallas_interpret(N, B, W, density):
     want = ref_kclosure.closure_pallas(jnp.asarray(rows), jnp.asarray(cands), interpret=True)
     _assert_same(kclosure.closure_plain(t(rows), t(cands)), want)
     _assert_same(kclosure.closure(t(rows), t(cands)), want)
+
+
+# K1's tensor-core body at its edges (chip_smoke.py's TC_EDGE_*, at CPU
+# sizes): W at 1, 4, 5, 10 (the widest the body takes) and 11 (the SIMT
+# body); N and B beside the 64-row stages and the 64-candidate warpgroups;
+# k = 1 shard with the engine's all-ones pad rows, k = 2 with candidates
+# that match no row; rows with bit 31 set.  The reference kernel takes rows
+# padded to its 256-row block with all-ones rows, which change no closure
+# and add one match each to every support.
+@pytest.mark.parametrize("N,B", [(1, 1), (63, 65), (65, 63)])
+@pytest.mark.parametrize("W", [1, 4, 5, 10, 11])
+def test_closure_plain_matches_pallas_interpret_at_the_body_edges(W, N, B):
+    rng = np.random.default_rng(3000 * W + N + B)
+    for k, pad in ((1, True), (2, False)):
+        rows, cands = edge_rows(rng, k * N, W, B, pad)
+        cands_ref, _ = pad_ones(cands, 8)
+        want_c, want_s = [], []
+        for i in range(k):
+            shard, n_added = pad_ones(rows[i * N:(i + 1) * N], 256)
+            c, s_ = ref_kclosure.closure_pallas(jnp.asarray(shard), jnp.asarray(cands_ref),
+                                                interpret=True)
+            want_c.append(u32(c)[:B])
+            want_s.append(np.asarray(s_)[:B] - n_added)
+        shards = t(rows) if k == 1 else t(rows).reshape(k, N, W)
+        for fn in (kclosure.closure_plain, kclosure.closure):
+            gc, gs = fn(shards, t(cands))
+            np.testing.assert_array_equal(u32(gc).reshape(k, B, W), np.stack(want_c))
+            np.testing.assert_array_equal(gs.numpy().reshape(k, B), np.stack(want_s))
+        if not pad and B > 1:  # the candidates that match no row, in every shard
+            assert (gs.numpy()[:, 1::3] == 0).all()
+            assert (u32(gc)[:, 1::3] == 0xFFFFFFFF).all()
 
 
 @pytest.mark.parametrize(

@@ -247,12 +247,12 @@ def test_launch_counters_count_only_kernel_launches():
 def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
     import torch.utils.cpp_extension as cpp_extension
 
-    lib = _build.library_path("closure")
+    lib = _build.library_path("frontier")
     assert lib.is_relative_to(ROOT / "build")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert lib == _build.library_path("closure")  # deterministic name
-    assert lib != _build.library_path("frontier") != _build.library_path("serve")
-    assert _build.SOURCES == ("closure", "frontier", "serve", "attention")
+    assert lib == _build.library_path("frontier")  # deterministic name
+    assert lib != _build.library_path("serve") != _build.library_path("attention")
+    assert _build.SOURCES == ("frontier", "serve", "attention")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -260,7 +260,7 @@ def test_build_needs_nvcc_and_targets_an_ignored_directory(monkeypatch):
 
 
 @pytest.mark.parametrize("name,symbol,replaces", [
-    ("closure.cu", "closure_launch", "src/repro/kernels/closure.py:closure_pallas"),
+    ("frontier.cu", "closure_launch", "src/repro/kernels/closure.py:closure_pallas"),
     ("frontier.cu", "fused_step_launch", "src/repro/kernels/frontier.py:fused_closure_call"),
     ("frontier.cu", "map_closure_launch", "src/repro/kernels/frontier.py:map_closure_call"),
     ("frontier.cu", "filter_launch", "src/repro/kernels/frontier.py:filter_call"),

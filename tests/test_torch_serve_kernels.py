@@ -190,6 +190,32 @@ def test_rules_topk_plain_matches_reference_jnp_step(ref_rules_step, S, R, W, k,
         _assert_rules_equal(_port_rules(case, n_rules, min_conf, k), want)
 
 
+# K6 at the edges of its table split (chip_smoke.py's RULES_SPLIT_*, at CPU
+# sizes): live counts beside 256-row tiles and powers of two, equal (metric,
+# rule id) at positions far apart (the lower position wins: one pass's last
+# winner then decides where the next pass starts), k past one pass of 64.
+@pytest.mark.parametrize("live", [255, 256, 257, 511, 512, 513])
+@pytest.mark.parametrize("k", [5, 65, 100])
+def test_rules_topk_plain_matches_reference_jnp_step_at_the_split_edges(ref_rules_step,
+                                                                         live, k):
+    rng = np.random.default_rng(live * 7 + k)
+    R, S, W = live + 3, 13, 4
+    prem, added, conf, metric, rid, queries = _rules_case(rng, S, R, W)
+    rid = rng.integers(0, 4, size=R).astype(np.int32)  # (metric, rid) ties everywhere
+    far = [0, live // 2, live - 1]  # the best entry three times, far apart
+    prem[far] = 0
+    conf[far] = 1.0
+    metric[far] = 3.0
+    rid[far] = 1
+    case = (prem, added, conf, metric, rid, queries)
+    for min_conf in (0.1, 0.7):
+        want = ref_rules_step(k)(*map(jnp.asarray, (prem, added, conf, metric, rid)),
+                                 jnp.int32(live), jnp.asarray(queries), jnp.float32(min_conf))
+        got = _port_rules(case, live, min_conf, k)
+        _assert_rules_equal(got, want)
+        assert (got[0][:, :3] == 1).all() and (got[1][:, :3] == 3.0).all()
+
+
 def test_rules_topk_no_match_and_union_over_every_firing_rule():
     rng = np.random.default_rng(5)
     case = _rules_case(rng, 8, 30, 4, miss_all=True)
