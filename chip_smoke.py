@@ -15,14 +15,21 @@ checks, on the card:
   3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
      map), K4 (multi-shard filter), K5 (contains top-k) and K6 (rules
      top-k) against their plain PyTorch versions on seeded inputs, bit for
-     bit: widths whose shared memory needs more than 48 KB up to ``MAX_W``,
-     K1 and K3 over k ∈ {1, 2, 8} shards in one launch, K4 under all four
-     (iceberg, cbo) flag pairs; K5 and K6 at S ∈ {8, 64, 1000, 1024}
+     bit: widths whose shared memory needs more than 48 KB up to the
+     library's ``max_w`` (refused one word past it),
+     K1 and K3 over k ∈ {1, 2, 8} shards in one launch; K4 on K ∈ {1, 2,
+     8} shards' partials (``FILTER_EDGE_*``) for every frontier variant,
+     W ∈ {1, 4, 5, 11, 33} and B ∈ {1, 255, 8192} (and W 2000), CbO
+     generators outside LOW among them; K5 and K6 at S ∈ {8, 64, 1000, 1024}
      queries, tables of 1, 7, 8192 and 2**20 + 3 rows (above the
      reference kernels' 2**22 cells), W ∈ {4, 5}, k ∈ {1, 5, 64} and,
      past one launch's 64 winners, k ∈ {65, 100, 128, C + 1}, live counts
      below the table size, forced ties, min_conf 0.1 and 0.7, and cases
-     where no row matches; K6's table split across CTAs at its edges
+     where no row matches; K5's table split across CTAs at its edges
+     (``CONTAINS_SPLIT_*``): S ∈ {1, 8, 63, 64, 1000}, live ∈ {0, 1, 255,
+     256, 257, 4282, 2**20 + 3}, k ∈ {1, 5, 64, 65, 130}, ties in support
+     across every slice boundary, pad rows never read; the top-k plan both
+     kernels share (``check_topk_plan``); K6's table split across CTAs at its edges
      (``RULES_SPLIT_*``): S ∈ {1, 8, 63, 64, 1000}, k ∈ {1, 5, 64, 65,
      100, C + 1}, live counts of 1, of whole slices and one row either side,
      equal (metric, rule id) in different slices, rules firing in every
@@ -54,11 +61,14 @@ checks, on the card:
      AND-allreduce schedule at k = 8 and for rsag at k = 2 and 4: the same
      counts, the reference's modeled wire bytes, concept sets equal the
      ``backend="torch"`` run's at the same plan, K1 and K3 (every launch
-     through the tensor-core body) and K4 launched and K2 not; MRCbo at k = 8
+     through the tensor-core body) and K4 (folding the shards' partials
+     itself) launched and K2 not; MRCbo at k = 8
      through ``backend="matmul"``; census-income at its
      published shape (103,950 x 133) at k = 8, rsag, against the
      reference's counts and bytes; one more kernel run of the k = 8 rsag
-     plans keeps a copy of the operands of every K1/K3/K4 launch;
+     plans keeps a copy of the operands of every K1/K3/K4 launch; then the
+     timed runs of phases 4 and 5 that a garbage collection of generation
+     1 or 2 landed in, with its milliseconds (``gc_pauses``);
   6. full lattice — MRGanter+ and MRCbo on mushroom at scale 0.01, and all
      three drivers on the paper's example and a seeded synthetic context
      (on one shard and on 8 shards), against the NextClosure / CloseByOne
@@ -84,7 +94,8 @@ checks, on the card:
      answers equal between the backends, K6 launched once per micro-batch
      (read as in phase 8, and one more run keeps the K6 operands);
   10. LM serve, reduced — gemma2-9b and codeqwen1.5-7b ``reduced()``
-     through ``ServeEngine`` on numpy weights (``LM_SEED``): the
+     through ``ServeEngine`` on numpy weights (``LM_SEED``), prompts
+     with token ids V, V + 5, -1, -V and -V - 3 among them: the
      reference's greedy tokens (``LM_REDUCED_EXPECTED``) exactly, K7
      launched once per layer of the prefill;
   11. LM serve, full width — gemma2-9b at its published width and depth
@@ -107,7 +118,10 @@ checks, on the card:
      and K3 also the bound of their two int8 tensor-core products
      (``tc_bound_ms``), the smaller of the two routes' bounds
      (``table_bound_ms``) and the port's ``closure_matmul`` on the
-     costliest chunk (``matmul_backend_ms``).
+     costliest chunk (``matmul_backend_ms``); for K4 also the torch ops the
+     parent tree ran between K3 and K4 on the same chunks (the simulated
+     AND-allreduce, the support sum, the LOW gather), on its costliest
+     chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -119,6 +133,7 @@ without one.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import statistics
@@ -225,8 +240,8 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's SM clock: longer than any wrapper
 # The LM serving path (phases 10 and 11).  Reduced (phase 10): gemma2-9b
 # and codeqwen1.5-7b ``reduced()`` (float32; gemma2's window 32), weights
 # ``repro_torch.interop.numpy_params(cfg, LM_SEED)``, the reference CLI's
-# prompts plus one 40 tokens long (past the window), 16 greedy tokens in
-# the CLI's ServeConfig.  The expected tokens are the JAX package's
+# prompts plus one 40 tokens long (past the window) and four holding token
+# ids outside [0, vocab), 16 greedy tokens in the CLI's ServeConfig.  The expected tokens are the JAX package's
 # ServeEngine on those very weights, derived once on the CPU by
 # ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py lm``.
 LM_REDUCED_ARCHS = ("gemma2-9b", "codeqwen1.5-7b")
@@ -236,12 +251,22 @@ LM_MAX_NEW = 16
 LM_REDUCED_EXPECTED = {
     "gemma2-9b": [[56, 178, 49, 158, 6, 6, 6, 6, 6, 6, 6, 6, 6, 50, 50, 50],
                   [193, 106, 84, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
-                  [29, 198, 198, 198, 198, 204, 177, 248, 248, 133, 248, 178, 43, 158, 94, 1]],
+                  [29, 198, 198, 198, 198, 204, 177, 248, 248, 133, 248, 178, 43, 158, 94, 1],
+                  [224, 224, 224, 84, 91, 224, 37, 114, 180, 137, 79, 79, 79, 137, 79, 79],
+                  [163, 185, 6, 234, 194, 194, 30, 46, 7, 224, 234, 176, 224, 224, 224, 224],
+                  [246, 225, 225, 108, 97, 97, 97, 208, 208, 225, 225, 225, 232, 193, 193, 160],
+                  [127, 52, 52, 225, 225, 225, 225, 225, 225, 225, 180, 169, 169, 114, 214, 214]],
     "codeqwen1.5-7b": [[74, 124, 63, 223, 63, 223, 63, 223, 166, 98, 42, 200, 193, 98, 49, 24],
                        [126, 147, 24, 236, 97, 207, 180, 207, 154, 236, 97, 97, 31, 223, 22,
                         166],
                        [223, 154, 223, 74, 134, 154, 74, 134, 182, 154, 74, 31, 31, 31, 31,
-                        31]],
+                        31],
+                       [70, 203, 30, 74, 143, 47, 94, 143, 124, 223, 70, 76, 74, 58, 205, 106],
+                       [134, 154, 134, 74, 170, 170, 170, 170, 170, 154, 154, 177, 154, 108,
+                        108, 108],
+                       [65, 137, 137, 137, 137, 137, 137, 137, 192, 155, 155, 155, 166, 155, 212,
+                        170],
+                       [100, 33, 185, 63, 216, 168, 22, 77, 49, 13, 13, 13, 70, 13, 33, 154]],
 }
 # Full width (phase 11): gemma2-9b at its published shape, bf16 weights from
 # a seeded torch.Generator on the card, four seeded prompts in four slots.
@@ -307,6 +332,10 @@ def max_abs_err(got, want):
 
     err = 0
     for g, w in zip(got, want):
+        if g is None or w is None:  # an output not asked for (K4's supports)
+            if g is not w:
+                raise AssertionError("one side returned an output the other did not")
+            continue
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{g.dtype}{tuple(g.shape)} != {w.dtype}{tuple(w.shape)}")
         if not g.numel():
@@ -376,8 +405,15 @@ def check_kernels(device) -> list[dict]:
                 records.append({"kernel": "closure", "W": W, "N": N, "B": B,
                                 "max_support": int(want[1].max())})
     # widths whose shared memory needs more than the 48 KB default (the
-    # launch raises the kernel's limit), up to the wrappers' MAX_W
-    for W in (2000, k1.MAX_W):
+    # launch raises the kernel's limit), up to the library's max_w
+    max_w = k1.max_w(device)
+    if max_w < 3000:
+        raise AssertionError(f"the SIMT body takes rows of at most {max_w} words")
+    with contextlib.suppress(ValueError):
+        k1.closure(device_bits(bitsets(rng, 1, max_w + 1, 0.5), device),
+                   device_bits(bitsets(rng, 1, max_w + 1, 0.5), device))
+        raise AssertionError(f"K1 took rows of {max_w + 1} words, past max_w")
+    for W in (2000, max_w):
         rows_np = bitsets(rng, 256, W, 0.7)
         rows = device_bits(rows_np, device)
         for B in (8, 16):
@@ -437,11 +473,9 @@ def check_kernels(device) -> list[dict]:
 
 
 def check_sharded_kernels(device) -> list[dict]:
-    """Phase 3, multi-shard half: K1 and K3 over k shards in one launch, and
-    K4 under every (iceberg, cbo) flag pair, against their plain versions,
-    bit for bit."""
+    """Phase 3, multi-shard half: K1 and K3 over k shards in one launch
+    against their plain versions, bit for bit."""
     import numpy as np
-    import torch
 
     from repro_torch.device import device_bits
     from repro_torch.kernels import closure as k1
@@ -470,25 +504,71 @@ def check_sharded_kernels(device) -> list[dict]:
                                   k1.closure_plain(rows, cands))
                 records.append({"kernel": "map_closure", "k": k, "W": W, "n": n, "B": B,
                                 "max_support": int(want[1].max())})
-        for B in (8, 8192):
-            gc = device_bits(bitsets(rng, B, W, 0.6), device) & mask
-            gs = torch.from_numpy(rng.integers(0, 2000, size=B).astype(np.int32)).to(device)
-            parent_np = bitsets(rng, B, W, 0.6)
-            parent = device_bits(parent_np, device) & gc  # mostly canonical
-            lowrow = device_bits(bitsets(rng, B, W, 0.002), device) & mask
-            for iceberg in (False, True):
-                for cbo in (False, True):
-                    for sc in ((B, 1, 0, 0), (B - B // 3, 900, 7, 0), (B // 2 + 1, 3, 1, B // 4)):
-                        kw = dict(iceberg=iceberg, cbo=cbo)
-                        if cbo:
-                            kw.update(parent=parent, lowrow=lowrow)
-                        got = fk.filter_step(gc, gs, fk.pack_scalars(*sc), **kw)
-                        want = fk.filter_step_plain(gc, gs, fk.pack_scalars(*sc), **kw)
-                        require_equal(f"K4 iceberg={iceberg} cbo={cbo} W={W} B={B} {sc}",
-                                      got, want)
-                        records.append({"kernel": "filter_step", "iceberg": iceberg,
-                                        "cbo": cbo, "W": W, "B": B, "scalars": list(sc),
-                                        "kept": int(want[1].sum())})
+    return records
+
+
+# K4 at its edges (phase 3): K in {1, 2, 8} shards' partials (K = 1 also as
+# a process-group rank's [B, W] / [B]); every frontier variant with the
+# operands the engine gives it (supports only where iceberg); W at 1, 4, 5,
+# 11 and 33, beside the lanes' power-of-two segments and past one warp; B at
+# 1, 255 and 8192, and W = 2000 at B = 8; windows, thresholds, pad counts
+# and row offsets; some CbO generators outside LOW's rows.
+FILTER_EDGE_K = (1, 2, 8)
+FILTER_EDGE_W = (1, 4, 5, 11, 33)
+FILTER_EDGE_B = (1, 255, 8192)
+
+
+def check_filter_kernel(device) -> list[dict]:
+    """Phase 3: K4 (``FILTER_EDGE_*``) against its plain version, bit for
+    bit: closures, supports and keep."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import frontier as fk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.closure import and_reduce
+
+    rng = np.random.default_rng(20121017)
+
+    def words(*shape, n: int, op):
+        """Random words, each bit of ``op`` over n fair bits (OR of 2: 3/4
+        set; NOT of the AND of 4: 15/16 set, so that 8 shards' AND keeps
+        about 60 %; AND of 6: 1/64)."""
+        x = rng.integers(0, 2**32, size=(n, *shape), dtype=np.uint32)
+        return device_bits(op.reduce(x, 0), device)
+
+    records = []
+    shapes = [(W, B) for W in FILTER_EDGE_W for B in FILTER_EDGE_B] + [(2000, 8)]
+    for K in FILTER_EDGE_K:
+        for W, B in shapes:
+            n_attrs = W * 32 - 5
+            mask = ops.attr_mask_tensor(n_attrs, W, device)
+            lc = ~words(K, B, W, n=4, op=np.bitwise_and) & mask
+            ls = torch.from_numpy(rng.integers(0, 300 // K + 2, size=(K, B)).astype(np.int32))
+            ls = ls.to(device)
+            parent = words(B, W, n=2, op=np.bitwise_or) & and_reduce(lc, 0)
+            LOW = words(n_attrs, W, n=6, op=np.bitwise_and) & mask
+            gens_np = rng.integers(0, n_attrs, size=B).astype(np.int32)
+            gens_np[::97] = np.int32(n_attrs)  # outside LOW: dropped
+            gens_np[1::101] = -1
+            gens = torch.from_numpy(gens_np).to(device)
+            forms = [(lc, ls)] + ([(lc[0], ls[0])] if K == 1 else [])
+            for variant, (iceberg, cbo, _) in fk.VARIANTS.items():
+                kw = dict(iceberg=iceberg, cbo=cbo)
+                if cbo:
+                    kw.update(parent=parent, LOW=LOW, gens=gens)
+                for sc in ((B, 100, 0, 0), (B - B // 3, 120, 7, 0), (B // 2 + 1, 3, 1, B // 4)):
+                    sc = fk.pack_scalars(*sc)
+                    for a, s_ in forms:
+                        s_ = s_ if iceberg else None  # as the engine passes them
+                        got = fk.filter_step(a, s_, sc, **kw)
+                        want = fk.filter_step_plain(a, s_, sc, **kw)
+                        require_equal(f"K4 {variant} K={K} W={W} B={B} {sc} "
+                                      f"{tuple(a.shape)}", got, want)
+                        records.append({"kernel": "filter_step", "variant": variant, "K": K,
+                                        "W": W, "B": B, "scalars": list(sc),
+                                        "kept": int(want[2].sum())})
     return records
 
 
@@ -596,6 +676,32 @@ def check_tc_kernels(device) -> list[dict]:
     return records
 
 
+# Every timed main-path run (phases 4 and 5): its wall and the milliseconds
+# Python's garbage collector paused the host inside it, by generation; the
+# phase after phase 5 reports the runs a collection of generation 1 or 2
+# landed in.
+GC_PAUSES: list = []
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Milliseconds of garbage collection, by generation, inside the block."""
+    paused = [0.0, 0.0, 0.0]
+    start = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            paused[info["generation"]] += (time.perf_counter() - start[0]) * 1e3
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield paused
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | None = None,
                     min_support: int = MAIN_MIN_SUPPORT):
     """One run of a main path through the port's entry points; launch
@@ -609,13 +715,16 @@ def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | N
     eng = ClosureEngine(ctx, backend=backend, device=device, **(plan_kw or {}))
     kernels.reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if algorithm == "mrganter+":
-        res = mrganter_plus(ctx, eng, local_prune=True, min_support=min_support)
-    else:
-        res = mrcbo(ctx, eng, min_support=min_support)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with gc_pauses() as paused:
+        t0 = time.perf_counter()
+        if algorithm == "mrganter+":
+            res = mrganter_plus(ctx, eng, local_prune=True, min_support=min_support)
+        else:
+            res = mrcbo(ctx, eng, min_support=min_support)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    GC_PAUSES.append({"objects": ctx.n_objects, "backend": backend, "algorithm": algorithm,
+                      "plan": plan_kw, "wall_s": wall, "gc_ms": paused})
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     check_tensor_body(ctx.W)
     return res, eng, wall, launches
@@ -990,28 +1099,88 @@ def check_serve_kernels(device) -> list[dict]:
 RULES_SPLIT_S = (1, 8, 63, 64, 1000)
 RULES_SPLIT_K = (1, 5, 64, 65, 100)
 RULES_LIVE = 4999 + 356
-# K6's plan (rules_topk_plan in csrc/serve.cu) is held at these live counts
-# too, on this card and on cards of 1 and 132 SMs.
-RULES_PLAN_LIVE = (-1, 0, 1, 255, 256, 257, RULES_LIVE, 2**20 + 3)
+# K5's split at its edges: the same S; live counts of none, 1, one tile and
+# one row either side of it, the serve phase's 4,282 intents and 2**20 + 3;
+# k at 1, 5, 64, 65 and 130 (three passes).
+CONTAINS_SPLIT_LIVE = (0, 1, 255, 256, 257, 4282, 2**20 + 3)
+CONTAINS_SPLIT_K = (1, 5, 64, 65, 130)
+# The plan of K5 and K6 (topk_plan in csrc/serve.cu) is held at these live
+# counts too, on this card and on cards of 1 and 132 SMs.
+TOPK_PLAN_LIVE = (-1, 0, 1, 255, 256, 257, 4282, RULES_LIVE, 2**20 + 3)
 
 
-def check_rule_plan(S: int, live: int, sms: int) -> tuple[int, int, int]:
-    """K6's plan of S queries against ``live`` rules: at least one slice,
-    at most 32 (one per lane of the merging warp) and one per 256-row tile,
-    every live rule in exactly one slice, none empty when there are more,
-    and one query block per 8 queries."""
+def check_topk_plan(S: int, live: int, sms: int) -> tuple[int, int, int]:
+    """The plan of S queries against ``live`` table rows: at least one
+    slice, at most 32 (one per lane of the merging warp) and one per
+    256-row tile, every live row in exactly one slice, none empty when
+    there are more, and one query block per 8 queries."""
     from repro_torch.kernels import serve as sk
 
-    slice_rows, nslice, blocks = sk.rule_plan(S, live, sms)
+    slice_rows, nslice, blocks = sk.topk_plan(S, live, sms)
     tiles = -(-max(0, live) // 256)
     covered = nslice * slice_rows >= live
     none_empty = nslice == 1 or (nslice - 1) * slice_rows < live
     ok = (slice_rows >= 1 and slice_rows % 256 == 0 and 1 <= nslice <= min(32, max(1, tiles))
           and blocks == -(-S // 8) and covered and none_empty)
     if not ok:
-        raise AssertionError(f"K6 plan S={S} live={live} sms={sms}: {slice_rows} rows x "
+        raise AssertionError(f"top-k plan S={S} live={live} sms={sms}: {slice_rows} rows x "
                              f"{nslice} slices, {blocks} query blocks")
     return slice_rows, nslice, blocks
+
+
+def check_contains_split(device) -> list[dict]:
+    """Phase 3, K5 with its table split across CTAs (``CONTAINS_SPLIT_*``
+    and ``RULES_SPLIT_S``) against the plain version, bit for bit: supports
+    from 0 to 3 (ties everywhere), and the rows either side of every slice
+    boundary containing every query at one higher support (ties across
+    slices: the lower index wins); pad rows past the live count that
+    contain every query at a support above all (never read); one launch per
+    64 columns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import serve as sk
+
+    rng = np.random.default_rng(20121018)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if check_topk_plan(64, 4282, 132)[:2] != (256, 17):
+        raise AssertionError("K5 plan: 64 slots against the serve phase's 4,282 intents on "
+                             "132 SMs is not 17 slices of one tile")
+    W = 4
+    records = []
+    for live in CONTAINS_SPLIT_LIVE:
+        C = live + 3
+        base = bitsets(rng, C, W, 0.6)
+        for S in RULES_SPLIT_S:
+            edge, nslice, _ = check_topk_plan(S, live, sms)
+            intents = base.copy()
+            supports = rng.integers(0, 4, size=C).astype(np.int32)
+            ends = sorted({r for j in range(nslice + 1) for r in (j * edge - 1, j * edge)
+                           if 0 <= r < live})
+            intents[ends] = 0xFFFFFFFF
+            supports[ends] = 4
+            intents[live:] = 0xFFFFFFFF
+            supports[live:] = 1 << 20
+            gc = base[rng.integers(0, C, size=S)] & bitsets(rng, S, W, 0.3)
+            gc[0] = 0
+            args = (device_bits(gc, device), device_bits(intents, device),
+                    torch.from_numpy(supports).to(device), live)
+            for k in CONTAINS_SPLIT_K:
+                name = f"K5 split S={S} live={live} ({nslice} x {edge} rows) k={k}"
+                before = sk.contains_topk.launches
+                got = sk.contains_topk(*args, k=k)
+                want = sk.contains_topk_plain(*args, k=k)
+                require_equal(name, got, want)
+                if sk.contains_topk.launches - before != -(-k // sk.PASS_K):
+                    raise AssertionError(f"{name}: {sk.contains_topk.launches - before} "
+                                         "launches")
+                if ends and int(want[0][0, 0]) != ends[0]:
+                    raise AssertionError(f"{name}: the first tied boundary row is not first")
+                records.append({"kernel": "contains_topk", "split_edge": True, "S": S,
+                                "live": live, "slices": nslice, "slice_rows": edge, "k": k,
+                                "hits": int((want[0] >= 0).sum())})
+    return records
 
 
 def check_rules_split(device) -> list[dict]:
@@ -1027,18 +1196,18 @@ def check_rules_split(device) -> list[dict]:
 
     rng = np.random.default_rng(20121016)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if check_rule_plan(64, RULES_LIVE, 132)[:2] != (256, 21):
+    if check_topk_plan(64, RULES_LIVE, 132)[:2] != (256, 21):
         raise AssertionError("K6 plan: 64 slots against the rules phase's table on 132 SMs "
                              "is not 21 slices of one tile")
     W, off = 4, np.uint32(1 << 30)  # bit 30 of word 0: set where a rule must not fire
     records = []
     for S in RULES_SPLIT_S:
-        for live in RULES_PLAN_LIVE:
+        for live in TOPK_PLAN_LIVE:
             for n_sm in (1, 132, sms):
-                check_rule_plan(S, live, n_sm)
+                check_topk_plan(S, live, n_sm)
 
         def plan(live):
-            return check_rule_plan(S, live, sms)
+            return check_topk_plan(S, live, sms)
 
         whole = [L for L in range(2, 6145)
                  if plan(L)[1] > 1 and L % plan(L)[0] == 0]
@@ -1641,11 +1810,15 @@ def run_rules_phase(device) -> tuple[dict, dict, int]:
 
 def lm_reduced_prompts(vocab: int) -> list:
     """The reference CLI's default prompts ("1,2,3;4,5,6,7", as its parser
-    reads them) and one seeded prompt of 40 tokens, past the reduced window."""
+    reads them), one seeded prompt of 40 tokens, past the reduced window,
+    and four holding ids outside [0, vocab) (V, V + 5, -1, -V, -V - 3),
+    which the reference's embedding gather maps into the table."""
     import numpy as np
 
     cli = [[t % vocab for t in chunk] for chunk in ((1, 2, 3), (4, 5, 6, 7))]
-    return cli + [np.random.default_rng(LM_SEED + 1).integers(0, vocab, size=40).tolist()]
+    long = np.random.default_rng(LM_SEED + 1).integers(0, vocab, size=40).tolist()
+    V = vocab
+    return cli + [long, [V, 1], [V + 5, -1, 3], [-V, 7], [-V - 3, 9, 2]]
 
 
 def k7_launches() -> int:
@@ -2045,27 +2218,66 @@ def map_bound(args, kw):
 
 
 def filter_bound(args, kw):
-    """K4: per row the pad subtraction, the validity test and (iceberg) the
-    support test; for CbO, 3 operations per word up to each row's first
-    non-canonical word, only for rows still kept.  Bytes: the supports in
-    and out and the keep bytes; for CbO also gc, parent and lowrow."""
+    """K4 on K shards' partials: K - 1 ANDs per closure word and K - 1 adds
+    per support (the fold), and per candidate the pad subtraction, the
+    validity test and (iceberg) the support test; for CbO, 3 operations per
+    word up to each still-kept candidate's first non-canonical word.
+    Bytes: the partials and supports in, the closures (K > 1), supports and
+    keep bytes out, and for CbO the gens, and the parent and LOW rows of
+    the candidates still kept."""
     import torch
 
     from repro_torch.kernels import frontier as fk
 
-    gc, gs, sc = args
-    B, W = gc.shape
-    ops = 2 * B + (B if kw.get("iceberg") else 0)
-    nbytes = B * 4 * 2 + B + 4 * 4
+    lc, ls, sc = args
+    K = lc.shape[0] if lc.dim() == 3 else 1
+    B, W = lc.shape[-2:]
+    sup = ls is not None
+    ops = (K - 1) * B * W + ((K - 1) * B if sup else 0) + 2 * B
+    ops += B if kw.get("iceberg") else 0
+    nbytes = K * B * W * 4 + (K * B * 4 if sup else 0)  # in
+    nbytes += (B * W * 4 if K > 1 else 0) + (B * 4 if sup else 0) + B + 4 * 4  # out, scalars
     census = ops
     if kw.get("cbo"):
-        _, live = fk.filter_step_plain(gc, gs, sc, iceberg=kw.get("iceberg", False))
-        bad = ((gc ^ kw["parent"]) & kw["lowrow"]) != 0  # [B, W]
+        gc, _, live = fk.filter_step_plain(lc, ls, sc, iceberg=kw.get("iceberg", False))
+        gens, n_low = kw["gens"], kw["LOW"].shape[0]
+        live = live & (gens >= 0) & (gens < n_low)
+        lowrow = kw["LOW"][gens.long().clamp(0, n_low - 1)]
+        bad = ((gc ^ kw["parent"]) & lowrow) != 0  # [B, W]
         first = torch.where(bad.any(-1), bad.int().argmax(-1) + 1, W)
         ops += 3 * int(first[live].sum())
         census += 3 * B * W
-        nbytes += 3 * B * W * 4
-    return ops, nbytes, census, {"B": B, "W": W, "scalars": list(sc)}
+        n_live = int(live.sum())
+        nbytes += B * 4 + n_live * W * 4 + int(gens[live].unique().numel()) * W * 4
+    return ops, nbytes, census, {"K": K, "B": B, "W": W, "supports": sup,
+                                 "scalars": list(sc)}
+
+
+def parent_between_ms(args, kw) -> float:
+    """The torch ops the parent tree ran between K3 and K4 on a K4 chunk of
+    the k = 8 rsag runs, timed as ``time_kernels`` times a kernel: the
+    simulated rsag AND-allreduce of the partials, the support sum − n_pad
+    (iceberg), shard 0's copies of both, and CbO's ``LOW[gens]`` gather (or,
+    without iceberg, the zero supports it passed instead)."""
+    import torch
+
+    from repro_torch.dist import collectives
+
+    lc, ls, sc = args
+
+    def fn():
+        gc = collectives.and_allreduce(lc, collectives.SIM_AXIS, impl="rsag")[0]
+        gs = None
+        if kw.get("iceberg"):
+            gs = (collectives.sum_allreduce(ls, collectives.SIM_AXIS) - sc[2])[0]
+        if kw.get("cbo"):
+            lowrow = kw["LOW"][kw["gens"].long()]
+            if gs is None:
+                gs = torch.zeros(gc.shape[0], dtype=torch.int32, device=gc.device)
+            return gc, gs, lowrow
+        return gc, gs
+
+    return cuda_time_ms(fn)
 
 
 def first_fail_words(small, big, queries_small: bool) -> tuple[int, int]:
@@ -2215,6 +2427,11 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
         plain_ms = cuda_time_ms(lambda: plain(*args, **kw))
         unqueued_ms = cuda_time_ms(lambda: kern(*args, **kw), queued=False)
         scalars = {"fused_step": 3, "filter_step": 2}.get(name)
+        # K4: the parent's torch ops between K3 and K4 on the same chunks
+        between = {} if name != "filter_step" else {
+            "parent_between_ms": parent_between_ms(args, kw),
+            "run_parent_between_ms": sum(parent_between_ms(a, k) for _, a, k in chunks[name]),
+        }
         routes = {} if not tensor else {
             "tc_bound_ms": t_tc,
             "table_bound_ms": min(max(t_ops, t_bytes), t_tc),
@@ -2243,6 +2460,7 @@ def time_kernels(device, launches: dict, chunks: dict) -> list[dict]:
             },
             "int32_ops_per_s": rate,
             **routes,
+            **between,
         })
     return out
 
@@ -2302,9 +2520,10 @@ def main() -> int:
             raise AssertionError(f"stack or spills in {spilled}")
 
     t0 = time.perf_counter()
-    records = (check_kernels(device) + check_sharded_kernels(device) + check_tc_kernels(device)
-               + check_serve_kernels(device) + check_rules_split(device)
-               + check_attention_kernel(device)
+    records = (check_kernels(device) + check_sharded_kernels(device)
+               + check_filter_kernel(device) + check_tc_kernels(device)
+               + check_serve_kernels(device) + check_contains_split(device)
+               + check_rules_split(device) + check_attention_kernel(device)
                + check_attention_edges(device))
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
@@ -2312,7 +2531,8 @@ def main() -> int:
           "bit_exact": "K1-K6", "tc_edge_cases": {
               k: sum(r["kernel"] == k for r in records if r.get("tc_edge"))
               for k in ("closure", "map_closure", "fused_step")},
-          "k6_split_edge_cases": sum(bool(r.get("split_edge")) for r in records),
+          "split_edge_cases": {k: sum(r["kernel"] == k for r in records if r.get("split_edge"))
+                               for k in ("contains_topk", "rules_topk")},
           "k7_tolerance": K7_TOL,
           "k7_max_abs_err": {d: max((r["max_abs_err"] for r in records
                                      if r.get("dtype") == d), default=None) for d in K7_TOL},
@@ -2337,6 +2557,8 @@ def main() -> int:
     emit({"phase": "multi_shard_seconds", "seconds": time.perf_counter() - t0,
           "launches": multi_launches})
     add_runs(launches, chunks, multi_launches, multi_chunks)
+    emit({"phase": "gc_pauses", "timed_runs": len(GC_PAUSES),
+          "runs_with_gen12": [r for r in GC_PAUSES if r["gc_ms"][1] + r["gc_ms"][2] > 0]})
     t0 = time.perf_counter()
     run_full_lattices(device)
     emit({"phase": "full_lattice_seconds", "seconds": time.perf_counter() - t0})

@@ -19,7 +19,9 @@ per rank — same body, same collectives, bit-identical arithmetic.
 (canonicity, feasibility, dedupe, iceberg cut) that consumes the global
 closures; ``spmd_step_fused`` builds the same rounds for the frontier
 step variants out of the fused kernels: K2 (closure → support → driver
-filter in one pass) on one shard, K3 → AND-allreduce → K4 on k > 1.
+filter in one pass) on one shard, K3 → K4 on k > 1 (K4 folding the
+simulated shards' partials itself; a process-group rank runs the
+AND-allreduce between the two).
 Supports are corrected globally: all-ones padding rows match every
 candidate, so ``supports -= n_pad`` after the sum.
 """
@@ -203,11 +205,15 @@ class ClosureEngine:
     #   n_parts == 1 — the local closure IS the global closure, so K2
     #     computes closure → support → driver filter in one pass; no
     #     collective runs (the size-1 AND-allreduce is the identity).
-    #   n_parts > 1 — the filter needs the *global* closure, which exists
-    #     only after the AND-allreduce, so the round is K3 (the attribute
-    #     mask folded in: masked locals AND-reduce to the masked global) →
-    #     the collectives → K4 (the keep mask; the supports arrive already
-    #     corrected, so K4 runs with n_pad = 0).
+    #   n_parts > 1 — the filter needs the *global* closure, the AND of the
+    #     shards' local closures, so the round is K3 (the attribute mask
+    #     folded in: masked locals AND-reduce to the masked global) → K4.
+    #     On a simulated plan K4 takes K3's [K, B, W] / [K, B] partials and
+    #     does the AND over the shards and the support sum itself: on one
+    #     card that fold is the AND-allreduce, bit for bit under every
+    #     schedule (the census stays analytic, ``charge_round``).  On a
+    #     process group each rank runs the plan's collectives between K3
+    #     and K4, which then takes the reduced operands at K = 1.
     #
     # Survivor compaction stays in torch and consumes only the keep mask:
     # identical masks in, identical order out, which is what makes the
@@ -224,102 +230,66 @@ class ClosureEngine:
         mask = self.mask[None, :]
         n_pad = self.n_pad_rows
 
-        def compact_out(keep, gc):
-            n, gc = _sort_unique(gc, keep) if unique else _compact(keep, gc)
-            return gc, n
-
-        if plan.n_parts == 1:
-            W = ctx.W
-
-            def k2(rows, cands, sc, **kw):
-                # one shard: a simulated [1, N, W] or a group rank's [N, W]
-                return fkern.fused_step(rows.reshape(-1, W), cands, mask, sc, **kw)
+        def step_for(run):
+            """The variant's step around ``run(rows, cands, scalars,
+            parent=, gens=) -> (closures, keep)``."""
+            def scalars(n_valid, ms):
+                return fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
 
             if variant == "plain":
 
                 def plain(rows, cands):
-                    gc, _, _ = k2(rows, cands, fkern.pack_scalars(0, 0, n_pad, 0))
-                    return gc
+                    return run(rows, cands, scalars(0, ()))[0]
 
                 return plain
 
             if cbo:
 
                 def cbo_step(rows, cands, parents, gens, n_valid, *ms):
-                    sc = fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
-                    gc, _, keep = k2(
-                        rows, cands, sc, parent=parents, lowrow=LOW[gens.long()],
-                        iceberg=iceberg, cbo=True,
-                    )
+                    gc, keep = run(rows, cands, scalars(n_valid, ms), parent=parents, gens=gens)
                     n, gc, gens = _compact(keep, gc, gens)
                     return gc, gens, n
 
                 return cbo_step
 
             def filter_step(rows, cands, n_valid, *ms):
-                sc = fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, 0)
-                gc, _, keep = k2(rows, cands, sc, iceberg=iceberg)
-                return compact_out(keep, gc)
+                gc, keep = run(rows, cands, scalars(n_valid, ms))
+                n, gc = _sort_unique(gc, keep) if unique else _compact(keep, gc)
+                return gc, n
 
             return filter_step
 
-        # multi-shard: K3 → collectives → K4
+        if plan.n_parts == 1:
+
+            def k2(rows, cands, sc, parent=None, gens=None):
+                # one shard: a simulated [1, N, W] or a group rank's [N, W]
+                kw = {"parent": parent, "lowrow": LOW[gens.long()]} if cbo else {}
+                gc, _, keep = fkern.fused_step(rows.reshape(-1, ctx.W), cands, mask, sc,
+                                               iceberg=iceberg, cbo=cbo, **kw)
+                return gc, keep
+
+            return step_for(k2)
+
+        def k3_k4(reduce):
+            def run(rows, cands, sc, parent=None, gens=None):
+                lc, ls = reduce(*fkern.map_closure(rows, cands, mask))
+                kw = {"parent": parent, "LOW": LOW, "gens": gens} if cbo else {}
+                gc, _, keep = fkern.filter_step(lc, ls if iceberg else None, sc,
+                                                iceberg=iceberg, cbo=cbo, **kw)
+                return gc, keep
+
+            return step_for(run)
+
+        if plan.is_simulated:  # K4 folds the shards' partials
+            return k3_k4(lambda lc, ls: (lc, ls))
         axes = plan.reduce_axes
 
         def make(impl):
-            def body(rows_local, cands):
-                lc, ls = fkern.map_closure(rows_local, cands, mask)
+            def reduce(lc, ls):
                 gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=ctx.n_attrs)
-                if iceberg:
-                    return gc, collectives.sum_allreduce(ls, axes) - n_pad
-                return gc
+                return gc.contiguous(), collectives.sum_allreduce(ls, axes) if iceberg else None
 
-            if variant == "plain":
-                return plan.spmd(body, n_rep=1)
-
-            if cbo:
-                if iceberg:
-
-                    def post(gc, gs, parents, gens, n_valid, min_sup):
-                        _, keep = fkern.filter_step(
-                            gc, gs, fkern.pack_scalars(n_valid, min_sup, 0, 0),
-                            parent=parents, lowrow=LOW[gens.long()],
-                            iceberg=True, cbo=True,
-                        )
-                        n, gc, gens = _compact(keep, gc, gens)
-                        return gc, gens, n
-
-                    n_extra = 4
-                else:
-
-                    def post(gc, parents, gens, n_valid):
-                        _, keep = fkern.filter_step(
-                            gc, torch.zeros(gc.shape[0], dtype=torch.int32, device=gc.device),
-                            fkern.pack_scalars(n_valid, 0, 0, 0),
-                            parent=parents, lowrow=LOW[gens.long()], cbo=True,
-                        )
-                        n, gc, gens = _compact(keep, gc, gens)
-                        return gc, gens, n
-
-                    n_extra = 3
-            elif iceberg:
-
-                def post(gc, gs, n_valid, min_sup):
-                    _, keep = fkern.filter_step(
-                        gc, gs, fkern.pack_scalars(n_valid, min_sup, 0, 0), iceberg=True
-                    )
-                    return compact_out(keep, gc)
-
-                n_extra = 2
-            else:  # unique — its keep mask is validity alone: no K4
-
-                def post(gc, n_valid):
-                    keep = torch.arange(gc.shape[0], device=gc.device) < n_valid
-                    return compact_out(keep, gc)
-
-                n_extra = 1
-
-            return plan.spmd(body, n_rep=1, post=post, n_post_rep=n_extra)
+            return k3_k4(reduce)
 
         return self._dispatch(make)
 

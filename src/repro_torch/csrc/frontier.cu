@@ -1,5 +1,6 @@
 // The closure kernels: K1, K2 and K3 (one closure body, three epilogues)
-// and K4, hand-written for Hopper (sm_90a), one source and one build.
+// and K4 (the shards' fold and the filter), hand-written for Hopper
+// (sm_90a), one source and one build.
 //
 // K1 — the batched closure.
 //
@@ -51,8 +52,8 @@
 // absent <= N fit s32, so any accumulation order gives the same bits.
 //
 // What the design does about it: closure_tc_kernel below, for W <=
-// TCF_MAX_W words; wider rows take the SIMT body (closure_accumulate in
-// closure_common.cuh), chosen by W alone in the launchers.
+// TCF_MAX_W words; wider rows take the SIMT body (closure_accumulate
+// below), chosen by W alone in the launchers.
 //   * One CTA owns 128 candidates (two consumer warpgroups of 64) and a
 //     range of rows of one shard; a producer warpgroup feeds a ring of
 //     64-row stages.  The candidates' plane C is unpacked once per CTA.
@@ -85,14 +86,118 @@
 //     their identities first (exact in any order), and for K2 the last
 //     CTA of a candidate tile (an arrival counter in wrapper scratch)
 //     runs the keep test.
-#include "closure_common.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "hopper.cuh"
 
 // ---------------------------------------------------------------------------
-// The SIMT bodies, for W > TCF_MAX_W (one CTA per 8 candidates and shard,
-// warp ballot + __reduce_and_sync, the epilogue on the shared
-// accumulators)
-// ---------------------------------------------------------------------------
+// The SIMT closure body, which K1, K2 and K3 take for rows wider than
+// TCF_MAX_W words (for W <= TCF_MAX_W they take the tensor-core body
+// below).
+//
+// Bitsets are uint32 words (PyTorch stores them as int32; the bits are the
+// same).  A CTA owns CLOSURE_GROUP consecutive candidates and walks every
+// context row in tiles of blockDim.x rows, one row per thread:
+//
+//   1. each thread tests its row against each candidate
+//      (match = all_w((row & cand) == cand), early exit on the first word
+//      that fails) and the warp ballots the match bits;
+//   2. for every candidate with a match in the warp, the warp ANDs the
+//      matching rows word by word with __reduce_and_sync (non-matching
+//      lanes contribute the identity 0xFFFFFFFF) and counts the matches
+//      with __popc of the ballot; lane 0 folds both into the CTA's
+//      accumulators in shared memory with shared-memory atomics.
+//
+// The row loop inside the CTA takes the place of the TPU kernel's
+// sequential N grid axis; nothing carries over between CTAs, so every CTA
+// writes its own candidates' outputs and no cross-CTA pass is needed.
+// Candidate words and accumulators live in dynamic shared memory:
+// (2 * CLOSURE_GROUP * W + 2 * CLOSURE_GROUP) words, which bounds W by the
+// card's shared memory per block (3631 words, 116,192 attributes, under the
+// H100's 227 KB); frontier_simt_max_w() gives the bound of the card in use,
+// and the Python wrappers raise above it.
+
+#define CLOSURE_THREADS 256
+#define CLOSURE_GROUP 8
+#define FULL_WORD 0xffffffffu
+
+// Bytes of dynamic shared memory one CTA needs for word width W.
+static inline size_t closure_smem_bytes(int W) {
+    return (size_t)(2 * CLOSURE_GROUP * W + 2 * CLOSURE_GROUP) * sizeof(uint32_t);
+}
+
+struct ClosureSmem {
+    uint32_t* cand;  // [CLOSURE_GROUP * W] the CTA's candidates
+    uint32_t* acc;   // [CLOSURE_GROUP * W] AND of the matching rows
+    unsigned* sup;   // [CLOSURE_GROUP]     number of matching rows
+    unsigned* flag;  // [CLOSURE_GROUP]     epilogue scratch (fused step)
+};
+
+// Carve the shared buffers and load the CTA's candidates; initialise the
+// accumulators to the AND identity and the counts to zero.
+__device__ __forceinline__ ClosureSmem closure_setup(
+    uint32_t* smem, const uint32_t* __restrict__ cands, int b0, int G, int W)
+{
+    ClosureSmem s;
+    s.cand = smem;
+    s.acc = smem + CLOSURE_GROUP * W;
+    s.sup = smem + 2 * CLOSURE_GROUP * W;
+    s.flag = s.sup + CLOSURE_GROUP;
+    const uint32_t* src = cands + (size_t)b0 * W;
+    for (int i = threadIdx.x; i < G * W; i += blockDim.x) {
+        s.cand[i] = src[i];
+        s.acc[i] = FULL_WORD;
+    }
+    for (int i = threadIdx.x; i < CLOSURE_GROUP; i += blockDim.x) {
+        s.sup[i] = 0u;
+        s.flag[i] = 0u;
+    }
+    __syncthreads();
+    return s;
+}
+
+// Fold every matching row of rows[N, W] into s.acc / s.sup for the CTA's
+// G candidates.  Every lane of a warp runs the same number of iterations
+// (the row bound is a predicate, not a loop exit), as the warp-wide
+// ballot and reductions require.
+__device__ __forceinline__ void closure_accumulate(
+    const uint32_t* __restrict__ rows, int N, int W, int G, ClosureSmem s)
+{
+    const int lane = threadIdx.x & 31;
+    for (int base = 0; base < N; base += blockDim.x) {
+        const int row = base + threadIdx.x;
+        const bool in = row < N;
+        const uint32_t* r = rows + (size_t)(in ? row : 0) * W;
+        for (int g = 0; g < G; ++g) {
+            const uint32_t* c = s.cand + g * W;
+            bool m = in;
+            for (int w = 0; m && w < W; ++w) {
+                const uint32_t cw = c[w];
+                m = (__ldg(r + w) & cw) == cw;
+            }
+            const unsigned ballot = __ballot_sync(FULL_WORD, m);
+            if (ballot == 0u) continue;  // uniform across the warp
+            if (lane == 0) atomicAdd(s.sup + g, (unsigned)__popc(ballot));
+            for (int w = 0; w < W; ++w) {
+                const uint32_t v = m ? __ldg(r + w) : FULL_WORD;
+                const uint32_t folded = __reduce_and_sync(FULL_WORD, v);
+                if (lane == 0) atomicAnd(s.acc + g * W + w, folded);
+            }
+        }
+    }
+    __syncthreads();
+}
+
+// Allow more than 48 KB of dynamic shared memory where W needs it.
+template <typename Kernel>
+static inline cudaError_t closure_smem_attr(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The SIMT epilogues: K2's on the shared accumulators, K3's (and K1's) plain.
 
 template <bool ICEBERG, bool CBO>
 __global__ void __launch_bounds__(CLOSURE_THREADS)
@@ -644,6 +749,21 @@ static int launch_fused(const void* rows, const void* cands, const void* mask,
 // `arrived` scratch is ceil(B / this)).
 extern "C" int frontier_tc_cands() { return TCF_CANDS; }
 
+// The widest rows, in words, the SIMT body takes on the current device:
+// its candidates and accumulators (closure_smem_bytes) in the shared
+// memory one block may opt in to.  Returns 0, or the CUDA error of the
+// device query.
+extern "C" int frontier_simt_max_w(int* max_w)
+{
+    int dev = 0, smem = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    *max_w = (int)((smem / sizeof(uint32_t) - 2 * CLOSURE_GROUP) / (2 * CLOSURE_GROUP));
+    return 0;
+}
+
 // K2.  rows [N, W], cands [B, W], mask [W], parent/lowrow [B, W] (CbO
 // only, else null) → out_c [B, W], out_s [B], keep [B] (bool bytes);
 // arrived: int32 scratch [ceil(B / TCF_CANDS)] for W <= TCF_MAX_W, else
@@ -716,91 +836,150 @@ extern "C" int closure_launch(const void* rows, const void* cands, void* out_c,
 }
 
 // ---------------------------------------------------------------------------
-// K4 — the filter half of a multi-shard round, hand-written for Hopper.
+// K4 — the filter half of a multi-shard round, with the simulated shards'
+// fold in its body.
 //
 // Replaces: src/repro/kernels/frontier.py:filter_call (body
-// _filter_kernel, _keep_mask, _row_valid).  After the AND-allreduce and
-// the support sum, per candidate b:
-//   support[b] = gs[b] - n_pad
+// _filter_kernel, _keep_mask, _row_valid) and, on a simulated plan, the
+// AND-allreduce, the support psum and the LOW[gens] gather the reference
+// runs in front of it (src/repro/core/engine.py, spmd_step_fused's
+// multi-shard body and posts).  From K3's per-shard partials lc [K][B][W]
+// and ls [K][B] (K >= 1), per candidate b:
+//   gc[b]      = AND over k of lc[k][b]        (K = 1: lc itself, not copied)
+//   support[b] = Σ over k of ls[k][b] − n_pad  (where ls is given)
 //   keep[b]    = (b + row_off < n_valid)
 //                && (!ICEBERG || support[b] >= min_sup)
-//                && (!CBO || ((gc[b] ^ parent[b]) & lowrow[b]) == 0)
-// n_valid, min_sup, n_pad and row_off are plain int launch arguments, so
-// nothing is rebuilt per threshold; ICEBERG and CBO are template
-// parameters.  The engine passes n_pad = 0: the supports arrive already
-// corrected, as in the reference.
+//                && (!CBO || ((gc[b] ^ parent[b]) & LOW[gens[b]]) == 0)
+// A process-group rank calls it at K = 1, on the closures and supports its
+// collectives reduced.  On one card nothing crosses a wire, so on a
+// simulated plan the AND-allreduce is this fold over the leading axis; AND
+// and the int32 sum are exact in any order, so the result is the
+// collectives' bit for bit, whatever their schedule.  n_valid, min_sup,
+// n_pad and row_off are plain int launch arguments, so nothing is rebuilt
+// per threshold; ICEBERG and CBO are template parameters.  A gens entry
+// outside [0, n_low) drops its candidate, as the plain version does (the
+// frontier never sends one).
 //
-// What bounds it on the H100: memory.  It reads B*(W + 1) words (3*B*W + B
-// for CbO) and writes B words and B bytes, with a handful of operations
-// per word.  What the design does about it: one thread per candidate row,
-// so each row is read once; the CbO test stops at the first word that
-// fails and is skipped for rows already out.  At the main path's batches
-// (B <= 8192) the launch is latency, not bandwidth.
+// What bounds it on the H100: memory.  It reads K*B*(W + 1) words (plus
+// B*W parent words, B gens and the LOW rows gathered, for CbO) and writes
+// B*W closure words (K > 1), B supports and B keep bytes, with K - 1 ANDs
+// per word: at the main path's largest chunk (K = 8, B = 8192, W = 5)
+// about 1.7 MB, half a microsecond at 3.35 TB/s, so the launch is latency.
+// What the design does about it: every load of a candidate is issued at
+// once, across lanes, not as one thread's dependent chain.  A segment of
+// L = min(32, next power of two >= W) lanes owns one candidate (32 / L
+// candidates a warp, the grid covering B*L threads: 128 CTAs at B = 8192,
+// W = 4); lane j takes words j, j + L, ... and folds their K partials in
+// registers (four loads in flight at a time), and the K supports j, j + L,
+// ... which a shuffle sum over the segment adds up.  Every lane then knows
+// the validity and iceberg tests; only candidates they keep read parent and
+// their LOW row, and the CbO test is a ballot over the segment's lanes.
 // ---------------------------------------------------------------------------
 
 #define FILTER_THREADS 256
 
 template <bool ICEBERG, bool CBO>
 __global__ void __launch_bounds__(FILTER_THREADS)
-filter_kernel(const uint32_t* __restrict__ gc,
-              const int* __restrict__ gs,
+filter_kernel(const uint32_t* __restrict__ lc,
+              const int* __restrict__ ls,
               const uint32_t* __restrict__ parent,
-              const uint32_t* __restrict__ lowrow,
+              const uint32_t* __restrict__ low,
+              const int* __restrict__ gens,
+              uint32_t* __restrict__ gc,
               int* __restrict__ out_s,
               uint8_t* __restrict__ keep,
-              int B, int W, int n_valid, int min_sup, int n_pad, int row_off)
+              int K, int B, int W, int L, int n_low,
+              int n_valid, int min_sup, int n_pad, int row_off)
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int sup = gs[b] - n_pad;
-    out_s[b] = sup;
-    bool k = b + row_off < n_valid;
-    if (ICEBERG) k = k && sup >= min_sup;
-    if (CBO && k) {
-        const size_t o = (size_t)b * W;
-        for (int w = 0; w < W; ++w) {
-            if (((gc[o + w] ^ parent[o + w]) & lowrow[o + w]) != 0u) {
-                k = false;  // not canonical
-                break;
-            }
+    // no early exit: every lane reaches the segment's shuffles and ballot
+    const int lane = threadIdx.x & 31, j = lane & (L - 1);
+    const long b = ((long)blockIdx.x * FILTER_THREADS + threadIdx.x) / L;
+    const bool in = b < B;
+    const size_t plane = (size_t)B * W;  // one shard's partial closures
+
+    int sup = 0;
+    if (ls != nullptr) {
+        if (in)
+            for (int k = j; k < K; k += L) sup += __ldg(ls + (size_t)k * B + b);
+        for (int off = L >> 1; off > 0; off >>= 1)
+            sup += __shfl_xor_sync(FULL_WORD, sup, off);
+        sup -= n_pad;
+    }
+    bool kept = in && b + row_off < n_valid;
+    if (ICEBERG) kept = kept && sup >= min_sup;
+
+    const uint32_t* lowrow = nullptr;
+    if (CBO && kept) {
+        const int g = __ldg(gens + b);
+        if (g >= 0 && g < n_low) lowrow = low + (size_t)g * W;
+        else kept = false;
+    }
+    bool bad = false;
+    if (in && (K > 1 || (CBO && kept))) {
+        for (int w = j; w < W; w += L) {
+            const uint32_t* p = lc + (size_t)b * W + w;
+            uint32_t x = __ldg(p);
+            int s = 1;
+            for (; s + 4 <= K; s += 4)
+                x &= __ldg(p + s * plane) & __ldg(p + (s + 1) * plane) &
+                     __ldg(p + (s + 2) * plane) & __ldg(p + (s + 3) * plane);
+            for (; s < K; ++s) x &= __ldg(p + s * plane);
+            if (K > 1) gc[(size_t)b * W + w] = x;
+            if (CBO && kept && ((x ^ __ldg(parent + (size_t)b * W + w)) & __ldg(lowrow + w)) != 0u)
+                bad = true;  // not canonical
         }
     }
-    keep[b] = k ? 1 : 0;
+    if (CBO) {
+        const unsigned seg = L == 32 ? FULL_WORD : ((1u << L) - 1u) << (lane & ~(L - 1));
+        if (__ballot_sync(FULL_WORD, bad) & seg) kept = false;
+    }
+    if (in && j == 0) {
+        if (ls != nullptr) out_s[b] = sup;
+        keep[b] = kept ? 1 : 0;
+    }
 }
 
 template <bool ICEBERG, bool CBO>
-static int launch_filter(const void* gc, const void* gs, const void* parent,
-                         const void* lowrow, void* out_s, void* keep,
-                         int B, int W, int n_valid, int min_sup, int n_pad,
-                         int row_off, cudaStream_t stream)
+static int launch_filter(const void* lc, const void* ls, const void* parent, const void* low,
+                         const void* gens, void* gc, void* out_s, void* keep,
+                         int K, int B, int W, int n_low, int n_valid, int min_sup,
+                         int n_pad, int row_off, cudaStream_t stream)
 {
-    const int grid = (B + FILTER_THREADS - 1) / FILTER_THREADS;
-    filter_kernel<ICEBERG, CBO><<<grid, FILTER_THREADS, 0, stream>>>(
-        (const uint32_t*)gc, (const int*)gs, (const uint32_t*)parent,
-        (const uint32_t*)lowrow, (int*)out_s, (uint8_t*)keep,
-        B, W, n_valid, min_sup, n_pad, row_off);
+    int L = 1;
+    while (L < W && L < 32) L <<= 1;
+    const long threads = (long)B * L;
+    const long grid = (threads + FILTER_THREADS - 1) / FILTER_THREADS;
+    if (grid > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
+    filter_kernel<ICEBERG, CBO><<<(unsigned)grid, FILTER_THREADS, 0, stream>>>(
+        (const uint32_t*)lc, (const int*)ls, (const uint32_t*)parent, (const uint32_t*)low,
+        (const int*)gens, (uint32_t*)gc, (int*)out_s, (uint8_t*)keep,
+        K, B, W, L, n_low, n_valid, min_sup, n_pad, row_off);
     return (int)cudaGetLastError();
 }
 
-// gc [B, W], gs [B], parent/lowrow [B, W] (CbO only, else null) →
-// out_s [B], keep [B] (bool bytes); B >= 1.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
-extern "C" int filter_launch(const void* gc, const void* gs,
-                             const void* parent, const void* lowrow,
-                             void* out_s, void* keep, int B, int W,
+// K4.  lc [K, B, W] and ls [K, B] (null: no supports; iceberg needs them)
+// → gc [B, W] (K > 1 only; at K = 1 the closures are lc), out_s [B] (with
+// ls) and keep [B] (bool bytes); CbO also reads parent [B, W], gens [B]
+// and LOW [n_low, W].  K, B, W >= 1.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for operands
+// the variant needs and did not get.
+extern "C" int filter_launch(const void* lc, const void* ls, const void* parent,
+                             const void* low, const void* gens, void* gc, void* out_s,
+                             void* keep, int K, int B, int W, int n_low,
                              int n_valid, int min_sup, int n_pad, int row_off,
                              int iceberg, int cbo, void* stream)
 {
+    if (K < 1 || B < 1 || W < 1 || (K > 1 && gc == nullptr) ||
+        (ls == nullptr) != (out_s == nullptr) || (iceberg && ls == nullptr) ||
+        (cbo && (parent == nullptr || low == nullptr || gens == nullptr || n_low < 1)))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (iceberg && cbo)
-        return launch_filter<true, true>(gc, gs, parent, lowrow, out_s, keep, B,
-                                         W, n_valid, min_sup, n_pad, row_off, st);
-    if (iceberg)
-        return launch_filter<true, false>(gc, gs, parent, lowrow, out_s, keep, B,
-                                          W, n_valid, min_sup, n_pad, row_off, st);
-    if (cbo)
-        return launch_filter<false, true>(gc, gs, parent, lowrow, out_s, keep, B,
-                                          W, n_valid, min_sup, n_pad, row_off, st);
-    return launch_filter<false, false>(gc, gs, parent, lowrow, out_s, keep, B, W,
-                                       n_valid, min_sup, n_pad, row_off, st);
+#define FILTER_CASE(I, C)                                                                  \
+    return launch_filter<I, C>(lc, ls, parent, low, gens, gc, out_s, keep, K, B, W, n_low, \
+                               n_valid, min_sup, n_pad, row_off, st)
+    if (iceberg && cbo) FILTER_CASE(true, true);
+    if (iceberg) FILTER_CASE(true, false);
+    if (cbo) FILTER_CASE(false, true);
+    FILTER_CASE(false, false);
+#undef FILTER_CASE
 }

@@ -43,27 +43,28 @@
 // one after the other, and how many SMs hold a CTA.
 //
 // What the design does about it: one warp per query, SERVE_WARPS queries
-// per CTA.  The table is streamed through shared memory in tiles of
-// TILE_ROWS rows x TILE_WORDS words (rows padded to an odd stride, so the
-// 32 lanes of a warp read 32 banks), and every query of the CTA tests the
-// whole tile: each table word is read from device memory once per CTA.
-// Each lane owns rows lane, lane + 32, ... of the tile and keeps a sorted
-// local top-k of its hits (in local memory; rows arrive in ascending
-// order, so ties need no index compare in K5); after the last tile the
-// warp merges the 32 local lists in kp rounds of a shuffle argmax.  Rows
-// at or past the live count are never read.
-//   * K5: one CTA per query block walks the whole table.
-//   * K6 splits the live table across a second grid axis as well, into up
-//     to SERVE_MAX_SLICES slices sized so that query blocks x slices put
-//     about two CTAs on every SM (rules_topk_plan; at S = 64 and 5,355
-//     live rules: 8 x 21 CTAs of one tile each).  Each CTA applies the
-//     cursor filter and the confidence test to its slice and ORs the
-//     consequent words of its firing rules (__reduce_or_sync per warp,
-//     then one atomicOr per word into the union row, zeroed by the
-//     launcher before pass 0); its top kp per query go to scratch, and the
-//     query block's last CTA to arrive merges the slices' lists in kp more
-//     rounds of the shuffle argmax.  Positions are unique, so the merge
-//     keeps the total order exactly.
+// per CTA, and the live table split across a second grid axis into up to
+// SERVE_MAX_SLICES slices, sized so that query blocks x slices put about
+// two CTAs on every SM (topk_plan, one plan for both kernels; at S = 64
+// slots: 8 x 17 CTAs of one tile each against K5's 4,282 live intents, 8 x
+// 21 against K6's 5,355 live rules).  Each CTA streams its slice through
+// shared memory in tiles of TILE_ROWS rows x TILE_WORDS words (rows padded
+// to an odd stride, so the 32 lanes of a warp read 32 banks), and every
+// query of the CTA tests the whole tile: each table word is read from
+// device memory once per query block.  Each lane owns rows lane, lane +
+// 32, ... of the tile and keeps a sorted local top-k of its hits (in local
+// memory; rows arrive in ascending order, so K5's ties need no index
+// compare); after its slice the warp merges the 32 local lists in kp
+// rounds of a shuffle argmax (warp_select, in the kernel's order) and
+// writes its query's top kp to scratch.  The query block's last CTA to
+// arrive (an arrival counter after a __threadfence) merges the slices'
+// lists, lane l holding slice l's, in kp more rounds of warp_select; one
+// slice takes the same path.  Indices (K5) and positions (K6) are unique,
+// so the merges keep the total order exactly.  Every slice applies a later
+// pass's cursor filter itself.  Rows at or past the live count are never
+// read.  K6 also applies the confidence test and ORs the consequent words
+// of its firing rules (__reduce_or_sync per warp, then one atomicOr per
+// word into the union row, zeroed by the launcher before pass 0).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -134,6 +135,102 @@ __device__ __forceinline__ uint32_t tile_fail(ServeSmem& sm,
 }
 
 // ---------------------------------------------------------------------------
+// What K5 and K6 share: the split of the table and the warp's selection
+//
+// grid = (query blocks of SERVE_WARPS, slices of the live table); a slice
+// is `slice_rows` rows, planned from the live count and the SM count by
+// topk_plan.  Each CTA writes its slice's top kp per query to `part`
+// [S][nslice][kp] (past its hits, the kernel's empty entry), and the last
+// CTA of a query block to arrive (`arrived`, zeroed by the launcher)
+// merges the nslice lists of each of its queries.
+// ---------------------------------------------------------------------------
+
+#define SERVE_MAX_SLICES 32  // one slice per lane of the merging warp
+#define SERVE_CTAS_PER_SM 2  // the plan's target: query blocks x slices per SM
+
+// The orders of the top-k selections, on (value, key, position) triples
+// with unique positions.  K5: support descending, then concept index
+// ascending (its key and position are both the index; supports compare as
+// int32, exactly).  K6: metric descending, then rule id ascending, then
+// table position ascending (the order of the reference's k selection
+// passes).
+struct ContainsOrder {
+    __device__ __forceinline__ bool operator()(int av, int ai, int, int bv, int bi, int) const
+    {
+        return av > bv || (av == bv && ai < bi);
+    }
+};
+
+struct RuleOrder {
+    __device__ __forceinline__ bool operator()(float av, int ar, int ap, float bv, int br,
+                                               int bp) const
+    {
+        return av > bv || (av == bv && (ar < br || (ar == br && ap < bp)));
+    }
+};
+
+// kp rounds of a warp-wide argmax in the order `before` over the lanes'
+// sorted lists: head(p, v, r, q) loads entry p of this lane's list ((-1,
+// INT_MAX, INT_MAX) past its end), and emit(t, hit, v, r, q) takes the
+// t-th winner (hit: a real entry, v >= 0) on every lane.
+template <typename V, typename Before, typename Head, typename Emit>
+__device__ __forceinline__ void warp_select(int kp, Before before, Head head, Emit emit)
+{
+    int p = 0, hr, hp;
+    V hv;
+    head(0, hv, hr, hp);
+    for (int t = 0; t < kp; ++t) {
+        V bv = hv;
+        int br = hr, bp = hp;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const V ov = __shfl_xor_sync(FULL_MASK, bv, off);
+            const int orr = __shfl_xor_sync(FULL_MASK, br, off);
+            const int op = __shfl_xor_sync(FULL_MASK, bp, off);
+            if (before(ov, orr, op, bv, br, bp)) { bv = ov; br = orr; bp = op; }
+        }
+        const bool hit = bv >= V(0);
+        if (hit && hp == bp) head(++p, hv, hr, hp);  // this lane's head won
+        emit(t, hit, bv, br, bp);
+    }
+}
+
+// The query block's last CTA to arrive, after every CTA wrote its lists:
+// true on every thread of that CTA.
+__device__ __forceinline__ bool last_to_arrive(int* arrived, int nslice)
+{
+    __shared__ int last_cta;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last_cta = atomicAdd(arrived + blockIdx.x, 1) == nslice - 1;
+    __syncthreads();
+    if (last_cta) __threadfence();
+    return last_cta;
+}
+
+// The plan of K5 and K6 for S queries against `live` table rows on a card
+// of `sms` SMs:
+// rows [0, live) split into *nslice slices of *slice_rows rows (whole
+// tiles), as many as put about SERVE_CTAS_PER_SM CTAs on each SM beside
+// the *blocks query blocks, at most one per tile and SERVE_MAX_SLICES,
+// and at least one (live <= 0 included).  Every live row lies in exactly
+// one slice.  The caller sizes the launch's scratch from it.
+extern "C" void topk_plan(int S, int live, int sms, int* slice_rows, int* nslice,
+                                int* blocks)
+{
+    const long tiles = live > 0 ? ((long)live + TILE_ROWS - 1) / TILE_ROWS : 0;
+    *blocks = (S + SERVE_WARPS - 1) / SERVE_WARPS;
+    const long b = *blocks > 1 ? *blocks : 1;
+    const long fill = ((long)SERVE_CTAS_PER_SM * sms + b - 1) / b;
+    long want = tiles < SERVE_MAX_SLICES ? tiles : SERVE_MAX_SLICES;
+    want = fill < want ? fill : want;
+    if (want < 1) want = 1;
+    const long tps = tiles > 0 ? (tiles + want - 1) / want : 1;
+    *slice_rows = (int)(tps * TILE_ROWS);
+    *nslice = tiles > 0 ? (int)((tiles + tps - 1) / tps) : 1;
+}
+
+// ---------------------------------------------------------------------------
 // K5
 // ---------------------------------------------------------------------------
 
@@ -143,13 +240,18 @@ contains_topk_kernel(const uint32_t* __restrict__ gc,
                      const uint32_t* __restrict__ intents,
                      const int* __restrict__ supports,
                      int* __restrict__ out_i, int* __restrict__ out_v,
-                     int S, int limit, int W, int k, int k0, int kp)
+                     int2* __restrict__ part, int* __restrict__ arrived,
+                     int S, int limit, int W, int k, int k0, int kp, int slice_rows)
 {
     __shared__ ServeSmem sm;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int s0 = blockIdx.x * SERVE_WARPS;
     const int s = s0 + warp;
     const bool active = s < S;
+    const int nslice = gridDim.y, slice = blockIdx.y;
+    const long r_lo = (long)slice * slice_rows;
+    const long r_end = r_lo + slice_rows;
+    const int r_hi = r_end < limit ? (int)r_end : limit;
     // the last winner of the previous pass: only entries after it count
     // (-1 after a pass that ran out of hits: then nothing is after it)
     int cv = INT_MAX_, ci = -1;
@@ -160,14 +262,14 @@ contains_topk_kernel(const uint32_t* __restrict__ gc,
 
     int lv[KMAX], li[KMAX];  // this lane's hits: support desc, index asc
     int cnt = 0;
-    for (long r0 = 0; r0 < limit; r0 += TILE_ROWS) {
-        const uint32_t fail = tile_fail<false>(sm, intents, gc, r0, limit, s0, S, W,
+    for (long r0 = r_lo; r0 < r_hi; r0 += TILE_ROWS) {
+        const uint32_t fail = tile_fail<false>(sm, intents, gc, r0, r_hi, s0, S, W,
                                                active, warp, lane);
         if (!active) continue;
 #pragma unroll
         for (int i = 0; i < ROWS_PER_LANE; ++i) {
             const long r = r0 + 32 * i + lane;
-            if (r >= limit || (fail & (1u << i))) continue;
+            if (r >= r_hi || (fail & (1u << i))) continue;
             const int v = supports[r];
             if (v < 0 || (cnt == kp && v <= lv[kp - 1])) continue;
             if (LATER && (v > cv || (v == cv && r <= ci))) continue;  // taken in an earlier pass
@@ -178,55 +280,74 @@ contains_topk_kernel(const uint32_t* __restrict__ gc,
             li[j] = (int)r;
         }
     }
-    if (!active) return;
-    int p = 0;
-    for (int t = 0; t < kp; ++t) {
-        const bool has = p < cnt;
-        int bv = has ? lv[p] : -1, bi = has ? li[p] : INT_MAX_;
-        const int mv = bv, mi = bi;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const int ov = __shfl_xor_sync(FULL_MASK, bv, off);
-            const int oi = __shfl_xor_sync(FULL_MASK, bi, off);
-            if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-        }
-        if (bv < 0) bi = -1;
-        else if (has && mi == bi && mv == bv) ++p;  // indices are unique
-        if (lane == 0) {
-            out_i[(long)s * k + k0 + t] = bi;
-            out_v[(long)s * k + k0 + t] = bv < 0 ? -1 : bv;
-        }
+
+    if (active) {
+        // the 32 lanes' lists → this CTA's top kp of each query, to scratch
+        int2* mine = part + ((long)s * nslice + slice) * kp;
+        warp_select<int>(kp, ContainsOrder(), [&](int p, int& v, int& i, int& q) {
+            const bool has = p < cnt;
+            v = has ? lv[p] : -1;
+            i = q = has ? li[p] : INT_MAX_;
+        }, [&](int t, bool, int v, int i, int) {
+            if (lane == 0) mine[t] = make_int2(v, i);
+        });
     }
+
+    // the query block's last CTA merges the slices' lists
+    if (!last_to_arrive(arrived, nslice) || !active) return;
+    const int2* list = part + ((long)s * nslice + lane) * kp;
+    warp_select<int>(kp, ContainsOrder(), [&](int p, int& v, int& i, int& q) {
+        const int2 e = lane < nslice && p < kp ? __ldcg(list + p) : make_int2(-1, INT_MAX_);
+        v = e.x;
+        i = q = e.y;
+    }, [&](int t, bool hit, int v, int i, int) {
+        if (lane == 0) {
+            out_i[(long)s * k + k0 + t] = hit ? i : -1;
+            out_v[(long)s * k + k0 + t] = hit ? v : -1;
+        }
+    });
 }
 
 template <int KMAX, bool LATER>
 static int launch_contains(const void* gc, const void* intents, const void* supports,
-                           void* out_i, void* out_v, int S, int limit, int W, int k,
-                           int k0, int kp, cudaStream_t stream)
+                           void* out_i, void* out_v, void* part, void* arrived,
+                           int S, int limit, int W, int k, int k0, int kp,
+                           int slice_rows, int nslice, cudaStream_t stream)
 {
-    const dim3 grid((S + SERVE_WARPS - 1) / SERVE_WARPS);
-    contains_topk_kernel<KMAX, LATER><<<grid, SERVE_THREADS, 0, stream>>>(
+    const int blocks = (S + SERVE_WARPS - 1) / SERVE_WARPS;
+    const cudaError_t err = cudaMemsetAsync(arrived, 0, (size_t)blocks * 4, stream);
+    if (err != cudaSuccess) return (int)err;
+    contains_topk_kernel<KMAX, LATER><<<dim3(blocks, nslice), SERVE_THREADS, 0, stream>>>(
         (const uint32_t*)gc, (const uint32_t*)intents, (const int*)supports,
-        (int*)out_i, (int*)out_v, S, limit, W, k, k0, kp);
+        (int*)out_i, (int*)out_v, (int2*)part, (int*)arrived, S, limit, W, k, k0, kp,
+        slice_rows);
     return (int)cudaGetLastError();
 }
 
 // gc [S, W], intents [C, W], supports [C] → columns [k0, k0 + kp) of
 // out_i, out_v [S, k]; S >= 1, 0 <= k0, 1 <= kp <= SERVE_MAX_K,
-// k0 + kp <= k, and columns [0, k0) written by the passes before.
-// Launches one pass on `stream` and returns cudaGetLastError() (0 on
-// success).
+// k0 + kp <= k, and columns [0, k0) written by the passes before.  The
+// live intents are split into 1 <= nslice <= SERVE_MAX_SLICES slices of
+// slice_rows rows, which must cover them, as topk_plan gives them; part is
+// int2 scratch [S][nslice][kp] and arrived int32 scratch [the plan's
+// blocks].  Launches one pass on `stream` and returns cudaGetLastError()
+// (0 on success), or the error that stopped the launch.
 extern "C" int contains_topk_launch(const void* gc, const void* intents,
                                     const void* supports, void* out_i, void* out_v,
+                                    void* part, void* arrived,
                                     int S, int C, int W, int n_concepts, int k,
-                                    int k0, int kp, void* stream)
+                                    int k0, int kp, int slice_rows, int nslice,
+                                    void* stream)
 {
-    if (kp < 1 || kp > SERVE_MAX_K || k0 < 0 || k0 + kp > k)
-        return (int)cudaErrorInvalidValue;
     const int limit = n_concepts < 0 ? 0 : (n_concepts < C ? n_concepts : C);
-#define CONTAINS_CASE(KMAX, LATER)                                                      \
-    return launch_contains<KMAX, LATER>(gc, intents, supports, out_i, out_v, S, limit, W, \
-                                        k, k0, kp, (cudaStream_t)stream)
+    if (kp < 1 || kp > SERVE_MAX_K || k0 < 0 || k0 + kp > k || slice_rows < 1 ||
+        nslice < 1 || nslice > SERVE_MAX_SLICES || (long)nslice * slice_rows < limit ||
+        part == nullptr || arrived == nullptr)
+        return (int)cudaErrorInvalidValue;
+#define CONTAINS_CASE(KMAX, LATER)                                                       \
+    return launch_contains<KMAX, LATER>(gc, intents, supports, out_i, out_v, part, arrived, \
+                                        S, limit, W, k, k0, kp, slice_rows, nslice,       \
+                                        (cudaStream_t)stream)
     if (kp <= 8) {
         if (k0 == 0) CONTAINS_CASE(8, false);
         CONTAINS_CASE(8, true);
@@ -238,52 +359,7 @@ extern "C" int contains_topk_launch(const void* gc, const void* intents,
 
 // ---------------------------------------------------------------------------
 // K6
-//
-// grid = (query blocks of SERVE_WARPS, slices of the live table); a slice
-// is `slice_rows` rows, planned from the live count and the SM count by
-// rules_topk_plan.  Each CTA writes its slice's top kp per query to `part`
-// [S][nslice][kp] (metric bits, rule id, position; (-1, INT_MAX, INT_MAX)
-// past its hits), and the last CTA of a query block to arrive (`arrived`,
-// zeroed by the launcher) merges the nslice lists of each of its queries,
-// lane l holding slice l's (with one slice, the one CTA merges one list).
 // ---------------------------------------------------------------------------
-
-#define SERVE_MAX_SLICES 32  // one slice per lane of the merging warp
-#define SERVE_CTAS_PER_SM 2  // the plan's target: query blocks x slices per SM
-
-// (metric desc, rule id asc, position asc): the order of the reference's
-// k selection passes.
-__device__ __forceinline__ bool rule_before(float av, int ar, int ap,
-                                            float bv, int br, int bp)
-{
-    return av > bv || (av == bv && (ar < br || (ar == br && ap < bp)));
-}
-
-// kp rounds of a warp-wide argmax in rule order over the lanes' sorted
-// lists: head(p, v, r, q) loads entry p of this lane's list ((-1, INT_MAX,
-// INT_MAX) past its end), and emit(t, hit, v, r, q) takes the t-th winner
-// (hit: it is a real entry) on every lane.
-template <typename Head, typename Emit>
-__device__ __forceinline__ void warp_select(int kp, Head head, Emit emit)
-{
-    int p = 0, hr, hp;
-    float hv;
-    head(0, hv, hr, hp);
-    for (int t = 0; t < kp; ++t) {
-        float bv = hv;
-        int br = hr, bp = hp;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-            const float ov = __shfl_xor_sync(FULL_MASK, bv, off);
-            const int orr = __shfl_xor_sync(FULL_MASK, br, off);
-            const int op = __shfl_xor_sync(FULL_MASK, bp, off);
-            if (rule_before(ov, orr, op, bv, br, bp)) { bv = ov; br = orr; bp = op; }
-        }
-        const bool hit = bv >= 0.0f;
-        if (hit && hp == bp) head(++p, hv, hr, hp);  // positions are unique
-        emit(t, hit, bv, br, bp);
-    }
-}
 
 template <int KMAX, bool LATER>
 __global__ void __launch_bounds__(SERVE_THREADS)
@@ -300,7 +376,6 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
                   int slice_rows)
 {
     __shared__ ServeSmem sm;
-    __shared__ int last_cta;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int s0 = blockIdx.x * SERVE_WARPS;
     const int s = s0 + warp;
@@ -311,6 +386,7 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
     const int r_hi = r_end < limit ? (int)r_end : limit;
     // the last winner of the previous pass: only entries after it count
     // (metric -1 after a pass that ran out of hits: nothing is after it)
+    const RuleOrder before{};
     float cv = __int_as_float(0x7f800000);  // +inf: pass 0 keeps every entry
     int cr = -1, cp = -1;
     if (LATER && active) {
@@ -319,7 +395,7 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
         cp = cursor[s];
     }
 
-    float lv[KMAX];
+    float lv[KMAX];  // this lane's hits, in rule order
     int lr[KMAX], lp[KMAX];
     int cnt = 0;
     float tv = 0.0f;  // the kp-th entry, once the list is full
@@ -349,10 +425,10 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
             const float v = rv[i];
             const int id = ri[i], pos = (int)r;
             if (!(v >= 0.0f)) continue;
-            if (LATER && !rule_before(cv, cr, cp, v, id, pos)) continue;  // taken in an earlier pass
-            if (cnt == kp && !rule_before(v, id, pos, tv, tr, tp)) continue;
+            if (LATER && !before(cv, cr, cp, v, id, pos)) continue;  // taken in an earlier pass
+            if (cnt == kp && !before(v, id, pos, tv, tr, tp)) continue;
             int j = cnt < kp ? cnt++ : kp - 1;
-            while (j > 0 && rule_before(v, id, pos, lv[j - 1], lr[j - 1], lp[j - 1])) {
+            while (j > 0 && before(v, id, pos, lv[j - 1], lr[j - 1], lp[j - 1])) {
                 lv[j] = lv[j - 1]; lr[j] = lr[j - 1]; lp[j] = lp[j - 1]; --j;
             }
             lv[j] = v; lr[j] = id; lp[j] = pos;
@@ -384,7 +460,7 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
     if (active) {
         // the 32 lanes' lists → this CTA's top kp of each query, to scratch
         int4* mine = part + ((long)s * nslice + slice) * kp;
-        warp_select(kp, [&](int p, float& v, int& r, int& pos) {
+        warp_select<float>(kp, RuleOrder(), [&](int p, float& v, int& r, int& pos) {
             const bool has = p < cnt;
             v = has ? lv[p] : -1.0f;
             r = has ? lr[p] : INT_MAX_;
@@ -395,14 +471,9 @@ rules_topk_kernel(const uint32_t* __restrict__ prem,
     }
 
     // the query block's last CTA merges the slices' lists
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last_cta = atomicAdd(arrived + blockIdx.x, 1) == nslice - 1;
-    __syncthreads();
-    if (!last_cta || !active) return;
-    __threadfence();
+    if (!last_to_arrive(arrived, nslice) || !active) return;
     const int4* list = part + ((long)s * nslice + lane) * kp;
-    warp_select(kp, [&](int p, float& v, int& r, int& pos) {
+    warp_select<float>(kp, RuleOrder(), [&](int p, float& v, int& r, int& pos) {
         const int4 e = lane < nslice && p < kp ? __ldcg(list + p)
                                                : make_int4(__float_as_int(-1.0f), INT_MAX_,
                                                            INT_MAX_, 0);
@@ -448,7 +519,7 @@ static int launch_rules(const void* prem, const void* added, const void* conf,
 // position from one pass to the next; it may be null when k0 + kp == k
 // and k0 == 0.  min_conf arrives already rounded to float32.  The live
 // rules are split into 1 <= nslice <= SERVE_MAX_SLICES slices of
-// slice_rows rows, which must cover them, as rules_topk_plan gives them;
+// slice_rows rows, which must cover them, as topk_plan gives them;
 // part is int4 scratch [S][nslice][kp] and arrived int32 scratch [the
 // plan's blocks].  Launches one pass on `stream` and returns
 // cudaGetLastError() (0 on success), or the error that stopped the launch.
@@ -478,25 +549,4 @@ extern "C" int rules_topk_launch(const void* prem, const void* added, const void
     if (k0 == 0) RULES_CASE(SERVE_MAX_K, false);
     RULES_CASE(SERVE_MAX_K, true);
 #undef RULES_CASE
-}
-
-// K6's plan for S queries against `live` rules on a card of `sms` SMs:
-// rows [0, live) split into *nslice slices of *slice_rows rows (whole
-// tiles), as many as put about SERVE_CTAS_PER_SM CTAs on each SM beside
-// the *blocks query blocks, at most one per tile and SERVE_MAX_SLICES,
-// and at least one (live <= 0 included).  Every live row lies in exactly
-// one slice.  The caller sizes rules_topk_launch's scratch from it.
-extern "C" void rules_topk_plan(int S, int live, int sms, int* slice_rows, int* nslice,
-                                int* blocks)
-{
-    const long tiles = live > 0 ? ((long)live + TILE_ROWS - 1) / TILE_ROWS : 0;
-    *blocks = (S + SERVE_WARPS - 1) / SERVE_WARPS;
-    const long b = *blocks > 1 ? *blocks : 1;
-    const long fill = ((long)SERVE_CTAS_PER_SM * sms + b - 1) / b;
-    long want = tiles < SERVE_MAX_SLICES ? tiles : SERVE_MAX_SLICES;
-    want = fill < want ? fill : want;
-    if (want < 1) want = 1;
-    const long tps = tiles > 0 ? (tiles + want - 1) / want : 1;
-    *slice_rows = (int)(tps * TILE_ROWS);
-    *nslice = tiles > 0 ? (int)((tiles + tps - 1) / tps) : 1;
 }

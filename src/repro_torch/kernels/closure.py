@@ -10,7 +10,7 @@ of uint32 bitset words) it computes, per candidate ``b``,
 raw: not masked to the real attributes, not corrected for all-ones padding
 rows (``ops.batched_closure`` does both).  :func:`closure` launches the
 CUDA kernel for CUDA tensors and runs :func:`closure_plain` for CPU
-tensors; any shape ``N >= 0``, ``B >= 0`` and ``1 <= W <= MAX_W`` is
+tensors; any shape ``N >= 0``, ``B >= 0`` and ``1 <= W <= max_w`` is
 taken as it is.  Rows ``[K, N, W]`` hold K object shards (a simulated
 plan's context): each shard's closures and supports come back
 separately, ``[K, B, W]`` and ``[K, B]``, from one launch.
@@ -32,11 +32,6 @@ import torch
 from repro_torch.device import ALL_ONES
 from repro_torch.kernels import _build
 
-GROUP = 8  # candidates per CTA of the SIMT body (CLOSURE_GROUP in csrc/closure_common.cuh)
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on the H100
-# Widest word count whose candidates + accumulators fit one block's
-# shared memory (closure_smem_bytes in csrc/closure_common.cuh).
-MAX_W = (SMEM_LIMIT // 4 - 2 * GROUP) // (2 * GROUP)
 # Bound on the [b, N, W] intermediate of the plain version, in elements.
 PLAIN_CHUNK_ELEMS = 1 << 25
 
@@ -114,10 +109,8 @@ def check_closure_operands(rows: torch.Tensor, cands: torch.Tensor,
         raise ValueError(f"rows on {rows.device}, cands on {cands.device}")
     if rows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {rows.device}")
-    if rows.device.type == "cuda" and W > MAX_W:
-        raise ValueError(
-            f"W={W} exceeds the kernel's shared-memory limit MAX_W={MAX_W}"
-        )
+    if rows.device.type == "cuda" and W > (limit := max_w(rows.device)):
+        raise ValueError(f"W={W} exceeds the kernel's shared-memory limit max_w={limit}")
     K = rows.shape[0] if rows.dim() == 3 else 1
     if max(rows.numel(), K * cands.numel()) >= 2**31:
         raise ValueError("operands exceed the kernel's 32-bit index range")
@@ -130,7 +123,23 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int), ctypes.c_void_p
     ]
     lib.closure_launch.restype = ctypes.c_int
+    lib.frontier_simt_max_w.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.frontier_simt_max_w.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def max_w(device: torch.device) -> int:
+    """The widest rows, in words, the kernels take on ``device``: the SIMT
+    body's candidates and accumulators in the shared memory one block may
+    use (``frontier_simt_max_w`` in ``csrc/frontier.cu``; 3631 words on the
+    H100).  Needs the built library (a CUDA machine)."""
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = _lib().frontier_simt_max_w(ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"frontier_simt_max_w failed: CUDA error {rc}")
+    return out.value
 
 
 def closure(

@@ -20,25 +20,29 @@ gather stays with the caller (``lowrow``).  Survivor compaction stays in
 torch (:mod:`repro_torch.core.frontier`): it consumes only the keep mask
 and the closures.
 
-On k > 1 object shards the filter needs the *global* closure, which
-exists only after the AND-allreduce, so the step splits in two around the
-collective (:meth:`repro_torch.core.engine.ClosureEngine.spmd_step_fused`):
+On k > 1 object shards the filter needs the *global* closure, the AND of
+the shards' local closures, so the step splits in two
+(:meth:`repro_torch.core.engine.ClosureEngine.spmd_step_fused`):
 
     K3 :func:`map_closure`  per shard: (AND of matching local rows) & mask
                             and the raw local support — rows [K, N/K, W]
                             give [K, B, W] / [K, B] from one launch
-    K4 :func:`filter_step`  after the reduce: support − n_pad and the keep
-                            mask above, one thread per candidate
+    K4 :func:`filter_step`  the AND over the K partials, the support sum
+                            − n_pad and the keep mask above (CbO reading
+                            ``LOW[gens]`` itself), in one launch
 
-The mask folds into K3 because AND distributes over it: masked local
-closures AND-reduce to the masked global closure.  No pad correction
-happens in K3; the engine corrects the summed supports once.
+On a simulated plan K4 takes K3's K partials as they are: on one card the
+AND-allreduce is that fold.  A process-group rank runs the collectives
+between the two and calls K4 at K = 1.  The mask folds into K3 because AND
+distributes over it: masked local closures AND-reduce to the masked global
+closure.  No pad correction happens in K3; K4 subtracts ``n_pad`` from the
+summed supports once.
 
 K2 and K3 share one closure body in ``csrc/frontier.cu``, which the C
 launchers choose by the word width alone: for rows of at most
 ``TCF_MAX_W`` (10) words the tensor-core body (the closure as two int8
 ``wgmma`` products over complement bit-planes), for wider rows, up to
-``closure.MAX_W``, the SIMT body K1 uses.  Each wrapper counts its
+``closure.max_w``, the SIMT body K1 uses.  Each wrapper counts its
 launches in ``launches`` and, as the launcher reports them, those that
 took the tensor body in ``tc_launches``.
 """
@@ -52,6 +56,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.closure import (
+    and_reduce,
     check_bitsets,
     check_closure_operands,
     closure_plain,
@@ -116,10 +121,14 @@ def _lib() -> ctypes.CDLL:
     )
     lib.map_closure_launch.restype = ctypes.c_int
     lib.filter_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     )
     lib.filter_launch.restype = ctypes.c_int
     return lib
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 @functools.cache
@@ -262,80 +271,111 @@ map_closure.tc_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def filter_step_plain(gc, gs, scalars, *, parent=None, lowrow=None,
+def filter_step_plain(lc, ls, scalars, *, parent=None, LOW=None, gens=None,
                       iceberg: bool = False, cbo: bool = False):
-    """The plain PyTorch version of K4: (corrected supports, keep)."""
+    """The plain PyTorch version of K4: (closures, corrected supports or
+    None, keep)."""
     n_valid, min_sup, n_pad, row_off = scalars
-    sup = gs - n_pad
+    gc = and_reduce(lc, 0) if lc.dim() == 3 else lc
+    sup = None
+    if ls is not None:
+        sup = (ls.sum(0, dtype=torch.int32) if ls.dim() == 2 else ls) - n_pad
     idx = torch.arange(gc.shape[0], device=gc.device) + row_off
     keep = idx < n_valid
     if iceberg:
         keep = keep & (sup >= min_sup)
     if cbo:
+        n_low = LOW.shape[0]
+        lowrow = LOW[gens.long().clamp(0, n_low - 1)]
+        keep = keep & (gens >= 0) & (gens < n_low)
         keep = keep & (((gc ^ parent) & lowrow) == 0).all(-1)
-    return sup, keep
+    return gc, sup, keep
 
 
 def filter_step(
-    gc: torch.Tensor,
-    gs: torch.Tensor,
+    lc: torch.Tensor,
+    ls: torch.Tensor | None,
     scalars,
     *,
     parent: torch.Tensor | None = None,
-    lowrow: torch.Tensor | None = None,
+    LOW: torch.Tensor | None = None,
+    gens: torch.Tensor | None = None,
     iceberg: bool = False,
     cbo: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4: corrected supports [B] (int32) and keep [B] (bool).
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """K4: global closures [B, W], corrected supports [B] (int32) and keep
+    [B] (bool) from K shards' partials.
 
-    gc [B, W] are the globally reduced masked closures, gs [B] the summed
-    raw supports; ``scalars`` is :func:`pack_scalars`' tuple.  CbO
-    variants also take parent/lowrow [B, W].  ``filter_step.launches``
-    counts kernel launches.
+    lc ``[K, B, W]`` are the shards' masked local closures and ls ``[K,
+    B]`` their raw supports, or ``[B, W]`` / ``[B]`` for K = 1 (a
+    process-group rank's reduced operands); ``ls=None`` returns no
+    supports (iceberg needs them).  The closures are the AND over K; at
+    K = 1 they are ``lc`` itself, not a copy.  ``scalars`` is
+    :func:`pack_scalars`' tuple; ``n_pad`` comes off the summed supports.
+    CbO variants also take parent ``[B, W]``, ``LOW [n_low, W]`` and gens
+    ``[B]`` int32 (the test reads ``LOW[gens[b]]``; a gens entry outside
+    ``[0, n_low)`` drops its candidate).  ``filter_step.launches`` counts
+    kernel launches.
     """
-    check_bitsets("gc", gc)
-    B, W = gc.shape
+    check_bitsets("lc", lc, ndims=(2, 3))
+    B, W = lc.shape[-2:]
+    K = lc.shape[0] if lc.dim() == 3 else 1
     if W < 1:
         raise ValueError("W must be >= 1")
-    if not isinstance(gs, torch.Tensor) or gs.dtype != torch.int32:
-        raise TypeError("gs must be an int32 torch.Tensor")
-    if tuple(gs.shape) != (B,) or not gs.is_contiguous():
-        raise ValueError(f"gs must be contiguous of shape ({B},), got {tuple(gs.shape)}")
+    if K < 1:
+        raise ValueError("lc holds no shard")
+    if ls is not None:
+        if not isinstance(ls, torch.Tensor) or ls.dtype != torch.int32:
+            raise TypeError("ls must be an int32 torch.Tensor")
+        if tuple(ls.shape) != tuple(lc.shape[:-1]) or not ls.is_contiguous():
+            raise ValueError(f"ls must be contiguous of shape {tuple(lc.shape[:-1])}, "
+                             f"got {tuple(ls.shape)}")
+    elif iceberg:
+        raise ValueError("iceberg=True needs the supports ls")
     if len(scalars) != N_SCALARS:
         raise ValueError(f"scalars must be (n_valid, min_sup, n_pad, row_off), got {scalars!r}")
     scalars = pack_scalars(*scalars)
+    operands = [] if ls is None else [ls]
     if cbo:
-        if parent is None or lowrow is None:
-            raise ValueError("cbo=True needs parent= and lowrow= operands")
+        if parent is None or LOW is None or gens is None:
+            raise ValueError("cbo=True needs parent=, LOW= and gens= operands")
         check_bitsets("parent", parent, (B, W))
-        check_bitsets("lowrow", lowrow, (B, W))
-    for t in [gs] + ([parent, lowrow] if cbo else []):
-        if t.device != gc.device:
-            raise ValueError(f"operand on {t.device}, gc on {gc.device}")
-    if gc.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {gc.device}")
-    if gc.numel() >= 2**31:
+        check_bitsets("LOW", LOW)
+        if LOW.shape[1] != W or LOW.shape[0] < 1:
+            raise ValueError(f"LOW must be [n_low >= 1, {W}], got {tuple(LOW.shape)}")
+        if not isinstance(gens, torch.Tensor) or gens.dtype != torch.int32:
+            raise TypeError("gens must be an int32 torch.Tensor")
+        if tuple(gens.shape) != (B,) or not gens.is_contiguous():
+            raise ValueError(f"gens must be contiguous of shape ({B},), got {tuple(gens.shape)}")
+        operands += [parent, LOW, gens]
+    for t in operands:
+        if t.device != lc.device:
+            raise ValueError(f"operand on {t.device}, lc on {lc.device}")
+    if lc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {lc.device}")
+    if lc.numel() >= 2**31:
         raise ValueError("operands exceed the kernel's 32-bit index range")
-    if gc.device.type == "cpu":
-        return filter_step_plain(gc, gs, scalars, parent=parent, lowrow=lowrow,
+    if lc.device.type == "cpu":
+        return filter_step_plain(lc, ls, scalars, parent=parent, LOW=LOW, gens=gens,
                                  iceberg=iceberg, cbo=cbo)
-    out_s = torch.empty((B,), dtype=torch.int32, device=gc.device)
-    keep = torch.empty((B,), dtype=torch.bool, device=gc.device)
+    gc = lc.reshape(B, W) if K == 1 else torch.empty((B, W), dtype=torch.int32,
+                                                     device=lc.device)
+    out_s = None if ls is None else torch.empty((B,), dtype=torch.int32, device=lc.device)
+    keep = torch.empty((B,), dtype=torch.bool, device=lc.device)
     if B == 0:
-        return out_s, keep
-    with torch.cuda.device(gc.device):
+        return gc, out_s, keep
+    cbo_ops = [parent, LOW, gens] if cbo else [None] * 3
+    with torch.cuda.device(lc.device):
         rc = _lib().filter_launch(
-            gc.data_ptr(), gs.data_ptr(),
-            parent.data_ptr() if cbo else None,
-            lowrow.data_ptr() if cbo else None,
-            out_s.data_ptr(), keep.data_ptr(),
-            B, W, *scalars, int(iceberg), int(cbo),
-            torch.cuda.current_stream(gc.device).cuda_stream,
+            lc.data_ptr(), *map(_ptr, [ls, *cbo_ops]), None if K == 1 else gc.data_ptr(),
+            _ptr(out_s),
+            keep.data_ptr(), K, B, W, LOW.shape[0] if cbo else 0, *scalars,
+            int(iceberg), int(cbo), torch.cuda.current_stream(lc.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"filter kernel launch failed: CUDA error {rc}")
     filter_step.launches += 1
-    return out_s, keep
+    return gc, out_s, keep
 
 
 filter_step.launches = 0

@@ -12,7 +12,7 @@
 
 ``use_kernel=False`` runs the plain oracle (``ref.closure_ref``) instead
 of K1 — the ``backend="torch"`` path.  There is no width limit that
-leaves K1 quietly: K1 takes any width up to its ``MAX_W`` and raises
+leaves K1 quietly: K1 takes any width up to its ``max_w`` and raises
 beyond it.  Rows ``[K, N, W]`` are K object shards, closed shard by shard
 (``[K, B, W]`` / ``[K, B]``) in one K1 launch; ``n_valid_rows`` then
 counts real rows per shard.

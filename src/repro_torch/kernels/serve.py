@@ -22,10 +22,10 @@ Both launch the CUDA kernels of ``csrc/serve.cu`` for CUDA tensors and run
 their plain PyTorch versions (:func:`contains_topk_plain`,
 :func:`rules_topk_plain`: the reference engine's jnp steps, written in
 torch) for CPU tensors; a build or launch error propagates.  Each wrapper
-counts its launches in a plain ``launches`` attribute.  K5 walks the whole
-table in each CTA of 8 queries; K6 also splits the live table across a
-second grid axis (:func:`rule_plan`, stated in ``csrc/serve.cu``), and the
-last CTA of each query block merges the slices' top-k lists.
+counts its launches in a plain ``launches`` attribute.  Both split the
+live table across a second grid axis (:func:`topk_plan`, stated once in
+``csrc/serve.cu``), and the last CTA of each query block merges the
+slices' top-k lists.
 
 **Bound change against the reference.**  The reference's
 ``supports_serve`` (``src/repro/kernels/serve.py:53``) sends a table of
@@ -210,7 +210,7 @@ def rules_topk_plain(prem, added, conf, metric, rid, n_rules: int, queries,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("serve")
     lib.contains_topk_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.contains_topk_launch.restype = ctypes.c_int
     lib.rules_topk_launch.argtypes = (
@@ -219,19 +219,19 @@ def _lib() -> ctypes.CDLL:
     )
     lib.rules_topk_launch.restype = ctypes.c_int
     flag = ctypes.POINTER(ctypes.c_int)
-    lib.rules_topk_plan.argtypes = [ctypes.c_int] * 3 + [flag] * 3
-    lib.rules_topk_plan.restype = None
+    lib.topk_plan.argtypes = [ctypes.c_int] * 3 + [flag] * 3
+    lib.topk_plan.restype = None
     return lib
 
 
-def rule_plan(S: int, live: int, sms: int) -> tuple[int, int, int]:
-    """K6's split of the live table, from ``rules_topk_plan`` in
+def topk_plan(S: int, live: int, sms: int) -> tuple[int, int, int]:
+    """K5's and K6's split of the live table, from ``topk_plan`` in
     ``csrc/serve.cu``: ``(slice_rows, nslice, blocks)``, slice ``j``
     holding rows ``[j·slice_rows, (j + 1)·slice_rows)`` of ``[0, live)``
     for each of the ``blocks`` query blocks of ``S`` queries on a card of
     ``sms`` SMs.  Needs the built library (a CUDA machine)."""
     out = [ctypes.c_int() for _ in range(3)]
-    _lib().rules_topk_plan(S, live, sms, *map(ctypes.byref, out))
+    _lib().topk_plan(S, live, sms, *map(ctypes.byref, out))
     return tuple(o.value for o in out)
 
 
@@ -248,8 +248,11 @@ def contains_topk(
     gc [S, W] and intents [C, W] are int32 bitset blocks, supports [C]
     int32, ``n_concepts`` a plain int (rows at or past it are padding).
     Returns ``(ids [S, k], supports [S, k])`` int32, any ``k ≥ 1``
-    (one launch per :data:`PASS_K` columns).  ``contains_topk.launches``
-    counts kernel launches.
+    (one launch per :data:`PASS_K` columns).  One launch splits the live
+    intents into the slices of :func:`topk_plan`; each CTA's top ``k`` go
+    to scratch allocated here from that plan, and the last CTA of each
+    query block merges them.  ``contains_topk.launches`` counts kernel
+    launches.
     """
     k = _check_k(k)
     _check_table(gc, {"intents": intents}, {"supports": (supports, torch.int32)})
@@ -262,13 +265,20 @@ def contains_topk(
     out_v = torch.empty((S, k), dtype=torch.int32, device=gc.device)
     if S == 0:
         return out_i, out_v
-    with torch.cuda.device(gc.device):
-        stream = torch.cuda.current_stream(gc.device).cuda_stream
-        for k0, kp in _passes(k):
+    passes = _passes(k)
+    dev = gc.device
+    live = max(-1, min(n_concepts, C))
+    slice_rows, nslice, blocks = topk_plan(S, live, _sm_count(dev))
+    # each slice's top k per query (support, index), and each query block's arrivals
+    part = torch.empty((S, nslice, passes[0][1], 2), dtype=torch.int32, device=dev)
+    arrived = torch.empty(blocks, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k0, kp in passes:
             rc = _lib().contains_topk_launch(
                 gc.data_ptr(), intents.data_ptr(), supports.data_ptr(),
-                out_i.data_ptr(), out_v.data_ptr(),
-                S, C, W, max(-1, min(n_concepts, C)), k, k0, kp, stream,
+                out_i.data_ptr(), out_v.data_ptr(), part.data_ptr(), arrived.data_ptr(),
+                S, C, W, live, k, k0, kp, slice_rows, nslice, stream,
             )
             if rc != 0:
                 raise RuntimeError(f"contains top-k kernel launch failed: CUDA error {rc}")
@@ -299,7 +309,7 @@ def rules_topk(
     int32, queries [S, W].  Returns ``(rule ids [S, k] int32, scores
     [S, k] float32, unions [S, W] int32)``, any ``k ≥ 1`` (one launch per
     :data:`PASS_K` columns).  One launch splits the live table into the
-    slices of :func:`rule_plan`; each CTA's top ``k`` go to scratch
+    slices of :func:`topk_plan`; each CTA's top ``k`` go to scratch
     allocated here from that plan, and the last CTA of each query block
     merges them.
     ``rules_topk.launches`` counts kernel launches.
@@ -326,7 +336,7 @@ def rules_topk(
     dev = queries.device
     # each query's last winner's table position, from one pass to the next
     cursor = torch.empty(S, dtype=torch.int32, device=dev) if len(passes) > 1 else None
-    slice_rows, nslice, blocks = rule_plan(S, min(n_rules, R), _sm_count(dev))
+    slice_rows, nslice, blocks = topk_plan(S, min(n_rules, R), _sm_count(dev))
     # each slice's top k per query, and each query block's arrivals
     part = torch.empty((S, nslice, passes[0][1], 4), dtype=torch.int32, device=dev)
     arrived = torch.empty(blocks, dtype=torch.int32, device=dev)

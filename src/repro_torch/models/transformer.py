@@ -147,7 +147,12 @@ class Decoder(nn.Module):
         if mode != "train" and caches is None:
             raise ValueError(f"mode={mode!r} needs caches (init_caches)")
         cfg = self.cfg
-        x = self.embed[inputs].to(self.dtype)
+        # ids outside [0, V) gather as the reference's gather takes them: a
+        # negative id counts from the end, and the result is clamped to the
+        # table (no device-side assert on the card)
+        V = self.embed.shape[0]
+        ids = torch.where(inputs < 0, inputs + V, inputs).clamp(0, V - 1)
+        x = self.embed[ids].to(self.dtype)
         if cfg.emb_scale:
             x = x * self.emb_scale
         B, S = x.shape[0], x.shape[1]

@@ -235,6 +235,22 @@ def test_generate_matches_the_reference_greedy_tokens(arch):
     assert len(stats.top2) == 13
 
 
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "gemma2-9b"])
+def test_out_of_range_token_ids_answer_as_the_reference(arch):
+    """Ids V, V + 5, -1, -V and -V - 3 gather as the reference's embedding
+    gather takes them (a negative id counts from the end, then the id is
+    clamped to [0, V - 1]): the same greedy tokens, where the port raised
+    before."""
+    cfg, _, ref, port = _engines(arch, max_len=48)
+    V = cfg.vocab_size
+    prompts = [[V, 1], [V + 5, -1, 3], [-V, 7], [-V - 3, 9, 2]]
+    got = port.generate(prompts, max_new=3)
+    assert got == ref.generate(prompts, max_new=3)
+    assert port.generate([[V + 5, 1]], max_new=3) == port.generate([[V - 1, 1]], max_new=3)
+    assert port.generate([[-V - 3, 7]], max_new=3) == port.generate([[0, 7]], max_new=3)
+    assert port.generate([[-1, 7]], max_new=3) == port.generate([[V - 1, 7]], max_new=3)
+
+
 def test_generate_matches_manual_greedy():
     cfg, model, _, port = _engines()
     prompt = [5, 9, 2, 14, 7]
@@ -324,7 +340,9 @@ def test_chip_smoke_reduced_tokens_are_the_references():
         model = Decoder(cfg, device="cpu", seed=None)
         model.load_state_dict(params_from_jax(numpy_params(cfg, cs.LM_SEED), cfg))
         prompts = cs.lm_reduced_prompts(cfg.vocab_size)
-        assert len(prompts[-1]) > cfg.attn_window if cfg.attn_window else True
+        assert max(map(len, prompts)) > cfg.attn_window if cfg.attn_window else True
+        ids = [t for p in prompts for t in p]
+        assert min(ids) < -cfg.vocab_size and max(ids) > cfg.vocab_size  # C2's ids
         eng = ServeEngine(cfg, model, ServeConfig(max_len=cs.LM_REDUCED_MAX_LEN,
                                                   batch_slots=max(4, len(prompts))),
                           device="cpu")

@@ -12,6 +12,7 @@ words, counts and keep masks.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,12 +21,15 @@ import torch
 import repro.core as ref_core
 import repro.core.context as ref_context
 from repro.core.frontier import DeviceFrontier as RefFrontier
+from repro.dist import collectives as ref_collectives
+from repro.dist.shardplan import SIM_AXIS
 from repro.kernels import frontier as ref_fkern
 from repro.kernels import ops as ref_ops
 import repro_torch.core as core
 from repro_torch import kernels
 from repro_torch.core import bitset
 from repro_torch.core.frontier import DeviceFrontier
+from repro_torch.dist import collectives
 from repro_torch.kernels import closure as kclosure
 from repro_torch.kernels import frontier as fkern
 from repro_torch.kernels import ops
@@ -142,30 +146,79 @@ def test_the_wrappers_count_no_cpu_call_and_reset_clears_both_counters():
         assert fn.launches == fn.tc_launches == 0
 
 
+def _ref_round(lc: np.ndarray, ls: np.ndarray, impl: str, n_attrs: int):
+    """The reference's simulated round between K3 and K4: the AND-allreduce
+    of the shards' partials and the psum of their supports, under
+    ``jax.vmap`` over the plan's shard axis (the reference engine's body)."""
+    def body(x, s):
+        return (ref_collectives.and_allreduce(x, SIM_AXIS, impl=impl, n_attrs=n_attrs),
+                jax.lax.psum(s, SIM_AXIS))
+
+    gc, gs = jax.vmap(body, axis_name=SIM_AXIS)(jnp.asarray(lc), jnp.asarray(ls))
+    return gc[0], gs[0]
+
+
+# K4 on K shards' partials: B = 25 is a multiple of no K > 1 here (the
+# reference's rsag pads it), and of the reference filter's 5-row blocks.
+PARTIAL_B = 25
+PARTIAL_W = (1, 4, 5)
+
+
 @pytest.mark.parametrize("window", sorted(WINDOWS))
 @pytest.mark.parametrize("iceberg,cbo", FLAGS)
-def test_filter_step_plain_matches_pallas_interpret(iceberg, cbo, window):
-    rng = np.random.default_rng(len(window) + 2 * iceberg + cbo)
-    B, n_attrs = 24, 45
-    W = bitset.n_words(n_attrs)
-    mask = bitset.attr_mask(n_attrs, W)
-    gc = random_bits(rng, B, W, 0.6) & mask
-    gs = rng.integers(0, 120, size=B).astype(np.int32)
-    parent = gc & random_bits(rng, B, W, 0.7)
-    lowrow = random_bits(rng, B, W, 0.2) & mask
-    scalars = WINDOWS[window](B)
-    ref_kw = dict(iceberg=iceberg, cbo=cbo, interpret=True)
-    kw = dict(iceberg=iceberg, cbo=cbo)
-    if cbo:
-        ref_kw.update(parent=jnp.asarray(parent), lowrow=jnp.asarray(lowrow))
-        kw.update(parent=t(parent), lowrow=t(lowrow))
-    want_s, want_k = ref_fkern.filter_call(jnp.asarray(gc), jnp.asarray(gs),
-                                           ref_fkern.pack_scalars(*scalars), **ref_kw)
+@pytest.mark.parametrize("K", [1, 2, 3, 8])
+def test_filter_step_plain_matches_pallas_interpret(jax_reference, K, iceberg, cbo,  # noqa: F811
+                                                    window):
+    """K4's plain version (and its wrapper, on the CPU) on K shards'
+    partials against the reference's simulated AND-allreduce + psum, then
+    ``filter_call`` in interpret mode on the reduced operands with
+    ``lowrow = LOW[gens]``: closures, supports and keep bit for bit, at W
+    1, 4 and 5 under the three schedules in turn."""
+    B = PARTIAL_B
+    for W in PARTIAL_W:
+        rng = np.random.default_rng(1000 * K + 100 * W + 10 * len(window) + 2 * iceberg + cbo)
+        n_attrs = 32 * W - 3
+        mask = bitset.attr_mask(n_attrs, W)
+        lc = random_bits(rng, K * B, W, 0.93).reshape(K, B, W) & mask
+        ls = rng.integers(0, 100 // K + 2, size=(K, B)).astype(np.int32)
+        parent = np.bitwise_and.reduce(lc, 0) & random_bits(rng, B, W, 0.7)
+        LOW = random_bits(rng, n_attrs, W, 0.05) & mask
+        gens = rng.integers(0, n_attrs, size=B).astype(np.int32)
+        scalars = WINDOWS[window](B)
+        impl = collectives.IMPLS[(K + W) % 3]
+        gc_ref, gs_ref = _ref_round(lc, ls, impl, n_attrs)
+        ref_kw = dict(iceberg=iceberg, cbo=cbo, block_b=5, interpret=True)
+        kw = dict(iceberg=iceberg, cbo=cbo)
+        if cbo:
+            ref_kw.update(parent=jnp.asarray(parent), lowrow=jnp.asarray(LOW[gens]))
+            kw.update(parent=t(parent), LOW=t(LOW), gens=torch.from_numpy(gens))
+        want_s, want_k = ref_fkern.filter_call(gc_ref, gs_ref,
+                                               ref_fkern.pack_scalars(*scalars), **ref_kw)
+        operands = [(t(lc.reshape(K * B, W)).reshape(K, B, W), torch.from_numpy(ls))]
+        if K == 1:  # a process-group rank's reduced [B, W] / [B]
+            operands.append((t(lc[0]), torch.from_numpy(ls[0])))
+        for lc_t, ls_t in operands:
+            for fn in (fkern.filter_step_plain, fkern.filter_step):
+                gc, sup, keep = fn(lc_t, ls_t, fkern.pack_scalars(*scalars), **kw)
+                np.testing.assert_array_equal(u32(gc), u32(gc_ref))
+                np.testing.assert_array_equal(sup.numpy(), np.asarray(want_s))
+                np.testing.assert_array_equal(keep.numpy(), np.asarray(want_k))
+                assert keep.dtype == torch.bool and sup.dtype == torch.int32
+                if not iceberg:  # no supports asked: the same closures and keep
+                    gc2, sup2, keep2 = fn(lc_t, None, fkern.pack_scalars(*scalars), **kw)
+                    assert sup2 is None and torch.equal(gc2, gc) and torch.equal(keep2, keep)
+
+
+def test_filter_step_drops_a_generator_outside_low():
+    """A gens entry outside [0, n_low) drops its candidate (the frontier
+    never sends one); the other candidates keep the CbO test's answer."""
+    B, W = 6, 2
+    lc = torch.zeros((2, B, W), dtype=torch.int32)
+    LOW = torch.zeros((3, W), dtype=torch.int32)
+    gens = torch.tensor([0, 1, 2, 3, -1, 2], dtype=torch.int32)
     for fn in (fkern.filter_step_plain, fkern.filter_step):
-        sup, keep = fn(t(gc), torch.from_numpy(gs), fkern.pack_scalars(*scalars), **kw)
-        np.testing.assert_array_equal(sup.numpy(), np.asarray(want_s))
-        np.testing.assert_array_equal(keep.numpy(), np.asarray(want_k))
-        assert keep.dtype == torch.bool
+        _, _, keep = fn(lc, None, (B, 0, 0, 0), parent=lc[0], LOW=LOW, gens=gens, cbo=True)
+        assert keep.tolist() == [True, True, True, False, False, True]
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
@@ -227,11 +280,15 @@ def _step_args(variant: str, ctx_rows: np.ndarray, W: int, n_attrs: int, B: int)
     return args
 
 
-@pytest.mark.parametrize("impl", ["rsag", "auto"])
-@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("impl", ["rsag", "auto", "allgather", "pmin"])
+@pytest.mark.parametrize("k", [2, 4, 3, 8])
 @pytest.mark.parametrize("variant", sorted(fkern.VARIANTS))
 def test_fused_multi_shard_step_matches_reference(jax_reference, variant, k,  # noqa: F811
                                                   impl):
+    """The simulated plan's K3 → K4 step (K4 folding the shards' partials)
+    against the reference engine's step of the same name, which runs the
+    schedule's AND-allreduce between its kernels; and the round's census
+    (modeled wire and hop bytes, the schedule's round) equal."""
     ref_ctx = ref_context.FormalContext.synthetic(60, 24, 0.35, seed=42)
     ref_eng = ref_core.ClosureEngine(ref_ctx, n_parts=k, reduce_impl=impl, backend="jnp")
     eng = core.ClosureEngine(port_context(ref_ctx), n_parts=k, reduce_impl=impl,
@@ -245,6 +302,11 @@ def test_fused_multi_shard_step_matches_reference(jax_reference, variant, k,  # 
         else torch.from_numpy(a) for a in args
     ]
     got = DeviceFrontier(eng)._step_fn(variant)(eng.rows, *port_args)
+    ref_eng.charge_round(B, B - 3)
+    eng.charge_round(B, B - 3)
+    for key in ("modeled_comm_bytes", "modeled_dispatch_bytes", "modeled_collective_bytes",
+                "reduce_rounds"):
+        assert getattr(eng.stats, key) == getattr(ref_eng.stats, key), key
     if variant == "plain":
         np.testing.assert_array_equal(u32(got), np.asarray(want).astype(np.uint32))
         return
@@ -307,22 +369,33 @@ def test_map_closure_refuses_bad_operands(rows, cands, mask, error):
         fkern.map_closure(rows, cands, mask)
 
 
+_CBO = {"cbo": True, "parent": _bits(8, 4), "LOW": _bits(5, 4),
+        "gens": _bits(8)}
+
+
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        ({"gs": _bits(7)}, ValueError),
-        ({"gs": _bits(8, dtype=torch.int64)}, TypeError),
+        ({"gs": _bits(2, 7)}, ValueError),
+        ({"gs": _bits(2, 8, dtype=torch.int64)}, TypeError),
         ({"gc": _bits(8)}, ValueError),
         ({"cbo": True}, ValueError),
-        ({"cbo": True, "parent": _bits(8, 4), "lowrow": _bits(8, 3)}, ValueError),
+        ({**_CBO, "LOW": _bits(5, 3)}, ValueError),
         ({"scalars": (1, 2, 3)}, ValueError),
         ({"scalars": (2**31, 0, 0, 0)}, ValueError),
+        ({"gc": _bits(1, 2, 8, 4)}, ValueError),
+        ({**_CBO, "gens": _bits(8, dtype=torch.int64)}, TypeError),
+        ({**_CBO, "gens": _bits(7)}, ValueError),
+        ({**_CBO, "LOW": _bits(0, 4)}, ValueError),
+        ({"gs": None, "iceberg": True}, ValueError),
     ],
     ids=["gs-shape", "gs-dtype", "gc-1-D", "cbo-no-operands", "lowrow-shape",
-         "scalar-count", "scalar-range"],
+         "scalar-count", "scalar-range", "lc-4-D", "gens-dtype", "gens-shape", "LOW-empty",
+         "iceberg-no-supports"],
 )
 def test_filter_step_refuses_bad_operands(kwargs, error):
-    args = {"gc": _bits(8, 4), "gs": _bits(8), "scalars": (8, 0, 0, 0)}
+    """lc [K, B, W] / ls [K, B] (here K = 2), or [B, W] / [B]."""
+    args = {"gc": _bits(2, 8, 4), "gs": _bits(2, 8), "scalars": (8, 0, 0, 0)}
     args.update(kwargs)
     with pytest.raises(error):
         fkern.filter_step(args.pop("gc"), args.pop("gs"), args.pop("scalars"), **args)

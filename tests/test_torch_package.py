@@ -208,7 +208,10 @@ def test_fused_step_refuses_bad_operands(kwargs, error):
 
 def test_wide_contexts_still_go_through_the_kernel_wrapper(monkeypatch):
     """No width quietly leaves K1: batched_closure calls the wrapper at
-    W = 520, past the reference kernel's MAX_W."""
+    W = 520, past the reference kernel's MAX_W, and at W = 4000, past the
+    H100's SIMT limit, where the CPU (which has no such limit) still
+    answers.  On the card the limit comes from the library
+    (``closure.max_w``, held at >= 3000 by chip_smoke.py's phase 3)."""
     calls = []
     real = kclosure.closure
     monkeypatch.setattr(kclosure, "closure", lambda r, c: calls.append(r.shape) or real(r, c))
@@ -217,7 +220,9 @@ def test_wide_contexts_still_go_through_the_kernel_wrapper(monkeypatch):
     c, s = ops.batched_closure(rows, cands, 520 * 32, n_valid_rows=300)
     assert calls == [torch.Size([512, 520])]
     assert s.tolist() == [300, 300, 300]
-    assert kclosure.MAX_W >= 3000
+    rows = torch.full((3, 4000), -1, dtype=torch.int32)
+    c, s = ops.batched_closure(rows, cands[:, :1].repeat(1, 4000), 4000 * 32, n_valid_rows=3)
+    assert calls[-1] == torch.Size([256, 4000]) and s.tolist() == [3, 3, 3]
 
 
 @pytest.mark.parametrize("backend,fused", [("kernel", True), ("torch", False)])
