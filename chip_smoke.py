@@ -66,9 +66,23 @@ checks, on the card:
      through ``backend="matmul"``; census-income at its
      published shape (103,950 x 133) at k = 8, rsag, against the
      reference's counts and bytes; one more kernel run of the k = 8 rsag
-     plans keeps a copy of the operands of every K1/K3/K4 launch; then the
-     timed runs of phases 4 and 5 that a garbage collection of generation
-     1 or 2 landed in, with its milliseconds (``gc_pauses``);
+     plans keeps a copy of the operands of every K1/K3/K4 launch;
+  12. main path, 2-D plans (object × candidate, ``ShardPlan.simulated(k,
+     cand_parts=c)``) — MRGanter+ (local pruning, and with closure dedupe)
+     and MRCbo on mushroom as in phase 4 for every plan of ``CAND_PLANS``
+     (1 × 2 and 1 × 4: K1 and K2 launched, K3/K4 not; 4 × 2 and 2 × 4 under
+     rsag and auto: K1, K3 and K4 launched, K2 not), MRGanter+ once more at
+     max_batch 1024, census-income at 2 × 4 rsag: counts, modeled wire
+     bytes and schedule census equal the reference's (``CAND_EXPECTED``),
+     concept sets equal phase 4's and the 2-D ``backend="torch"`` run's;
+     warm walls beside phase 5's 1-D walls at as many shards × blocks,
+     with the collector's pauses.  Then phase 3's check on this path's own
+     chunks: every K2 chunk of a 1 × 4 run and every K4 chunk of a 2 × 4
+     run launched per block at ``row_off = c · Bc`` equals the one
+     whole-chunk launch bit for bit (``kernels_row_off``, with both
+     timings); then the timed runs of phases 4, 5 and 12 that a garbage
+     collection of generation 1 or 2 landed in, with its milliseconds
+     (``gc_pauses``);
   6. full lattice — MRGanter+ and MRCbo on mushroom at scale 0.01, and all
      three drivers on the paper's example and a seeded synthetic context
      (on one shard and on 8 shards), against the NextClosure / CloseByOne
@@ -86,6 +100,15 @@ checks, on the card:
      the full lattice of mushroom at scale 0.01 at k = 1 and 8: the
      reference's grown concept count and intents, version 1, post-update
      lookup hit rate 1.0, every K1 launch through the tensor-core body;
+  13. tracing — MRGanter+ at 2 × 4 rsag and phase 8's serve batch (k = 1),
+     each untraced, traced and untraced again: traced results bit-identical
+     to untraced ones, the trace valid (``validate_trace``), the span
+     rollup (count, total ms, p50 of ``mine/round/{expand, dispatch,
+     allreduce, filter}`` and ``query/micro_batch``) and the traced against
+     untraced walls printed; a ``torch.profiler`` device trace
+     (``start_device_trace``) over a 2 × 4 and a 1 × 4 run must start,
+     export, and name the K2 and K3 forms of the tensor-core closure body
+     and K4's filter kernel;
   9. rules — full-scale mushroom mined at min_support=812 on k = 8 rsag,
      the DG and Luxenburger bases at min_conf 0.5, the rule index, and
      1024 seeded rule queries at k = 5 ranked by confidence and by lift
@@ -122,6 +145,8 @@ checks, on the card:
      parent tree ran between K3 and K4 on the same chunks (the simulated
      AND-allreduce, the support sum, the LOW gather), on its costliest
      chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
+     The kernels line's ``launches`` also counts phase 12's kernel runs,
+     whose chunks are not replayed here.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -179,6 +204,48 @@ ONE_SHARD_KERNELS = ("closure", "fused_step")
 MULTI_SHARD_KERNELS = ("closure", "map_closure", "filter_step")
 CENSUS_EXPECTED = {"concepts": 104, "iterations": 4, "closures": 7_286,
                    "bytes": 2_941_120}
+# The 2-D main path (phase 12): mushroom as in phase 4 on object x candidate
+# plans (k, c, schedule), three drivers; MRGanter+ once more at a max_batch
+# of 1024 (rounds of several chunks); census-income as in phase 5 at 2 x 4.
+# K1 and K2 launch on the one-object-shard plans, K1, K3 and K4 (not K2) on
+# the others.  CAND_EXPECTED holds the reference's counts, modeled wire
+# bytes and schedule census (the JAX package, backend="jnp", on
+# ShardPlan.simulated(k, cand_parts=c) with the same context, threshold and
+# driver), derived once on the CPU by
+# ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py cand``.
+CAND_PLANS = ((1, 2, "rsag"), (1, 4, "rsag"), (4, 2, "rsag"), (4, 2, "auto"),
+              (2, 4, "rsag"), (2, 4, "auto"))
+CAND_DRIVERS = ("mrganter+", "mrganter+dedupe", "mrcbo")
+CAND_SMALL_BATCH = (2, 4, "rsag", 1024)
+CAND_CENSUS_PLAN = (2, 4, "rsag")
+CAND_EXPECTED = {
+    '1x2 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 3049472, 'reduce_rounds': {'rsag': 17}},
+    '1x2 rsag mrganter+dedupe': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 3049472, 'reduce_rounds': {'rsag': 17}},
+    '1x2 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 2476032, 'reduce_rounds': {'rsag': 15}},
+    '1x4 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 9738240, 'reduce_rounds': {'rsag': 12}},
+    '1x4 rsag mrganter+dedupe': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 9738240, 'reduce_rounds': {'rsag': 12}},
+    '1x4 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 7821312, 'reduce_rounds': {'rsag': 11}},
+    '4x2 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 30495488, 'reduce_rounds': {'rsag': 17}},
+    '4x2 rsag mrganter+dedupe': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 30495488, 'reduce_rounds': {'rsag': 17}},
+    '4x2 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 24761088, 'reduce_rounds': {'rsag': 15}},
+    '4x2 auto mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 30508544, 'reduce_rounds': {'allgather': 2, 'rsag': 15}},
+    '4x2 auto mrganter+dedupe': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 30508544, 'reduce_rounds': {'allgather': 2, 'rsag': 15}},
+    '4x2 auto mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 24872448, 'reduce_rounds': {'allgather': 3, 'rsag': 12}},
+    '2x4 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 25968896, 'reduce_rounds': {'rsag': 12}},
+    '2x4 rsag mrganter+dedupe': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 25968896, 'reduce_rounds': {'rsag': 12}},
+    '2x4 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 20857088, 'reduce_rounds': {'rsag': 11}},
+    '2x4 auto mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 25968896, 'reduce_rounds': {'allgather': 12}},
+    '2x4 auto mrganter+dedupe': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 25968896, 'reduce_rounds': {'allgather': 12}},
+    '2x4 auto mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 20857088, 'reduce_rounds': {'allgather': 11}},
+    '2x4 rsag mrganter+ max_batch=1024': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 23609600, 'reduce_rounds': {'rsag': 48}},
+    'census 2x4 rsag mrganter+': {'concepts': 104, 'iterations': 4, 'closures': 7286, 'bytes': 1679680, 'reduce_rounds': {'rsag': 4}},
+}
+
+
+def cand_key(k: int, c: int, impl: str, driver: str, max_batch: int | None = None) -> str:
+    return f"{k}x{c} {impl} {driver}" + (f" max_batch={max_batch}" if max_batch else "")
+
+
 # The serving tier (phases 8 and 9).  Serve: phase 4's context, threshold
 # and intents, 4096 closure queries of the reference CLI's seeded generator
 # (``fca serve``, seed 0), top-5 of the first 256, slots 64.  Stream: 8
@@ -676,9 +743,9 @@ def check_tc_kernels(device) -> list[dict]:
     return records
 
 
-# Every timed main-path run (phases 4 and 5): its wall and the milliseconds
+# Every timed main-path run (phases 4, 5 and 12): its wall and the milliseconds
 # Python's garbage collector paused the host inside it, by generation; the
-# phase after phase 5 reports the runs a collection of generation 1 or 2
+# phase after phase 12 reports the runs a collection of generation 1 or 2
 # landed in.
 GC_PAUSES: list = []
 
@@ -706,7 +773,8 @@ def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | N
                     min_support: int = MAIN_MIN_SUPPORT):
     """One run of a main path through the port's entry points; launch
     counts are set to 0 just before it and read just after.  ``plan_kw``
-    (``n_parts``, ``reduce_impl``) selects the object shards."""
+    (``n_parts``, ``reduce_impl``, or a whole ``plan``) selects the
+    object shards and candidate blocks."""
     import torch
 
     from repro_torch import kernels
@@ -717,14 +785,19 @@ def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | N
     torch.cuda.synchronize()
     with gc_pauses() as paused:
         t0 = time.perf_counter()
-        if algorithm == "mrganter+":
-            res = mrganter_plus(ctx, eng, local_prune=True, min_support=min_support)
-        else:
+        if algorithm == "mrcbo":
             res = mrcbo(ctx, eng, min_support=min_support)
+        else:  # mrganter+, mrganter+dedupe (closure dedupe on the card too)
+            res = mrganter_plus(ctx, eng, local_prune=True, min_support=min_support,
+                                dedupe_closures=algorithm == "mrganter+dedupe")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    plan = eng.plan
     GC_PAUSES.append({"objects": ctx.n_objects, "backend": backend, "algorithm": algorithm,
-                      "plan": plan_kw, "wall_s": wall, "gc_ms": paused})
+                      "plan": {"n_parts": plan.n_parts, "cand_parts": plan.cand_parts,
+                               "reduce_impl": plan.reduce_impl,
+                               "max_batch": plan.max_batch},
+                      "wall_s": wall, "gc_ms": paused})
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     check_tensor_body(ctx.W)
     return res, eng, wall, launches
@@ -1008,6 +1081,303 @@ def run_full_lattices(device) -> dict:
                     "concepts": res.n_concepts, "iterations": res.n_iterations,
                     "wall_s": wall}
     emit({"phase": "full_lattice", "runs": report})
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the 2-D main path (phase 12), row_off on its chunks (phase 3), tracing (13)
+# ---------------------------------------------------------------------------
+
+# The span names whose rollup the tracing phase prints.
+TRACE_SPANS = ("mine/mrganter_plus", "mine/round", "mine/round/expand",
+               "mine/round/dispatch", "mine/round/allreduce", "mine/round/filter",
+               "engine/closure", "query/micro_batch")
+
+
+def cand_plan(k: int, c: int, impl: str, max_batch: int = 8192):
+    from repro_torch.dist import ShardPlan
+
+    return ShardPlan.simulated(k, cand_parts=c, reduce_impl=impl, max_batch=max_batch)
+
+
+def check_cand_counts(name: str, k: int, counts: dict) -> None:
+    """A 2-D plan runs the kernels of a 1-D plan with as many object
+    shards: K1 and K2 on one; K1, K3 and K4 (not K2) on k > 1; no other."""
+    want = ONE_SHARD_KERNELS if k == 1 else MULTI_SHARD_KERNELS
+    missing = [n for n in want if counts[n] == 0]
+    stray = [n for n, v in counts.items() if v and n not in want]
+    if missing or stray:
+        raise AssertionError(f"{name}: kernels never launched {missing}, stray {stray}")
+
+
+def cand_record(res, eng) -> dict:
+    return {"concepts": res.n_concepts, "iterations": res.n_iterations,
+            "closures": res.n_closures_computed, "bytes": res.modeled_comm_bytes,
+            "reduce_rounds": dict(eng.stats.reduce_rounds)}
+
+
+def run_cand_path(device, main_intents, multi_report) -> tuple[dict, dict, dict]:
+    """Phase 12: the main path on 2-D (object x candidate) plans.  For every
+    plan of CAND_PLANS and driver of CAND_DRIVERS a kernel run, a torch run
+    and a warm kernel run on full-scale mushroom at MAIN_MIN_SUPPORT; counts,
+    modeled bytes and the schedule census equal the reference's
+    (CAND_EXPECTED); concept sets equal phase 4's (the 1-D kernel run) and
+    the 2-D torch run's; K1 and K2 launched on one object shard, K1, K3 and
+    K4 (not K2) on k > 1.  MRGanter+ once more at max_batch 1024, and
+    census-income at CAND_CENSUS_PLAN.  Warm walls stand beside phase 5's
+    1-D walls at the same number of shards x blocks, with the garbage
+    collector's pauses.  Returns the report, the launches of the kernel
+    runs and the K2 chunks of one more run of the 1 x 4 rsag plan and the
+    K3 / K4 chunks of one more run of the 2 x 4 and 4 x 2 rsag plans, each
+    driver but the dedupe one (phase 3's check of the 2-D chunks)."""
+    from repro_torch.data import fca_datasets
+
+    ctx, spec = fca_datasets.load("mushroom", scale=1.0)
+    main_set = intent_set(main_intents)
+    launches = {n: 0 for n in ("closure", "fused_step", "map_closure", "filter_step")}
+    report = {}
+
+    def check(name, res, eng, want):
+        got = cand_record(res, eng)
+        if got != want:
+            raise AssertionError(f"{name}: {got} != reference {want}")
+        return got
+
+    for k, c, impl in CAND_PLANS:
+        for algorithm in CAND_DRIVERS:
+            key = cand_key(k, c, impl, algorithm)
+            want = CAND_EXPECTED[key]
+            kw = {"plan": cand_plan(k, c, impl)}
+            res, eng, wall, counts = drive_main_path(ctx, "kernel", algorithm, device, kw)
+            cold_gc = GC_PAUSES[-1]["gc_ms"]
+            tres, teng, twall, tcounts = drive_main_path(ctx, "torch", algorithm, device, kw)
+            wres, _, wwall, wcounts = drive_main_path(ctx, "kernel", algorithm, device, kw)
+            got = check(key, res, eng, want)
+            check(key + " torch", tres, teng, want)
+            if not intent_set(res.intents) == intent_set(tres.intents) == main_set:
+                raise AssertionError(f"{key}: concept sets differ from the torch run's or "
+                                     "phase 4's")
+            if intent_set(wres.intents) != main_set or wcounts != counts:
+                raise AssertionError(f"{key}: the warm run differs from the first")
+            if any(tcounts.values()):
+                raise AssertionError(f"{key}: the torch backend launched a kernel")
+            check_cand_counts(key, k, counts)
+            for n in launches:
+                launches[n] += counts[n]
+            one_d = multi_report.get(f"{algorithm}/k={k * c}/rsag", {}).get("kernel_wall_s")
+            report[key] = dict(
+                got, launches=counts,
+                kernel_wall_s={"cold": wall, "warm": wwall}, torch_wall_s=twall,
+                gc_ms={"cold": cold_gc, "warm": GC_PAUSES[-1]["gc_ms"]},
+                one_d_kernel_wall_s=one_d.get("warm") if isinstance(one_d, dict) else one_d,
+            )
+    k, c, impl, mb = CAND_SMALL_BATCH
+    key = cand_key(k, c, impl, "mrganter+", mb)
+    runs = [drive_main_path(ctx, "kernel", "mrganter+", device, {"plan": cand_plan(k, c, impl, mb)})
+            for _ in range(2)]
+    for res, eng, _, counts in runs:
+        got = check(key, res, eng, CAND_EXPECTED[key])
+        if intent_set(res.intents) != main_set:
+            raise AssertionError(f"{key}: concept set differs from phase 4's")
+        check_cand_counts(key, k, counts)
+    if runs[0][1].stats.closure_calls <= runs[0][0].n_iterations:
+        raise AssertionError(f"{key}: no round spanned several chunks")
+    for n in launches:
+        launches[n] += runs[0][3][n]
+    report[key] = dict(got, launches=runs[0][3], closure_calls=runs[0][1].stats.closure_calls,
+                       kernel_wall_s={"cold": runs[0][2], "warm": runs[1][2]},
+                       gc_ms=GC_PAUSES[-1]["gc_ms"])
+    emit({"phase": "cand_path", "dataset": spec.name, "objects": ctx.n_objects,
+          "attributes": ctx.n_attrs, "min_support": MAIN_MIN_SUPPORT, "runs": report})
+
+    cctx, cspec = fca_datasets.load("census-income", scale=1.0)
+    k, c, impl = CAND_CENSUS_PLAN
+    key = "census " + cand_key(k, c, impl, "mrganter+")
+    cruns = [drive_main_path(cctx, "kernel", "mrganter+", device, {"plan": cand_plan(k, c, impl)},
+                             CENSUS_MIN_SUPPORT) for _ in range(2)]
+    for res, eng, _, counts in cruns:
+        got = check(key, res, eng, CAND_EXPECTED[key])
+        check_cand_counts(key, k, counts)
+    for n in launches:
+        launches[n] += cruns[0][3][n]
+    report[key] = dict(got, launches=cruns[0][3],
+                       kernel_wall_s={"cold": cruns[0][2], "warm": cruns[1][2]},
+                       gc_ms=GC_PAUSES[-1]["gc_ms"],
+                       one_d_kernel_wall_s=None)
+    emit({"phase": "cand_census", "dataset": cspec.name, "objects": cctx.n_objects,
+          "attributes": cctx.n_attrs, "min_support": CENSUS_MIN_SUPPORT,
+          "plan": {"n_parts": k, "cand_parts": c, "reduce_impl": impl}, **report[key]})
+
+    # K2 chunks of a one-shard plan, K3 / K4 chunks of the k-shard plans
+    chunks = {}
+    for k, c, impl in ((1, 4, "rsag"), (2, 4, "rsag"), (4, 2, "rsag")):
+        names = ("fused_step",) if k == 1 else ("map_closure", "filter_step")
+        for algorithm in ("mrganter+", "mrcbo"):
+            key = cand_key(k, c, impl, algorithm)
+            _, captured = capture_launches(names, lambda: drive_main_path(
+                ctx, "kernel", algorithm, device, {"plan": cand_plan(k, c, impl)})[0])
+            check_captured(key, captured, report[key]["launches"])
+            for name in names:
+                chunks.setdefault(name, []).extend((key, c, a, kw) for a, kw in captured[name])
+    return report, launches, chunks
+
+
+def check_row_off(chunks: dict) -> dict:
+    """Phase 3, on the 2-D path's own chunks (a simulated plan launches
+    once over the whole ``[cand_parts·Bc]`` chunk, up to 32,768 rows):
+    every whole-chunk launch of K2, K3 and K4 equals its plain version on
+    the same operands, bit for bit; K2 and K4 launched once per block at
+    ``row_off = c·Bc`` on the block's rows give, bit for bit, what the
+    whole-chunk launch at ``row_off = 0`` gave (closures, supports, keep);
+    and the two timings of each K2 / K4 chunk's launches."""
+    import torch
+
+    from repro_torch.kernels import frontier as fk
+
+    plain = {"fused_step": fk.fused_step_plain, "map_closure": fk.map_closure_plain,
+             "filter_step": fk.filter_step_plain}
+    out = {}
+    for name, recs in chunks.items():
+        kern = getattr(fk, name)
+        cases, block_cases, whole_ms, blocks_ms = 0, 0, 0.0, 0.0
+        for key, cp, args, kw in recs:
+            whole = kern(*args, **kw)
+            require_equal(f"{name} whole chunk ({key})", whole, plain[name](*args, **kw))
+            cases += 1
+            if name == "map_closure":  # K3 takes no row_off
+                continue
+            sc = args[-1]
+            B = args[1].shape[0] if name == "fused_step" else args[0].shape[-2]
+            if sc[3] != 0 or B % cp:
+                raise AssertionError(f"{name} chunk of {key}: row_off {sc[3]}, B {B}")
+            Bc = B // cp
+            blocks = []  # each block's operands: rows / partials sliced, row_off = c·Bc
+            for i in range(cp):
+                sl = slice(i * Bc, (i + 1) * Bc)
+                bkw = {k: (v[sl].contiguous() if k in ("parent", "lowrow", "gens") else v)
+                       for k, v in kw.items()}
+                bsc = (sc[0], sc[1], sc[2], i * Bc)
+                if name == "fused_step":
+                    bargs = (args[0], args[1][sl].contiguous(), args[2], bsc)
+                else:
+                    bargs = (args[0][..., sl, :].contiguous(),
+                             None if args[1] is None else args[1][..., sl].contiguous(), bsc)
+                blocks.append((bargs, bkw))
+            parts = [kern(*a, **k) for a, k in blocks]
+            joined = tuple(None if whole[j] is None else torch.cat([p[j] for p in parts])
+                           for j in range(3))
+            require_equal(f"{name} per block at row_off = c·Bc ({key})", joined, whole)
+            whole_ms += cuda_time_ms(lambda: kern(*args, **kw), reps=5, warmup=1)
+            blocks_ms += cuda_time_ms(lambda: [kern(*a, **k) for a, k in blocks], reps=5,
+                                      warmup=1)
+            block_cases += 1
+        out[name] = {"against_plain": cases, "per_block_cases": block_cases,
+                     "bit_exact": True}
+        if block_cases:
+            out[name].update(whole_chunk_ms_sum=whole_ms, per_block_ms_sum=blocks_ms)
+    emit({"phase": "kernels_row_off", **out})
+    return out
+
+
+def run_tracing_phase(device, main_intents) -> dict:
+    """Phase 13: the tracer on the card.  MRGanter+ at 2 x 4 rsag (K1, K3,
+    K4) and phase 8's serve batch at k = 1 (K1, K5), each untraced, traced
+    and untraced again: the traced run's results bit-identical to the
+    untraced ones, its trace valid, the span rollup (count, total ms, p50)
+    and the traced against untraced warm walls printed.  Then a
+    torch.profiler device trace (``start_device_trace``) over a 2 x 4 and a
+    1 x 4 run: it must start and export, and name the tensor-core closure
+    body in its fused (K2) and map (K3) forms and K4's filter kernel."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import fca_datasets
+    from repro_torch.dist import ShardPlan
+    from repro_torch.launch.fca import serve_queries
+    from repro_torch.obs import (Tracer, span_rollup, start_device_trace, stop_device_trace,
+                                 use_tracer, validate_trace)
+    from repro_torch.obs.trace import DEVICE_TRACE_FILE
+    from repro_torch.query import ConceptStore, QueryConfig, QueryEngine
+
+    ctx, _ = fca_datasets.load("mushroom", scale=1.0)
+    plan_kw = {"plan": cand_plan(2, 4, "rsag")}
+
+    def fingerprint(res, eng):
+        s = eng.stats
+        return ([y.tobytes() for y in res.intents], res.n_iterations, s.closure_calls,
+                s.closures_computed, s.modeled_comm_bytes, dict(s.reduce_rounds),
+                s.h2d_transfers, s.h2d_bytes, s.d2h_transfers, s.d2h_bytes)
+
+    def rollup(tr):
+        trace = json.loads(json.dumps(tr.to_dict()))
+        summary = validate_trace(trace)
+        roll = span_rollup(trace["traceEvents"])
+        return summary, {n: {"count": r["count"], "total_ms": r["total_s"] * 1e3,
+                             "p50_ms": r["p50_s"] * 1e3}
+                         for n, r in roll.items() if n in TRACE_SPANS}
+
+    report = {}
+    runs = []
+    for traced in (False, True, False):
+        tr = Tracer() if traced else None
+        with use_tracer(tr):
+            res, eng, wall, counts = drive_main_path(ctx, "kernel", "mrganter+", device, plan_kw)
+        runs.append((fingerprint(res, eng), wall, tr, counts))
+    if not runs[0][0] == runs[1][0] == runs[2][0]:
+        raise AssertionError("tracing: the traced mine differs from the untraced ones")
+    summary, roll = rollup(runs[1][2])
+    report["mine 2x4 rsag mrganter+"] = {
+        "trace": summary, "rollup": roll, "launches": runs[1][3],
+        "wall_s": {"untraced": runs[0][1], "traced": runs[1][1], "untraced_again": runs[2][1]}}
+
+    store = ConceptStore.build(ctx, main_intents, plan=ShardPlan.simulated(1), device=device)
+    queries = serve_queries(ctx, SERVE_QUERIES, np.random.default_rng(0))
+    qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend="kernel"))
+    sruns = []
+    for traced in (False, True, False):
+        tr = Tracer() if traced else None
+        with use_tracer(tr):
+            got, wall, counts = drive_queries(lambda: serve_answers(qe, queries), device)
+        sruns.append((got, wall, tr))
+    if not (same_arrays(flat(sruns[0][0]), flat(sruns[1][0]))
+            and same_arrays(flat(sruns[0][0]), flat(sruns[2][0]))):
+        raise AssertionError("tracing: the traced serve batch answered otherwise")
+    if serve_record(qe, sruns[1][0])["sha256"] != SERVE_EXPECTED[1]["sha256"]:
+        raise AssertionError("tracing: the traced serve batch differs from the reference")
+    summary, roll = rollup(sruns[1][2])
+    report["serve k=1"] = {
+        "trace": summary, "rollup": roll,
+        "wall_s": {"untraced": sruns[0][1], "traced": sruns[1][1],
+                   "untraced_again": sruns[2][1]}}
+
+    trace_dir = ROOT / "build" / "device_trace"
+    if not start_device_trace(str(trace_dir)):
+        raise AssertionError("tracing: start_device_trace did not start a profiler session")
+    try:
+        for kw in (plan_kw, {"plan": cand_plan(1, 4, "rsag")}):
+            drive_main_path(ctx, "kernel", "mrganter+", device, kw)
+        torch.cuda.synchronize()
+    finally:
+        stopped = stop_device_trace()
+    path = trace_dir / DEVICE_TRACE_FILE
+    if not stopped or not path.is_file():
+        raise AssertionError("tracing: the device trace was not exported")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    symbols = {"K2 closure_tc_kernel<W, true, ...>": r"closure_tc_kernel<\d+, true",
+               "K3 closure_tc_kernel<W, false, ...>": r"closure_tc_kernel<\d+, false",
+               "K4 filter_kernel": r"filter_kernel"}
+    found = {k: sorted(n for n in names if re.search(pat, n))[:2]
+             for k, pat in symbols.items()}
+    report["device_trace"] = {"events": len(events), "kernel_names": len(names),
+                              "bytes": path.stat().st_size, "found": found}
+    path.unlink()
+    missing = [k for k, v in found.items() if not v]
+    if missing:
+        raise AssertionError(f"tracing: the device trace names no {missing}")
+    emit({"phase": "tracing", **report})
     return report
 
 
@@ -2553,10 +2923,17 @@ def main() -> int:
     _, launches, chunks, main_intents = run_main_path(device)
     emit({"phase": "main_path_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    _, _, multi_launches, multi_chunks = run_multi_shard_path(device)
+    multi_report, _, multi_launches, multi_chunks = run_multi_shard_path(device)
     emit({"phase": "multi_shard_seconds", "seconds": time.perf_counter() - t0,
           "launches": multi_launches})
     add_runs(launches, chunks, multi_launches, multi_chunks)
+    t0 = time.perf_counter()
+    _, cand_launches, cand_chunks = run_cand_path(device, main_intents, multi_report)
+    check_row_off(cand_chunks)
+    for name, n in cand_launches.items():  # the 2-D runs' launches, their chunks untimed
+        launches[name] += n
+    emit({"phase": "cand_path_seconds", "seconds": time.perf_counter() - t0,
+          "launches": cand_launches})
     emit({"phase": "gc_pauses", "timed_runs": len(GC_PAUSES),
           "runs_with_gen12": [r for r in GC_PAUSES if r["gc_ms"][1] + r["gc_ms"][2] > 0]})
     t0 = time.perf_counter()
@@ -2566,6 +2943,9 @@ def main() -> int:
     _, serve_chunks, serve_launches = run_serve_phase(device, main_intents)
     emit({"phase": "serve_seconds", "seconds": time.perf_counter() - t0})
     add_runs(launches, chunks, serve_launches, serve_chunks)
+    t0 = time.perf_counter()
+    run_tracing_phase(device, main_intents)
+    emit({"phase": "tracing_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     _, rules_chunks, launches["rules_topk"] = run_rules_phase(device)
     emit({"phase": "rules_seconds", "seconds": time.perf_counter() - t0})

@@ -21,7 +21,11 @@ closures; ``spmd_step_fused`` builds the same rounds for the frontier
 step variants out of the fused kernels: K2 (closure → support → driver
 filter in one pass) on one shard, K3 → K4 on k > 1 (K4 folding the
 simulated shards' partials itself; a process-group rank runs the
-AND-allreduce between the two).
+AND-allreduce between the two).  ``spmd_step_cand`` and
+``spmd_step_cand_fused`` are their 2-D twins for plans whose candidate
+axis is blocked (``ShardPlan.spmd_cand``): the same map and reduce per
+candidate block, the filter block-local, the survivors gathered along
+the candidate axis and merged.
 Supports are corrected globally: all-ones padding rows match every
 candidate, so ``supports -= n_pad`` after the sum.
 """
@@ -40,6 +44,7 @@ from repro_torch.dist.shardplan import AUTO_IMPLS, ShardPlan
 from repro_torch.kernels import frontier as fkern
 from repro_torch.kernels import ops
 from repro_torch.obs import StatsBase
+from repro_torch.obs import trace as obs
 
 BACKENDS = ("kernel", "torch", "matmul")
 
@@ -147,18 +152,21 @@ class ClosureEngine:
             mask=self.mask,
         )
 
-    def _dispatch(self, make):
+    def _dispatch(self, make, *, per_block: bool = False):
         """One step per schedule: the fixed one, or — for ``auto`` — every
         schedule of ``AUTO_IMPLS``, resolved per round from the padded
-        batch size (every schedule is bit-identical, so the choice only
-        moves wire cost; ``charge_round`` ledgers the same choice)."""
+        batch size, or on a 2-D step (``per_block``) from the block's
+        (every schedule is bit-identical, so the choice only moves wire
+        cost; ``charge_round`` / ``charge_round_cand`` ledger the same
+        choice)."""
         plan, ctx = self.plan, self.ctx
         if plan.reduce_impl != "auto":
             return make(plan.reduce_impl)
         steps = {impl: make(impl) for impl in AUTO_IMPLS}
+        parts = plan.cand_parts if per_block else 1
 
         def dispatch(rows, cands, *extras):
-            impl = plan.resolve_impl(cands.shape[0], ctx.W, ctx.n_attrs)
+            impl = plan.resolve_impl(cands.shape[0] // parts, ctx.W, ctx.n_attrs)
             return steps[impl](rows, cands, *extras)
 
         return dispatch
@@ -198,6 +206,44 @@ class ClosureEngine:
 
         return self._dispatch(make)
 
+    def spmd_step_cand(
+        self,
+        post,
+        merge,
+        *,
+        with_supports: bool = False,
+        n_cand: int = 1,
+        n_post_rep: int = 0,
+        n_merge_rep: int = 0,
+    ):
+        """2-D twin of :meth:`spmd_step` for candidate-blocked chunks.
+
+        The returned callable is ``step(rows, *cand_ops, *extras)``: the
+        ``n_cand`` candidate operands (seeds first, then lineage such as
+        parents and generators) are blocked over the plan's candidate
+        axis; each block runs map → AND-allreduce over the *object* shards,
+        ``post(idx, gc[, gs], *lineage, *extras)`` filters block-locally on
+        ``[nb, Bc, ...]`` stacks, and only then are the survivors gathered
+        along the candidate axis and handed to ``merge``.
+        """
+        axes = self.plan.reduce_axes
+        n_attrs, mask, n_pad = self.ctx.n_attrs, self.mask, self.n_pad_rows
+
+        def make(impl):
+            def body(rows_local, cands, *lineage):
+                lc, ls = self._local_closure(rows_local, cands)
+                gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=n_attrs) & mask
+                if with_supports:
+                    return gc, collectives.sum_allreduce(ls, axes) - n_pad
+                return gc
+
+            return self.plan.spmd_cand(
+                body, n_cand=n_cand, post=post, n_post_rep=n_post_rep,
+                merge=merge, n_merge_rep=n_merge_rep,
+            )
+
+        return self._dispatch(make, per_block=True)
+
     # -- fused-kernel step builders (backend="kernel") -------------------------
     #
     # Two placements, chosen by plan geometry:
@@ -221,13 +267,54 @@ class ClosureEngine:
     # signatures match those builders, so DeviceFrontier routes by name
     # alone.
 
+    def _fused_kernels(self, variant: str, LOW: torch.Tensor, wrap, *, per_block: bool = False):
+        """``wrap(run)`` around the kernels of ``variant``'s fused round,
+        ``run(rows, cands, scalars, parent=, gens=) -> (closures, keep)``:
+        K2 on one object shard, else K3 → K4 (on a process group with the
+        plan's collectives between them, one ``run`` per schedule)."""
+        iceberg, cbo, _ = fkern.VARIANTS[variant]
+        plan, ctx = self.plan, self.ctx
+        mask = self.mask[None, :]
+
+        if plan.n_parts == 1:
+
+            def k2(rows, cands, sc, parent=None, gens=None):
+                # one shard: a simulated [1, N, W] or a group rank's [N, W]
+                kw = {"parent": parent, "lowrow": LOW[gens.long()]} if cbo else {}
+                gc, _, keep = fkern.fused_step(rows.reshape(-1, ctx.W), cands, mask, sc,
+                                               iceberg=iceberg, cbo=cbo, **kw)
+                return gc, keep
+
+            return wrap(k2)
+
+        def k3_k4(reduce):
+            def run(rows, cands, sc, parent=None, gens=None):
+                lc, ls = reduce(*fkern.map_closure(rows, cands, mask))
+                kw = {"parent": parent, "LOW": LOW, "gens": gens} if cbo else {}
+                gc, _, keep = fkern.filter_step(lc, ls if iceberg else None, sc,
+                                                iceberg=iceberg, cbo=cbo, **kw)
+                return gc, keep
+
+            return wrap(run)
+
+        if plan.is_simulated:  # K4 folds the shards' partials
+            return k3_k4(lambda lc, ls: (lc, ls))
+        axes = plan.reduce_axes
+
+        def make(impl):
+            def reduce(lc, ls):
+                gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=ctx.n_attrs)
+                return gc.contiguous(), collectives.sum_allreduce(ls, axes) if iceberg else None
+
+            return k3_k4(reduce)
+
+        return self._dispatch(make, per_block=per_block)
+
     def spmd_step_fused(self, variant: str, LOW: torch.Tensor):
         """Fused-kernel step for ``variant`` ∈ ``fkern.VARIANTS``."""
         from repro_torch.core.frontier import _compact, _sort_unique
 
         iceberg, cbo, unique = fkern.VARIANTS[variant]
-        plan, ctx = self.plan, self.ctx
-        mask = self.mask[None, :]
         n_pad = self.n_pad_rows
 
         def step_for(run):
@@ -259,39 +346,71 @@ class ClosureEngine:
 
             return filter_step
 
-        if plan.n_parts == 1:
+        return self._fused_kernels(variant, LOW, step_for)
 
-            def k2(rows, cands, sc, parent=None, gens=None):
-                # one shard: a simulated [1, N, W] or a group rank's [N, W]
-                kw = {"parent": parent, "lowrow": LOW[gens.long()]} if cbo else {}
-                gc, _, keep = fkern.fused_step(rows.reshape(-1, ctx.W), cands, mask, sc,
-                                               iceberg=iceberg, cbo=cbo, **kw)
-                return gc, keep
+    def spmd_step_cand_fused(self, variant: str, LOW: torch.Tensor, merge,
+                             *, n_merge_rep: int = 0):
+        """Fused-kernel 2-D twin of :meth:`spmd_step_fused`: ``variant``'s
+        keep test in the kernels, block-local compaction, survivors
+        gathered along the candidate axis into ``merge``.
 
-            return step_for(k2)
+        A simulated plan launches once per chunk: K2 (one object shard), or
+        K3 then K4 folding the partials (k shards), over the whole
+        ``[cand_parts · Bc]`` chunk at ``row_off = 0`` — every keep test is
+        row-wise, so this is what ``cand_parts`` launches at ``row_off =
+        c · Bc`` compute.  A process-group rank closes its own block and
+        launches at ``row_off = cand_index · Bc``, K4 at K = 1 after the
+        object-subgroup reduce.  The compaction (and dedupe) then runs on
+        the ``[nb, Bc]`` block views in torch.
+        """
+        from repro_torch.core.frontier import _compact_blocks, _sort_unique_blocks
 
-        def k3_k4(reduce):
-            def run(rows, cands, sc, parent=None, gens=None):
-                lc, ls = reduce(*fkern.map_closure(rows, cands, mask))
-                kw = {"parent": parent, "LOW": LOW, "gens": gens} if cbo else {}
-                gc, _, keep = fkern.filter_step(lc, ls if iceberg else None, sc,
-                                                iceberg=iceberg, cbo=cbo, **kw)
-                return gc, keep
+        iceberg, cbo, unique = fkern.VARIANTS[variant]
+        plan, n_pad = self.plan, self.n_pad_rows
 
-            return step_for(run)
+        def scalars(cands, n_valid, ms):
+            row_off = plan.cand_index() * cands.shape[0]
+            return fkern.pack_scalars(n_valid, ms[0] if iceberg else 0, n_pad, row_off)
 
-        if plan.is_simulated:  # K4 folds the shards' partials
-            return k3_k4(lambda lc, ls: (lc, ls))
-        axes = plan.reduce_axes
+        def build(run):
+            """The variant's 2-D step around ``run(rows, cands, scalars,
+            parent=, gens=) -> (closures, keep)``; a simulated plan's
+            outputs gain the length-1 shard dimension spmd_cand keeps."""
+            lead = (lambda x: x[None]) if plan.is_simulated else (lambda x: x)
 
-        def make(impl):
-            def reduce(lc, ls):
-                gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=ctx.n_attrs)
-                return gc.contiguous(), collectives.sum_allreduce(ls, axes) if iceberg else None
+            if variant == "plain":
 
-            return k3_k4(reduce)
+                def body(rows, cands):
+                    return lead(run(rows, cands, scalars(cands, 0, ()))[0])
 
-        return self._dispatch(make)
+                return plan.spmd_cand(body, n_cand=1, merge=merge, n_merge_rep=n_merge_rep)
+
+            if cbo:
+
+                def body(rows, cands, parents, gens, n_valid, *ms):
+                    gc, keep = run(rows, cands, scalars(cands, n_valid, ms),
+                                   parent=parents, gens=gens)
+                    return lead(gc), lead(keep)
+
+                def post(idx, gc, keep, parents, gens):
+                    n, gc, gens = _compact_blocks(keep, gc, gens)
+                    return gc, gens, n
+
+                return plan.spmd_cand(body, n_cand=3, n_rep=2 if iceberg else 1, post=post,
+                                      merge=merge, n_merge_rep=n_merge_rep)
+
+            def body(rows, cands, n_valid, *ms):
+                gc, keep = run(rows, cands, scalars(cands, n_valid, ms))
+                return lead(gc), lead(keep)
+
+            def post(idx, gc, keep):
+                n, gc = _sort_unique_blocks(gc, keep) if unique else _compact_blocks(keep, gc)
+                return gc, n
+
+            return plan.spmd_cand(body, n_cand=1, n_rep=2 if iceberg else 1, post=post,
+                                  merge=merge, n_merge_rep=n_merge_rep)
+
+        return self._fused_kernels(variant, LOW, build, per_block=True)
 
     # -- stats accounting -------------------------------------------------------
 
@@ -310,6 +429,24 @@ class ClosureEngine:
         impl = self.plan.resolve_impl(cap, self.ctx.W, self.ctx.n_attrs)
         self.stats.record_reduce(impl)
 
+    def charge_round_cand(self, block_cap: int, n_valid: int, *, count_round: bool = True):
+        """Ledger one 2-D dispatch: ``cand_parts`` blocks of ``block_cap``
+        candidates each (the object reduce per block plus the candidate-axis
+        survivor gather, ``ShardPlan.modeled_latency_split_cand``), the
+        ``auto`` schedule resolved per block."""
+        self.stats.closure_calls += 1
+        if count_round:
+            self.stats.rounds += 1
+        self.stats.closures_computed += n_valid
+        hops, vol = self.plan.modeled_latency_split_cand(
+            block_cap, self.ctx.W, self.ctx.n_attrs
+        )
+        self.stats.modeled_comm_bytes += vol
+        self.stats.modeled_dispatch_bytes += hops
+        self.stats.modeled_collective_bytes += vol
+        impl = self.plan.resolve_impl(block_cap, self.ctx.W, self.ctx.n_attrs)
+        self.stats.record_reduce(impl)
+
     # -- public API ---------------------------------------------------------------
 
     @property
@@ -325,21 +462,22 @@ class ClosureEngine:
         out_c = np.empty((B, W), np.uint32)
         out_s = np.empty((B,), np.int32)
         self.stats.rounds += 1
-        for lo in range(0, B, self.max_batch):
-            chunk = cands[lo : lo + self.max_batch]
-            b = chunk.shape[0]
-            cap = ops.bucket_size(b, minimum=self.min_bucket)
-            if cap != b:  # pad with all-ones candidates; outputs dropped
-                pad = np.full((cap - b, W), 0xFFFFFFFF, np.uint32)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            gc, gs = self._step(self.rows, device_bits(chunk, self.device))
-            out_c[lo : lo + b] = host_bits(gc)[:b]
-            out_s[lo : lo + b] = gs.cpu().numpy()[:b]
-            self.charge_round(cap, b, count_round=False)
-            self.stats.h2d_transfers += 1
-            self.stats.h2d_bytes += cap * W * 4
-            self.stats.d2h_transfers += 2
-            self.stats.d2h_bytes += cap * (W + 1) * 4
+        with obs.current().span("engine/closure", batch=B):
+            for lo in range(0, B, self.max_batch):
+                chunk = cands[lo : lo + self.max_batch]
+                b = chunk.shape[0]
+                cap = ops.bucket_size(b, minimum=self.min_bucket)
+                if cap != b:  # pad with all-ones candidates; outputs dropped
+                    pad = np.full((cap - b, W), 0xFFFFFFFF, np.uint32)
+                    chunk = np.concatenate([chunk, pad], axis=0)
+                gc, gs = self._step(self.rows, device_bits(chunk, self.device))
+                out_c[lo : lo + b] = host_bits(gc)[:b]
+                out_s[lo : lo + b] = gs.cpu().numpy()[:b]
+                self.charge_round(cap, b, count_round=False)
+                self.stats.h2d_transfers += 1
+                self.stats.h2d_bytes += cap * W * 4
+                self.stats.d2h_transfers += 2
+                self.stats.d2h_bytes += cap * (W + 1) * 4
         return out_c, out_s
 
     def closure_dev(self, cands: torch.Tensor, n_valid: int, *, count_round: bool = True):

@@ -11,8 +11,23 @@ the device.  Every iteration runs
                           closure dedupe / iceberg min-support cut)
                      ──►  compacted survivors
 
-and only the surviving closures and their counts cross to the host.  On
-``backend="kernel"`` engines the step variants run the fused kernels — K2
+and only the surviving closures and their counts cross to the host.
+
+On a 2-D plan (``ShardPlan.cand_parts > 1``) the chunk itself is blocked
+over the candidate axis: each block is closed and reduced over the object
+shards at the block batch size, the driver filter runs block-locally, and
+the blocks' compacted survivors are gathered along the candidate axis and
+merged (``merge_blocks_*``) — one round absorbs ``cand_parts × max_batch``
+candidates.  MRGanter's single-intent walk stays 1-D.
+
+Every host boundary of a round records a span on the current tracer
+(:mod:`repro_torch.obs`): ``mine/round[r]`` tagged with the plan's
+geometry, and inside it ``/expand``, ``/dispatch``, ``/allreduce`` (the
+blocking read of the survivor count, which sizes the next step) and
+``/filter`` (the survivor download).  Spans add no device synchronisation
+of their own.
+
+On ``backend="kernel"`` engines the step variants run the fused kernels — K2
 (closure, support and filter in one pass) on one object shard, K3 →
 AND-allreduce → K4 on k > 1; on the other backends they run the plain
 round followed by the same filters as torch ops.  All give the same rows
@@ -36,6 +51,7 @@ from repro_torch.core import lectic
 from repro_torch.device import host_bits, unsigned_key
 from repro_torch.kernels import frontier as fkern
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs
 
 # ---------------------------------------------------------------------------
 # device primitives
@@ -56,24 +72,61 @@ def _compact(valid: torch.Tensor, *arrays) -> tuple:
     return (valid.sum(dtype=torch.int32), *(a[perm] for a in arrays))
 
 
-def _sort_unique(seeds: torch.Tensor, valid: torch.Tensor, *arrays) -> tuple:
-    """Lexsort packed rows, mark adjacent duplicates, compact survivors.
+def _unique_rows(seeds: torch.Tensor, valid: torch.Tensor, block=None):
+    """Lexsort packed rows and mark the first of each run of equal rows.
 
-    Invalid rows sort to the end (primary key), then word 0 down to word
-    W-1 as unsigned keys — a stable least-significant-first radix pass per
-    key.  Returns ``(count, seeds, *arrays)`` with the unique valid rows
-    moved to the front.
-    """
+    Keys, most significant first: ``block`` (when given), validity (invalid
+    rows last), then word 0 down to word W-1 as unsigned keys — a stable
+    least-significant-first radix pass per key.  Returns ``(perm, sorted
+    rows, keep)``: ``keep`` marks each valid row that differs from its
+    predecessor, or starts its block."""
     perm = torch.arange(seeds.shape[0], device=seeds.device)
     for w in reversed(range(seeds.shape[1])):
         perm = perm[_stable_order(unsigned_key(seeds[perm, w]))]
     perm = perm[_stable_order((~valid[perm]).to(torch.uint8))]
+    if block is not None:
+        perm = perm[_stable_order(block[perm])]
     seeds = seeds[perm]
     valid = valid[perm]
     same_prev = (seeds == seeds.roll(1, 0)).all(-1)
     same_prev[:1] = False
-    keep = valid & ~(same_prev & valid.roll(1))
+    if block is not None:
+        b = block[perm]
+        same_prev &= b == b.roll(1)
+    return perm, seeds, valid & ~(same_prev & valid.roll(1))
+
+
+def _sort_unique(seeds: torch.Tensor, valid: torch.Tensor, *arrays) -> tuple:
+    """Lexsort packed rows, mark adjacent duplicates, compact survivors.
+    Returns ``(count, seeds, *arrays)`` with the unique valid rows, in
+    unsigned row order, moved to the front."""
+    perm, seeds, keep = _unique_rows(seeds, valid)
     return _compact(keep, seeds, *(a[perm] for a in arrays))
+
+
+def _take_blocks(a: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``a[i, perm[i]]`` for every block ``i`` of a ``[nb, Bc, ...]`` stack."""
+    return a[torch.arange(a.shape[0], device=a.device)[:, None], perm]
+
+
+def _compact_blocks(valid: torch.Tensor, *arrays) -> tuple:
+    """:func:`_compact` in every block of ``[nb, Bc, ...]`` stacks at once:
+    returns ``([nb] counts, *reordered stacks)``, each block exactly what
+    ``_compact`` gives it alone."""
+    perm = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+    return (valid.sum(-1, dtype=torch.int32), *(_take_blocks(a, perm) for a in arrays))
+
+
+def _sort_unique_blocks(seeds: torch.Tensor, valid: torch.Tensor, *arrays) -> tuple:
+    """:func:`_sort_unique` in every block of ``[nb, Bc, W]`` stacks at once:
+    one lexsort with the block index as the most significant key keeps each
+    block's rows in its own ``Bc`` slots, and duplicates are marked within
+    a block only.  Returns ``([nb] counts, seeds, *arrays)`` as stacks."""
+    nb, Bc, W = seeds.shape
+    block = torch.arange(nb, device=seeds.device).repeat_interleave(Bc)
+    perm, flat, keep = _unique_rows(seeds.reshape(nb * Bc, W), valid.reshape(-1), block)
+    rest = (a.reshape(nb * Bc, *a.shape[2:])[perm].reshape(a.shape) for a in arrays)
+    return _compact_blocks(keep.reshape(nb, Bc), flat.reshape(nb, Bc, W), *rest)
 
 
 def slice_pad(arr: torch.Tensor, lo: int, cap: int, fill=0) -> torch.Tensor:
@@ -144,6 +197,49 @@ def unique_closures(closures, n_valid):
     return closures, n
 
 
+# -- candidate-axis (2-D) block merges ---------------------------------------
+# The block-local filters of a 2-D round leave [cand_parts, Bc, ...] stacks
+# with their survivors front-packed per block, and per-block counts; these
+# merges consume the gathered stacks and produce the chunk's survivors.
+
+
+def _block_valid(counts, Bc):
+    """Flattened validity mask for gathered [cand, Bc, ...] block stacks."""
+    return (torch.arange(Bc, device=counts.device)[None, :] < counts[:, None]).reshape(-1)
+
+
+def merge_blocks_plain(gc_blocks):
+    """No filter ran: concatenating blocks restores the chunk's row order
+    (block i held rows [i·Bc, (i+1)·Bc) of the chunk)."""
+    return gc_blocks.reshape(-1, gc_blocks.shape[-1])
+
+
+def merge_blocks_compact(gc_blocks, counts):
+    """Compact each block's survivors (already front-packed) into one run."""
+    valid = _block_valid(counts, gc_blocks.shape[1])
+    n, gc = _compact(valid, gc_blocks.reshape(-1, gc_blocks.shape[-1]))
+    return gc, n
+
+
+def merge_blocks_unique(gc_blocks, counts):
+    """Block-local dedupe removed intra-block duplicates; this pass removes
+    the cross-block ones (sorted-unique over the concatenated survivors)."""
+    valid = _block_valid(counts, gc_blocks.shape[1])
+    n, gc = _sort_unique(gc_blocks.reshape(-1, gc_blocks.shape[-1]), valid)
+    return gc, n
+
+
+def merge_blocks_cbo(gc_blocks, gen_blocks, counts):
+    """CbO survivors with their generator lineage (canonicity already ran
+    block-locally; canonical survivors are globally unique, so compaction
+    is the whole merge)."""
+    valid = _block_valid(counts, gc_blocks.shape[1])
+    n, gc, gens = _compact(
+        valid, gc_blocks.reshape(-1, gc_blocks.shape[-1]), gen_blocks.reshape(-1)
+    )
+    return gc, gens, n
+
+
 def filter_canonical(closures, parents, gens, n_valid, LOW):
     """CbO canonicity ``(Z ^ Y) & LOW[a] == 0`` + survivor compaction.
 
@@ -189,6 +285,9 @@ class DeviceFrontier:
         self._frontier = None  # [Fb, W]
         self._gens = None  # [Fb] (CbO lineage)
         self._n = 0
+        # round sequence number and plan-geometry tags of the round spans
+        self._seq = 0
+        self._tags = engine.plan.trace_tags()
         # Tables and built steps are memoized on the ENGINE: a driver builds
         # a fresh DeviceFrontier per run, and every frontier of an engine
         # shares them.  Steps are built lazily (``_step_fn``).
@@ -243,6 +342,40 @@ class DeviceFrontier:
             Y_next, found = lectic.select_lectic(gc[:n_attrs], ok)
             return Y_next, ~found
 
+        # Candidate-axis (2-D) posts: the same filters made block-local,
+        # batched over the [nb, Bc] blocks a process holds; ``idx`` gives
+        # each block's position, from which row validity is rebuilt out of
+        # the replicated valid count.  Survivors are gathered along the
+        # candidate axis only after these run (the merge_blocks_* stages).
+        def _bvalid(idx, Bc, n_valid):
+            return (torch.arange(Bc, device=idx.device)[None, :] + idx[:, None] * Bc) < n_valid
+
+        def post2d_unique(idx, gc, n_valid):
+            n, gc = _sort_unique_blocks(gc, _bvalid(idx, gc.shape[1], n_valid))
+            return gc, n
+
+        def post2d_iceberg(idx, gc, gs, n_valid, min_sup):
+            keep = _bvalid(idx, gc.shape[1], n_valid) & (gs >= min_sup)
+            n, gc = _compact_blocks(keep, gc)
+            return gc, n
+
+        def post2d_iceberg_unique(idx, gc, gs, n_valid, min_sup):
+            keep = _bvalid(idx, gc.shape[1], n_valid) & (gs >= min_sup)
+            n, gc = _sort_unique_blocks(gc, keep)
+            return gc, n
+
+        def post2d_cbo(idx, gc, parents, gens, n_valid):
+            ok = lectic.feasible_torch(gc, parents, gens, LOW)
+            ok = ok & _bvalid(idx, gc.shape[1], n_valid)
+            n, gc, gens = _compact_blocks(ok, gc, gens)
+            return gc, gens, n
+
+        def post2d_cbo_iceberg(idx, gc, gs, parents, gens, n_valid, min_sup):
+            ok = lectic.feasible_torch(gc, parents, gens, LOW)
+            ok = ok & _bvalid(idx, gc.shape[1], n_valid) & (gs >= min_sup)
+            n, gc, gens = _compact_blocks(ok, gc, gens)
+            return gc, gens, n
+
         builders = {
             "plain": lambda: engine.spmd_step(),
             "unique": lambda: engine.spmd_step(unique_closures, n_extra=1),
@@ -260,14 +393,45 @@ class DeviceFrontier:
             "ganter_iceberg": lambda: engine.spmd_step(
                 post_ganter_iceberg, with_supports=True, n_extra=3
             ),
+            # 2-D (candidate × object) variants: one round per chunk of
+            # cand_parts blocks — map + object reduce per block, block-local
+            # filter, candidate-axis survivor gather, merge.  Built only when
+            # a driver runs on a 2-D plan.
+            "plain2d": lambda: engine.spmd_step_cand(None, merge_blocks_plain),
+            "unique2d": lambda: engine.spmd_step_cand(
+                post2d_unique, merge_blocks_unique, n_post_rep=1
+            ),
+            "iceberg2d": lambda: engine.spmd_step_cand(
+                post2d_iceberg, merge_blocks_compact, with_supports=True, n_post_rep=2
+            ),
+            "iceberg_unique2d": lambda: engine.spmd_step_cand(
+                post2d_iceberg_unique, merge_blocks_unique, with_supports=True, n_post_rep=2
+            ),
+            "cbo2d": lambda: engine.spmd_step_cand(
+                post2d_cbo, merge_blocks_cbo, n_cand=3, n_post_rep=1
+            ),
+            "cbo_iceberg2d": lambda: engine.spmd_step_cand(
+                post2d_cbo_iceberg, merge_blocks_cbo, with_supports=True, n_cand=3,
+                n_post_rep=2,
+            ),
         }
         # backend="kernel": every batched step variant runs the fused
-        # kernels (K2 on one shard, K3 → reduce → K4 on k > 1).  The
-        # single-intent ganter walks keep the spmd_step builders — their
-        # map runs K1, and their argmax-select has no batch filter to fuse.
+        # kernels (K2 on one shard, K3 → reduce → K4 on k > 1), 1-D and
+        # 2-D.  The single-intent ganter walks keep the spmd_step builders —
+        # their map runs K1, and their argmax-select has no batch filter to
+        # fuse.
         if engine.backend == "kernel":
+            merges = {
+                "plain": merge_blocks_plain,
+                "unique": merge_blocks_unique,
+                "iceberg": merge_blocks_compact,
+                "iceberg_unique": merge_blocks_unique,
+                "cbo": merge_blocks_cbo,
+                "cbo_iceberg": merge_blocks_cbo,
+            }
             for v in fkern.VARIANTS:
                 builders[v] = lambda v=v: engine.spmd_step_fused(v, LOW)
+                builders[v + "2d"] = lambda v=v: engine.spmd_step_cand_fused(v, LOW, merges[v])
         return {"LOW": LOW, "BIT": BIT, "steps": {}, "builders": builders}
 
     def _step_fn(self, name: str):
@@ -313,7 +477,9 @@ class DeviceFrontier:
             raise RuntimeError(
                 f"_adopt: {n} surviving frontier rows but only "
                 f"{frontier_dev.shape[0]} device rows were materialized — "
-                "adopting would silently drop concepts"
+                "adopting would silently drop concepts.  Raise max_batch or "
+                "shard the frontier axis (ShardPlan cand_parts / "
+                "--cand-shards)."
             )
         cap = ops.bucket_size(max(1, n))
         self._frontier = slice_pad(frontier_dev, 0, cap)
@@ -340,6 +506,45 @@ class DeviceFrontier:
         st.d2h_bytes += 4
         return v
 
+    # -- chunk geometry ----------------------------------------------------
+
+    @property
+    def cand_parts(self) -> int:
+        return self.engine.plan.cand_parts
+
+    @property
+    def round_budget(self) -> int:
+        """Candidates one closure round absorbs: ``max_batch`` on a 1-D
+        plan; ``cand_parts`` blocks of up to ``max_batch`` each on a 2-D
+        plan, so the per-round budget multiplies while each block stays
+        bounded."""
+        return self.engine.max_batch * self.cand_parts
+
+    def _block_cap(self, b: int) -> int:
+        """Bucketed per-block capacity for a chunk of ``b`` candidates
+        spread over the plan's candidate blocks."""
+        return ops.bucket_size(-(-b // self.cand_parts), minimum=self.engine.min_bucket)
+
+    def _chunk_caps(self, b: int) -> tuple[int, int]:
+        """(padded chunk capacity, per-block capacity) for ``b`` seeds."""
+        if self.cand_parts > 1:
+            blk = self._block_cap(b)
+            return blk * self.cand_parts, blk
+        cap = ops.bucket_size(b, minimum=self.engine.min_bucket)
+        return cap, cap
+
+    def _charge(self, two_d: bool, blk: int, cap: int, b: int, count: bool):
+        if two_d:
+            self.engine.charge_round_cand(blk, b, count_round=count)
+        else:
+            self.engine.charge_round(cap, b, count_round=count)
+
+    def _next_seq(self) -> int:
+        """Monotone round sequence number — the round span's index."""
+        s = self._seq
+        self._seq = s + 1
+        return s
+
     # -- fused per-iteration steps ----------------------------------------
 
     def step_oplus(
@@ -353,45 +558,65 @@ class DeviceFrontier:
         :meth:`set_frontier`.  With ``min_support``, infrequent closures
         are compacted away on the device and never cross to the host.
         """
-        t0 = time.perf_counter()
-        seeds, n_dev = expand_oplus(
-            self._frontier, self._n, self.LOW, self.BIT,
-            n_attrs=self.n_attrs, dedupe=dedupe,
-        )
-        self.engine.stats.dispatch_s += time.perf_counter() - t0
-        n_seeds = self._block_scalar(n_dev)  # sizes the rounds to the prune
-        if n_seeds == 0:
-            return np.zeros((0, self.W), np.uint32)
-        parts = self._oplus_chunks(seeds, n_seeds, min_support=min_support)
-        return np.concatenate(parts, axis=0)
+        tr = obs.current()
+        seq = self._next_seq()
+        t_round = time.perf_counter()
+        with tr.span(f"mine/round[{seq}]", algo="oplus", mode="sync", **self._tags) as sp:
+            with tr.span(f"mine/round[{seq}]/expand"):
+                t0 = time.perf_counter()
+                seeds, n_dev = expand_oplus(
+                    self._frontier, self._n, self.LOW, self.BIT,
+                    n_attrs=self.n_attrs, dedupe=dedupe,
+                )
+                self.engine.stats.dispatch_s += time.perf_counter() - t0
+                n_seeds = self._block_scalar(n_dev)  # sizes the rounds to the prune
+            if n_seeds == 0:
+                return np.zeros((0, self.W), np.uint32)
+            out = np.concatenate(
+                self._oplus_chunks(seeds, n_seeds, min_support=min_support, seq=seq), axis=0
+            )
+            sp.set(n_seeds=n_seeds, survivors=int(out.shape[0]))
+        self.engine.stats.observe_latency("round", time.perf_counter() - t_round)
+        return out
 
-    def _oplus_chunks(self, seeds, n_seeds: int, *, min_support: int | None):
-        """Close seeds ``[0, n_seeds)`` in ``max_batch`` chunks, one round
-        each, downloading every chunk's survivors."""
+    def _oplus_chunks(self, seeds, n_seeds: int, *, min_support: int | None, seq: int):
+        """Close seeds ``[0, n_seeds)`` in ``round_budget`` chunks, one round
+        each, downloading every chunk's survivors.  Every filter is
+        row-wise, so chunk and block boundaries never change the surviving
+        rows — only how many rounds produce them."""
         eng = self.engine
+        tr = obs.current()
+        pfx = f"mine/round[{seq}]"
+        two_d = self.cand_parts > 1
+        sfx = "2d" if two_d else ""
         parts = []
         first = True
-        for lo in range(0, n_seeds, eng.max_batch):
-            b = min(eng.max_batch, n_seeds - lo)
-            cap = ops.bucket_size(b, minimum=eng.min_bucket)
+        for lo in range(0, n_seeds, self.round_budget):
+            b = min(self.round_budget, n_seeds - lo)
+            cap, blk = self._chunk_caps(b)
             chunk = slice_pad(seeds, lo, cap)
             t0 = time.perf_counter()
-            if min_support is not None:
-                name = "iceberg_unique" if self.dedupe_closures else "iceberg"
-                cl, k_dev = self._step_fn(name)(eng.rows, chunk, b, min_support)
-                eng.stats.dispatch_s += time.perf_counter() - t0
-                eng.charge_round(cap, b, count_round=first)
-                parts.append(self._download(cl, self._block_scalar(k_dev)))
-            elif self.dedupe_closures:
-                cl, k_dev = self._step_fn("unique")(eng.rows, chunk, b)
-                eng.stats.dispatch_s += time.perf_counter() - t0
-                eng.charge_round(cap, b, count_round=first)
-                parts.append(self._download(cl, self._block_scalar(k_dev)))
+            if min_support is not None or self.dedupe_closures:
+                if min_support is None:
+                    name, extra = "unique", ()
+                else:
+                    name = "iceberg_unique" if self.dedupe_closures else "iceberg"
+                    extra = (min_support,)
+                with tr.span(pfx + "/dispatch", chunk=b, cap=cap):
+                    cl, k_dev = self._step_fn(name + sfx)(eng.rows, chunk, b, *extra)
+                    eng.stats.dispatch_s += time.perf_counter() - t0
+                self._charge(two_d, blk, cap, b, first)
+                with tr.span(pfx + "/allreduce"):
+                    k = self._block_scalar(k_dev)
+                with tr.span(pfx + "/filter", survivors=k):
+                    parts.append(self._download(cl, k))
             else:
-                closures = self._step_fn("plain")(eng.rows, chunk)
-                eng.stats.dispatch_s += time.perf_counter() - t0
-                eng.charge_round(cap, b, count_round=first)
-                parts.append(self._download(closures, b))
+                with tr.span(pfx + "/dispatch", chunk=b, cap=cap):
+                    closures = self._step_fn("plain" + sfx)(eng.rows, chunk)
+                    eng.stats.dispatch_s += time.perf_counter() - t0
+                self._charge(two_d, blk, cap, b, first)
+                with tr.span(pfx + "/filter", survivors=b):
+                    parts.append(self._download(closures, b))
             first = False
         return parts
 
@@ -407,37 +632,52 @@ class DeviceFrontier:
         Returns ``(new_intents, n_seeds, n_new)`` — ``n_seeds`` is 0 when
         the frontier was already exhausted (no closure round ran).
         """
-        t0 = time.perf_counter()
-        seeds, parents, gen, n_dev = expand_cbo(
-            self._frontier, self._gens, self._n, self.BIT, n_attrs=self.n_attrs
-        )
-        self.engine.stats.dispatch_s += time.perf_counter() - t0
-        n_seeds = self._block_scalar(n_dev)
-        if n_seeds == 0:
-            self._n = 0
-            return np.zeros((0, self.W), np.uint32), 0, 0
-        surv_z, surv_g, counts = self._cbo_chunks(
-            seeds, parents, gen, n_seeds, min_support=min_support
-        )
-        n_new = sum(counts)
-        if n_new == 0:
-            self._n = 0
-            return np.zeros((0, self.W), np.uint32), n_seeds, 0
-        z_all = surv_z[0] if len(surv_z) == 1 else torch.cat(surv_z)
-        g_all = surv_g[0] if len(surv_g) == 1 else torch.cat(surv_g)
-        self._adopt(z_all, g_all, n_new)
-        return self._download(self._frontier, n_new), n_seeds, n_new
+        tr = obs.current()
+        seq = self._next_seq()
+        t_round = time.perf_counter()
+        with tr.span(f"mine/round[{seq}]", algo="cbo", mode="sync", **self._tags) as sp:
+            with tr.span(f"mine/round[{seq}]/expand"):
+                t0 = time.perf_counter()
+                seeds, parents, gen, n_dev = expand_cbo(
+                    self._frontier, self._gens, self._n, self.BIT, n_attrs=self.n_attrs
+                )
+                self.engine.stats.dispatch_s += time.perf_counter() - t0
+                n_seeds = self._block_scalar(n_dev)
+            if n_seeds == 0:
+                self._n = 0
+                return np.zeros((0, self.W), np.uint32), 0, 0
+            surv_z, surv_g, counts = self._cbo_chunks(
+                seeds, parents, gen, n_seeds, min_support=min_support, seq=seq
+            )
+            n_new = sum(counts)
+            sp.set(n_seeds=n_seeds, survivors=n_new)
+            if n_new == 0:
+                self._n = 0
+                self.engine.stats.observe_latency("round", time.perf_counter() - t_round)
+                return np.zeros((0, self.W), np.uint32), n_seeds, 0
+            z_all = surv_z[0] if len(surv_z) == 1 else torch.cat(surv_z)
+            g_all = surv_g[0] if len(surv_g) == 1 else torch.cat(surv_g)
+            self._adopt(z_all, g_all, n_new)
+            with tr.span(f"mine/round[{seq}]/filter", survivors=n_new):
+                out = self._download(self._frontier, n_new)
+        self.engine.stats.observe_latency("round", time.perf_counter() - t_round)
+        return out, n_seeds, n_new
 
-    def _cbo_chunks(self, seeds, parents, gen, n_seeds: int, *, min_support):
-        """Close+canonicity for CbO seeds ``[0, n_seeds)`` in ``max_batch``
-        chunks.  Returns device survivor buffers ``(z_list, g_list,
-        k_list)``."""
+    def _cbo_chunks(self, seeds, parents, gen, n_seeds: int, *, min_support, seq: int):
+        """Close+canonicity for CbO seeds ``[0, n_seeds)`` in
+        ``round_budget`` chunks.  Returns device survivor buffers ``(z_list,
+        g_list, k_list)``."""
         eng = self.engine
+        tr = obs.current()
+        pfx = f"mine/round[{seq}]"
+        two_d = self.cand_parts > 1
+        name = ("cbo" if min_support is None else "cbo_iceberg") + ("2d" if two_d else "")
+        extra = () if min_support is None else (min_support,)
         surv_z, surv_g, counts = [], [], []
         first = True
-        for lo in range(0, n_seeds, eng.max_batch):
-            b = min(eng.max_batch, n_seeds - lo)
-            cap = ops.bucket_size(b, minimum=eng.min_bucket)
+        for lo in range(0, n_seeds, self.round_budget):
+            b = min(self.round_budget, n_seeds - lo)
+            cap, blk = self._chunk_caps(b)
             args = (
                 eng.rows,
                 slice_pad(seeds, lo, cap),
@@ -446,14 +686,13 @@ class DeviceFrontier:
                 b,
             )
             t0 = time.perf_counter()
-            if min_support is not None:
-                z, g, k_dev = self._step_fn("cbo_iceberg")(*args, min_support)
-            else:
-                z, g, k_dev = self._step_fn("cbo")(*args)
-            eng.stats.dispatch_s += time.perf_counter() - t0
-            eng.charge_round(cap, b, count_round=first)
+            with tr.span(pfx + "/dispatch", chunk=b, cap=cap):
+                z, g, k_dev = self._step_fn(name)(*args, *extra)
+                eng.stats.dispatch_s += time.perf_counter() - t0
+            self._charge(two_d, blk, cap, b, first)
             first = False
-            k = self._block_scalar(k_dev)
+            with tr.span(pfx + "/allreduce"):
+                k = self._block_scalar(k_dev)
             if k:
                 surv_z.append(z[:k])
                 surv_g.append(g[:k])
@@ -470,25 +709,38 @@ class DeviceFrontier:
         With ``min_support`` the scan restricts to frequent successors and
         the flag flips to "no frequent successor exists" — when True, the
         returned intent is garbage the caller must NOT emit.
+
+        Always runs the 1-D step, even on a 2-D plan: the frontier is a
+        single intent whose ≤ n_attrs seeds fit any block, and the Alg.-5
+        argmax-select needs every seed's closure in one place anyway.
         """
         eng = self.engine
-        t0 = time.perf_counter()
-        Y = self._frontier[0]
-        seeds, valid = lectic.oplus_seeds_torch(
-            Y[None, :], self.LOW, self.BIT, self.n_attrs
-        )
-        seeds = seeds.reshape(self.n_attrs, self.W)
-        cap = ops.bucket_size(self.n_attrs, minimum=eng.min_bucket)
-        chunk = slice_pad(seeds, 0, cap)
-        if min_support is not None:
-            Y_next, done = self._step_fn("ganter_iceberg")(
-                eng.rows, chunk, Y, valid[0], min_support
-            )
-        else:
-            Y_next, done = self._step_fn("ganter")(eng.rows, chunk, Y, valid[0])
-        self._frontier = Y_next[None, :].expand(self._frontier.shape[0], self.W)
-        self._n = 1
-        eng.stats.dispatch_s += time.perf_counter() - t0
-        eng.charge_round(cap, self._block_scalar(valid[0].sum(dtype=torch.int32)))
-        Y_host = self._download(Y_next[None, :], 1)[0]
-        return Y_host, bool(self._block_scalar(done))
+        tr = obs.current()
+        seq = self._next_seq()
+        t_round = time.perf_counter()
+        with tr.span(f"mine/round[{seq}]", algo="ganter", mode="sync", **self._tags):
+            with tr.span(f"mine/round[{seq}]/dispatch"):
+                t0 = time.perf_counter()
+                Y = self._frontier[0]
+                seeds, valid = lectic.oplus_seeds_torch(
+                    Y[None, :], self.LOW, self.BIT, self.n_attrs
+                )
+                seeds = seeds.reshape(self.n_attrs, self.W)
+                cap = ops.bucket_size(self.n_attrs, minimum=eng.min_bucket)
+                chunk = slice_pad(seeds, 0, cap)
+                if min_support is not None:
+                    Y_next, done = self._step_fn("ganter_iceberg")(
+                        eng.rows, chunk, Y, valid[0], min_support
+                    )
+                else:
+                    Y_next, done = self._step_fn("ganter")(eng.rows, chunk, Y, valid[0])
+                self._frontier = Y_next[None, :].expand(self._frontier.shape[0], self.W)
+                self._n = 1
+                eng.stats.dispatch_s += time.perf_counter() - t0
+            with tr.span(f"mine/round[{seq}]/allreduce"):
+                eng.charge_round(cap, self._block_scalar(valid[0].sum(dtype=torch.int32)))
+            with tr.span(f"mine/round[{seq}]/filter"):
+                Y_host = self._download(Y_next[None, :], 1)[0]
+                flag = bool(self._block_scalar(done))
+        eng.stats.observe_latency("round", time.perf_counter() - t_round)
+        return Y_host, flag

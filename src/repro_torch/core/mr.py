@@ -24,6 +24,12 @@ round over the full context counts as one iteration, including the round
 that computes ``∅''`` and, for MRGanter+/MRCbo, the final round that proves
 the frontier is exhausted.
 
+On a 2-D plan (``ShardPlan.cand_parts > 1``) MRGanter+ and MRCbo absorb
+``cand_parts × max_batch`` candidates per round by blocking each chunk over
+the candidate axis; MRGanter's single-intent frontier stays 1-D.  Each
+public driver records its run as the root span ``mine/<algorithm>`` on the
+current tracer (:mod:`repro_torch.obs`).
+
 Rounds are synchronous: the host reads each round's survivor count before
 it dispatches the next.  Speculative asynchronous rounds
 (``rounds="async"`` in the reference) come with a later slice of the port
@@ -33,6 +39,7 @@ and raise ``NotImplementedError`` here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -42,6 +49,7 @@ from repro_torch.core import bitset, lectic
 from repro_torch.core.engine import ClosureEngine
 from repro_torch.core.frontier import DeviceFrontier
 from repro_torch.core.hashindex import TwoLevelHash
+from repro_torch.obs import trace as obs
 
 PIPELINES = ("device", "host")
 ROUNDS = ("sync",)
@@ -61,6 +69,26 @@ class MRResult:
     @property
     def n_concepts(self) -> int:
         return len(self.intents)
+
+
+def _traced_driver(algo: str):
+    """Wrap a public MR* driver in the run's root trace span, tagged with
+    its pipeline and rounds mode; with the no-op tracer (the default) the
+    wrapper costs one dict per mine."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with obs.current().span(
+                f"mine/{algo}",
+                pipeline=kwargs.get("pipeline", "device"),
+                rounds=kwargs.get("rounds", "sync"),
+            ):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 def _seeds_for(Y: np.ndarray, tables: lectic.LecticTables) -> np.ndarray:
@@ -113,6 +141,7 @@ def _check_min_support(min_support: int | None) -> int | None:
 # ---------------------------------------------------------------------------
 
 
+@_traced_driver("mrganter")
 def mrganter(
     ctx,
     engine: ClosureEngine,
@@ -189,6 +218,7 @@ def mrganter(
 # ---------------------------------------------------------------------------
 
 
+@_traced_driver("mrganter_plus")
 def mrganter_plus(
     ctx,
     engine: ClosureEngine,
@@ -281,6 +311,7 @@ def mrganter_plus(
 # ---------------------------------------------------------------------------
 
 
+@_traced_driver("mrcbo")
 def mrcbo(
     ctx,
     engine: ClosureEngine,

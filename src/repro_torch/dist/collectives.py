@@ -12,6 +12,11 @@ reference's three interchangeable schedules, plus its wire-cost model.
     the wire bytes of the packed schedules unless ``n_attrs`` bounds the
     unpacked width.
 
+The object-axis reduces take a ``torch.distributed`` subgroup as well as
+the world group, so a 2-D plan reduces over its object subgroup; the
+candidate axis of a 2-D plan gathers its survivor blocks with
+:func:`all_gather_blocks` over the candidate subgroup.
+
 The reduce axis is one of two things:
 
   * :data:`SIM_AXIS` — the simulated object partition: ``x`` carries the
@@ -151,6 +156,16 @@ def all_gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
     if dist.get_world_size(axis) == 1:
         return x
     return _all_gather(x, axis)
+
+
+def all_gather_blocks(x: torch.Tensor, cand_group) -> torch.Tensor:
+    """The candidate-axis survivor gather of a 2-D round: this rank's
+    block stack ``[1, ...]`` (front-packed survivors, or their ``[1]``
+    count) gathered over ``cand_group`` into ``[cand_parts, ...]`` in
+    block order — the candidate group's rank order."""
+    if dist.get_world_size(cand_group) == 1:
+        return x
+    return _all_gather(x, cand_group)
 
 
 def sum_allreduce(x: torch.Tensor, axis) -> torch.Tensor:

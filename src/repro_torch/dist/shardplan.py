@@ -34,8 +34,20 @@ The AND semigroup is associative, commutative and idempotent over the
 words, so both kinds and every schedule agree bit for bit.  ``spmd``'s
 ``out_shard=`` gives one region mixed output placement: object-sharded
 outputs stay on their shards (the concept store's extent table), the
-others reduce as usual.  2-D candidate sharding (``cand_parts > 1``) is
-not ported yet and raises ``NotImplementedError``.
+others reduce as usual.
+
+The plan is 2-D capable: besides the object shards it can block the
+*candidate* (frontier) axis over ``cand_parts`` blocks — the row-block ×
+column-block decomposition.  ``spmd_cand`` is the 2-D primitive: the
+AND-allreduce runs over the object shards at the block batch size, the
+driver's filter runs block-locally, and only the filtered survivors are
+all-gathered along the candidate axis.  On a simulated plan the blocks
+live in one process: the body closes the whole chunk at once (every
+closure, reduce and keep test is row-wise) and the block-local stages run
+on ``[cand_parts, Bc, ...]`` views.  On a process group every rank holds
+one object shard *and* one candidate block: the object reduce runs over
+its object subgroup, the survivor gather over its candidate subgroup
+(:mod:`repro_torch.launch.mesh` builds the two).
 """
 
 from __future__ import annotations
@@ -50,6 +62,11 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives
 from repro_torch.dist.collectives import SIM_AXIS
+
+# The simulated candidate partition's axis name, as the reference names it
+# (``describe()["cand_axes"]``); a process-group plan names its candidate
+# axis after the mesh it was built from.
+SIM_CAND_AXIS = "candpart"
 
 # Schedules the autotuner arbitrates between.  ``pmin`` is excluded: its
 # unpacked-lane volume is strictly dominated for every batch size.
@@ -75,9 +92,15 @@ class ShardPlan:
     # built with ``calibrate_hops=True`` (see :func:`probe_hop_bytes`).
     auto_hop_bytes: int = 4096
     hop_calibrated: bool = False
-    # process-group plans: the group and the device its collectives run on
+    # process-group plans: the object group, the candidate group (2-D
+    # plans), the device their collectives run on, and the mesh's axis
+    # names and shape (major to minor) where the plan was built from one
     group: object = None
+    cand_group: object = None
     device: torch.device | None = None
+    axis_names: tuple[str, ...] = ()
+    cand_axis_names: tuple[str, ...] = ()
+    mesh_shape: tuple[tuple[str, int], ...] | None = None
 
     def __post_init__(self):
         if (
@@ -94,11 +117,6 @@ class ShardPlan:
             raise ValueError(
                 f"cand_parts must be >= 1, got {self.cand_parts}"
             )
-        if self.cand_parts > 1:
-            raise NotImplementedError(
-                f"cand_parts={self.cand_parts}: 2-D candidate sharding is not "
-                "ported yet; it comes with the 2-D candidate-sharding slice"
-            )
         if self.block_n < 1 or self.max_batch < 1:
             raise ValueError("block_n and max_batch must be >= 1")
         if self.group is not None and self.n_parts != dist.get_world_size(self.group):
@@ -106,6 +124,13 @@ class ShardPlan:
                 f"n_parts ({self.n_parts}) does not match the group's size "
                 f"({dist.get_world_size(self.group)})"
             )
+        if self.group is not None:
+            c = 1 if self.cand_group is None else dist.get_world_size(self.cand_group)
+            if c != self.cand_parts:
+                raise ValueError(
+                    f"cand_parts ({self.cand_parts}) does not match the "
+                    f"candidate group's size ({c})"
+                )
 
     # -- constructors ------------------------------------------------------
 
@@ -122,8 +147,9 @@ class ShardPlan:
         device=None,
     ) -> "ShardPlan":
         """``n_parts`` object shards on one device (a leading shard
-        dimension).  ``device`` is where a ``calibrate_hops`` probe runs
-        (CUDA unless the caller says so)."""
+        dimension); ``cand_parts`` > 1 adds simulated candidate blocks.
+        ``device`` is where a ``calibrate_hops`` probe runs (CUDA unless
+        the caller says so)."""
         plan = cls(
             n_parts=n_parts,
             reduce_impl=reduce_impl,
@@ -139,34 +165,61 @@ class ShardPlan:
         group=None,
         device=None,
         *,
+        cand_group=None,
         reduce_impl: str = "rsag",
         block_n: int = 256,
         max_batch: int = 8192,
         calibrate_hops: bool = False,
+        axis_names: tuple[str, ...] = (),
+        cand_axis_names: tuple[str, ...] = (),
+        mesh_shape: tuple[tuple[str, int], ...] | None = None,
     ) -> "ShardPlan":
         """One object shard per rank of ``group`` (the default group when
         None), with collectives on ``device``: NCCL for a CUDA device,
-        gloo only when the caller passes ``device="cpu"``."""
+        gloo only when the caller passes ``device="cpu"``.  ``cand_group``
+        (2-D plans) is this rank's candidate subgroup: the ranks that hold
+        the same object shard and the other candidate blocks."""
         if not dist.is_initialized():
             raise RuntimeError("over_group needs an initialized torch.distributed group")
         group = dist.group.WORLD if group is None else group
         device = resolve_device(device)
         want = GROUP_BACKENDS.get(device.type)
-        got = dist.get_backend(group)
-        if got != want:
-            raise ValueError(
-                f"a plan on {device.type} runs its collectives over {want!r}; "
-                f"the group's backend is {got!r}"
-            )
+        for g in (group, cand_group):
+            if g is not None and dist.get_backend(g) != want:
+                raise ValueError(
+                    f"a plan on {device.type} runs its collectives over {want!r}; "
+                    f"the group's backend is {dist.get_backend(g)!r}"
+                )
+        cand_parts = 1 if cand_group is None else dist.get_world_size(cand_group)
         plan = cls(
             n_parts=dist.get_world_size(group),
             reduce_impl=reduce_impl,
             block_n=block_n,
             max_batch=max_batch,
+            cand_parts=cand_parts,
             group=group,
+            cand_group=cand_group if cand_parts > 1 else None,
             device=device,
+            axis_names=tuple(axis_names),
+            cand_axis_names=tuple(cand_axis_names) if cand_parts > 1 else (),
+            mesh_shape=mesh_shape,
         )
         return plan.calibrate_hops() if calibrate_hops else plan
+
+    @classmethod
+    def over_mesh(cls, mesh, device=None, **kw) -> "ShardPlan":
+        """The plan of a :class:`repro_torch.launch.mesh.GroupMesh`: this
+        rank's object shard over the mesh's object subgroup, its candidate
+        block over the candidate subgroup."""
+        return cls.over_group(
+            mesh.object_group,
+            device,
+            cand_group=mesh.cand_group,
+            axis_names=mesh.object_axes,
+            cand_axis_names=mesh.cand_axes,
+            mesh_shape=mesh.shape,
+            **kw,
+        )
 
     @classmethod
     def auto(
@@ -204,6 +257,15 @@ class ShardPlan:
         return SIM_AXIS if self.group is None else self.group
 
     @property
+    def cand_axes(self):
+        """The axis carrying the candidate partition (2-D plans only):
+        :data:`SIM_CAND_AXIS` on a simulated plan, the candidate group on
+        a process group; None on 1-D plans."""
+        if self.cand_parts <= 1:
+            return None
+        return SIM_CAND_AXIS if self.group is None else self.cand_group
+
+    @property
     def row_alignment(self) -> int:
         """Context rows must pad to a multiple of this (shards block-align)."""
         return self.n_parts * self.block_n
@@ -212,6 +274,15 @@ class ShardPlan:
         """This process's shard (the group rank; 0 on a simulated plan,
         whose shards all live in one process)."""
         return 0 if self.group is None else dist.get_rank(self.group)
+
+    def cand_index(self) -> int:
+        """This process's candidate block: its rank in the candidate group;
+        0 on 1-D plans and on a simulated plan, whose blocks all live in one
+        process (an ``spmd_cand`` body there sees the whole chunk, so
+        ``cand_index() * Bc`` is the first row it holds either way)."""
+        if self.cand_parts <= 1 or self.group is None:
+            return 0
+        return dist.get_rank(self.cand_group)
 
     def global_row_index(self, rows_local: torch.Tensor) -> torch.Tensor:
         """The global row index of every row an ``spmd`` body sees.
@@ -320,6 +391,88 @@ class ShardPlan:
 
         return run
 
+    def spmd_cand(
+        self,
+        body,
+        *,
+        n_cand: int = 1,
+        n_rep: int = 0,
+        post=None,
+        n_post_rep: int = 0,
+        merge=None,
+        n_merge_rep: int = 0,
+    ):
+        """2-D (candidate × object) twin of :meth:`spmd`.
+
+        The returned callable takes ``(rows, *cand_ops, *replicated,
+        *post_replicated, *merge_replicated)``.  The first ``n_cand``
+        operands after ``rows`` are the chunk's candidate operands (seeds
+        first, then lineage such as parents and generators), whose leading
+        axis — a multiple of ``cand_parts`` — is blocked over the candidate
+        axis.  ``body(rows_local, *cand_ops, *replicated)`` computes the
+        map and the object-axis reduce (collectives over ``reduce_axes``)
+        and, as in :meth:`spmd`, its outputs carry the leading shard
+        dimension on a simulated plan (a body that already folded the
+        shards returns a length-1 one); shard 0's copy is kept.
+
+        Simulated plan: the body runs once over the whole chunk (every
+        operand it computes is row-wise in the candidates, so this is
+        exactly what ``cand_parts`` block-sized runs would compute).  A
+        process-group rank: the body sees its own block,
+        ``cand_ops[i][cand_index()·Bc : (cand_index() + 1)·Bc]``.
+
+        The body's outputs, followed by the lineage operands (``cand_ops[1:]``,
+        which ride along as the reference's body passes them through), are
+        viewed as blocks ``[nb, Bc, ...]`` — ``nb = cand_parts`` on a
+        simulated plan, 1 on a rank — and handed to ``post(idx,
+        *blocks, *post_replicated)``, the block-local filter, with ``idx``
+        the ``[nb]`` block positions (int64, on the operands' device).
+        ``post`` returns block stacks ``[nb, ...]`` (per-block counts are
+        ``[nb]``).  Only then are the blocks all-gathered along the
+        candidate axis into ``[cand_parts, ...]`` stacks (free on a
+        simulated plan, an all-gather over the candidate group on a rank),
+        which ``merge(*gathered, *merge_replicated)`` consumes, once per
+        process.  At ``cand_parts == 1`` the stack has one block and the
+        arithmetic is the 1-D path's.
+        """
+        cp = self.cand_parts
+        split = n_cand + n_rep
+        split_post = split + n_post_rep
+        simulated = self.group is None
+
+        def _tup(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        def run(rows, *ops):
+            if len(ops) != split_post + n_merge_rep:
+                raise TypeError(
+                    f"the step takes {split_post + n_merge_rep} operands after rows, "
+                    f"got {len(ops)}"
+                )
+            cand = ops[:n_cand]
+            ci = self.cand_index()
+            if not simulated and cp > 1:  # this rank's block of the chunk
+                cand = tuple(
+                    op.reshape(cp, op.shape[0] // cp, *op.shape[1:])[ci] for op in cand
+                )
+            outs = _tup(body(rows, *cand, *ops[n_cand:split]))
+            if simulated:
+                outs = tuple(o[0] for o in outs)
+            nb = cp if simulated else 1
+            outs = tuple(
+                o.reshape(nb, o.shape[0] // nb, *o.shape[1:]) for o in outs + cand[1:]
+            )
+            if post is not None:
+                idx = torch.arange(nb, device=outs[0].device) + ci
+                outs = _tup(post(idx, *outs, *ops[split:split_post]))
+            if not simulated and cp > 1:
+                outs = tuple(collectives.all_gather_blocks(o, self.cand_group) for o in outs)
+            if merge is None:
+                return outs
+            return merge(*outs, *ops[split_post:])
+
+        return run
+
     # -- accounting --------------------------------------------------------
 
     def resolve_impl(
@@ -353,6 +506,16 @@ class ShardPlan:
             self.resolve_impl(batch, W, n_attrs), self.n_parts, batch, W, n_attrs
         )
 
+    def modeled_round_bytes_cand(
+        self, block_batch: int, W: int, n_attrs: int | None = None
+    ) -> int:
+        """Analytic wire bytes for one 2-D round of ``cand_parts`` blocks
+        of ``block_batch`` candidates each: ``cand_parts`` object-axis
+        reduces at the block batch size, plus the survivor all-gather along
+        the candidate axis (``n_parts`` rings of ``cand_parts`` devices,
+        one allgather pass over the block-sized survivor buffer each)."""
+        return self.modeled_latency_split_cand(block_batch, W, n_attrs)[1]
+
     def modeled_latency_split(
         self, batch: int, W: int, n_attrs: int | None = None
     ) -> tuple[int, int]:
@@ -371,19 +534,53 @@ class ShardPlan:
         )
         return hops, vol
 
+    def modeled_latency_split_cand(
+        self, block_batch: int, W: int, n_attrs: int | None = None
+    ) -> tuple[int, int]:
+        """``(dispatch_bytes, collective_bytes)`` for one 2-D round: the
+        volume of :meth:`modeled_round_bytes_cand`, and the hops of the two
+        ring schedules — ``cand_parts`` object rings at the resolved
+        schedule plus ``n_parts`` candidate-axis allgather rings — priced
+        at ``auto_hop_bytes`` each."""
+        impl = self.resolve_impl(block_batch, W, n_attrs)
+        k, c = self.n_parts, self.cand_parts
+        obj_vol = c * collectives.modeled_comm_bytes(impl, k, block_batch, W, n_attrs)
+        gather_vol = k * c * (c - 1) * block_batch * W * 4
+        obj_hops = c * k * collectives.ring_steps(impl, k) * self.auto_hop_bytes
+        gather_hops = k * c * collectives.ring_steps("allgather", c) * self.auto_hop_bytes
+        return obj_hops + gather_hops, obj_vol + gather_vol
+
     def describe(self) -> dict:
         """JSON-friendly summary for launcher output."""
+        simulated = self.group is None
         return {
-            "mode": "simulated" if self.group is None else "group",
+            "mode": "simulated" if simulated else "group",
             "n_parts": self.n_parts,
-            "axes": [SIM_AXIS] if self.group is None else ["rank"],
-            "backend": None if self.group is None else dist.get_backend(self.group),
+            "axes": [SIM_AXIS] if simulated else list(self.axis_names or ("rank",)),
+            "backend": None if simulated else dist.get_backend(self.group),
             "cand_parts": self.cand_parts,
+            "cand_axes": (
+                ([SIM_CAND_AXIS] if self.cand_parts > 1 else [])
+                if simulated
+                else list(self.cand_axis_names)
+            ),
+            "mesh_shape": None if self.mesh_shape is None else dict(self.mesh_shape),
             "reduce_impl": self.reduce_impl,
             "block_n": self.block_n,
             "max_batch": self.max_batch,
             "auto_hop_bytes": self.auto_hop_bytes,
             "hop_calibrated": self.hop_calibrated,
+        }
+
+    def trace_tags(self) -> dict:
+        """The geometry tags every round span carries (repro_torch.obs):
+        the subset of :meth:`describe` that identifies the plan in a
+        timeline."""
+        return {
+            "plan": "simulated" if self.group is None else "group",
+            "n_parts": self.n_parts,
+            "cand_parts": self.cand_parts,
+            "reduce_impl": self.reduce_impl,
         }
 
 
@@ -401,10 +598,16 @@ _PROBE_W = 4  # packed words per probe row — scale-free, cancels in the ratio
 
 
 def _probe_cache_key(plan: ShardPlan, device: torch.device) -> tuple:
+    """The plan geometry the probe measures: shard counts on both axes, the
+    device, and for a group its backend, global ranks and mesh shape."""
     if plan.group is None:
         ranks = None
     else:
-        ranks = (dist.get_backend(plan.group), dist.get_world_size(plan.group))
+        ranks = (
+            dist.get_backend(plan.group),
+            tuple(dist.get_process_group_ranks(plan.group)),
+            plan.mesh_shape,
+        )
     return (plan.n_parts, plan.cand_parts, str(device), ranks)
 
 
@@ -471,8 +674,13 @@ def probe_hop_bytes(plan: ShardPlan, device=None) -> tuple[int, bool]:
         hop = min(1 << 24, max(1, int(round(alpha / beta * _PROBE_W * 4))))
         result = (hop, True)
     if plan.group is not None:
+        # every rank takes the value of the first object group's rank 0, so
+        # every rank of a 2-D plan resolves the same schedules too
         agreed = torch.tensor([result[0], int(result[1])], dtype=torch.int64, device=device)
         dist.broadcast(agreed, src=dist.get_global_rank(plan.group, 0), group=plan.group)
+        if plan.cand_group is not None:
+            dist.broadcast(agreed, src=dist.get_global_rank(plan.cand_group, 0),
+                           group=plan.cand_group)
         result = (int(agreed[0]), bool(agreed[1]))
     _HOP_PROBE_CACHE[key] = result
     return result

@@ -19,7 +19,14 @@
 ``--parts`` object shards (default 8) are simulated on the one device,
 unless the caller has initialized a ``torch.distributed`` group of more
 than one rank: then every rank runs this command and holds one shard
-(``ShardPlan.auto``), and ``--parts`` is not read.  ``--reduce`` picks the
+(``ShardPlan.auto``), and ``--parts`` is not read.  ``--cand-shards C``
+blocks the candidate (frontier) axis as well — the 2-D decomposition: C
+simulated blocks on one device, or, under a group, a cand × pod × data
+mesh of the ranks (:mod:`repro_torch.launch.mesh`; ``--pod`` only names
+the object axes, as the pod's ranks share one object group), each rank holding one object shard and one candidate block.
+``--mesh`` asks for that mesh even at C = 1 (``--mesh`` and ``--pod``
+are refused without such a group); under ``torchrun`` it
+initializes the default group from the environment itself.  ``--reduce`` picks the
 AND-allreduce schedule of every round (``allgather``, ``rsag``, ``pmin``,
 or ``auto``, which picks allgather or rsag per round from the batch size;
 the per-round record lands in ``reduce_rounds``), and
@@ -29,12 +36,23 @@ one device and measures no wire).  ``--backend kernel`` runs the
 hand-written CUDA kernels (the closure kernels while mining and serving,
 K5 for top-k queries, K6 for rule queries); ``torch`` runs their plain
 PyTorch versions, ``matmul`` the complement-plane matrix products for
-every closure.  ``--device`` defaults to ``cuda`` and the run fails
+every closure (``--no-kernel`` is the reference's deprecated spelling of
+``--backend torch``).  ``--device`` defaults to ``cuda`` and the run fails
 without a CUDA device unless ``--device cpu`` is given.
 ``--min-support`` takes an absolute object count (≥ 1) or a fraction of
 |O| (in (0, 1)); the resolved count is echoed in the JSON stats.  The
 printed keys are those of the reference's ``fca`` subcommands that the
 port has; ``serve --load-qps`` (the admission queue) is not ported yet.
+
+Observability (every subcommand): ``--trace out.json`` records every
+mining round (with its expand / dispatch / allreduce / filter phases),
+query micro-batch and stream stage/commit as a Chrome/Perfetto timeline
+(validate with ``python -m repro_torch.obs.trace out.json``) and adds a
+per-span ``span_rollup`` and the ``trace_path`` to the printed stats;
+``--stats-json PATH`` also writes those stats to a file;
+``--device-trace DIR`` runs a ``torch.profiler`` session beside it,
+exports its Chrome trace into DIR and adds its ``device_trace_path``; the
+command fails if the session does not start or the export fails.
 """
 
 from __future__ import annotations
@@ -42,10 +60,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core import ClosureEngine, bitset
 from repro_torch.core.engine import BACKENDS
@@ -53,6 +73,12 @@ from repro_torch.core.mr import PIPELINES
 from repro_torch.data import fca_datasets
 from repro_torch.dist import ShardPlan
 from repro_torch.dist.collectives import IMPLS
+from repro_torch.dist.shardplan import GROUP_BACKENDS
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.obs import (
+    Tracer, span_rollup, start_device_trace, stop_device_trace, use_tracer,
+)
+from repro_torch.obs.trace import DEVICE_TRACE_FILE
 from repro_torch.query import ConceptStore, QueryConfig, QueryEngine, StreamUpdater
 from repro_torch.rules import (
     ALGORITHMS, RuleIndex, extract_bases, resolve_min_support, rule_query_mix,
@@ -60,13 +86,21 @@ from repro_torch.rules import (
 
 
 def build_plan(args) -> ShardPlan:
-    """The run's ShardPlan from the CLI geometry flags."""
-    return ShardPlan.auto(
-        args.parts,
-        reduce_impl=args.reduce,
-        calibrate_hops=args.calibrate_hops,
-        device=args.device,
-    )
+    """The run's ShardPlan from the CLI geometry flags: simulated shards
+    and candidate blocks on one device, or — under a group of more than
+    one rank — one shard per rank, over a cand × pod × data mesh where
+    ``--cand-shards``, ``--pod`` or ``--mesh`` ask for one."""
+    kw = {"reduce_impl": args.reduce, "calibrate_hops": args.calibrate_hops}
+    grouped = dist.is_initialized() and dist.get_world_size() > 1
+    if grouped and (args.mesh or args.cand_shards > 1 or args.pod > 1):
+        mesh = make_local_mesh(pod=args.pod, cand=args.cand_shards)
+        return ShardPlan.over_mesh(mesh, args.device, **kw)
+    if grouped:
+        return ShardPlan.auto(args.parts, device=args.device, **kw)
+    if args.mesh or args.pod > 1:
+        raise SystemExit("--mesh and --pod need a torch.distributed group of more than one rank")
+    return ShardPlan.simulated(args.parts, cand_parts=args.cand_shards,
+                               device=args.device, **kw)
 
 
 def _mine(args, ctx, plan, min_support):
@@ -87,7 +121,14 @@ def _resolved_min_support(args, ctx) -> int | None:
 
 
 def _load(args):
-    """The command's context, its dataset spec and the run's plan."""
+    """The command's context, its dataset spec and the run's plan (and the
+    run's backend, ``--no-kernel`` resolved)."""
+    if args.backend is None:
+        args.backend = "torch" if args.no_kernel else "kernel"
+    elif args.no_kernel:
+        print("--no-kernel is deprecated and ignored when --backend is given",
+              file=sys.stderr)
+        args.no_kernel = False
     ctx, spec = fca_datasets.load(args.dataset, scale=args.scale, data_dir=args.data_dir)
     return ctx, spec, build_plan(args)
 
@@ -282,6 +323,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="object shards, simulated on the one device; under "
                         "an initialized torch.distributed group of more than "
                         "one rank, one shard per rank instead")
+    p.add_argument("--cand-shards", type=int, default=1,
+                   help="2-D decomposition: block the candidate (frontier) axis "
+                        "over this many simulated blocks, or under a group a "
+                        "candidate axis of the rank mesh; one round then absorbs "
+                        "cand-shards x max_batch candidates")
+    p.add_argument("--mesh", action="store_true",
+                   help="build the plan over a cand x pod x data mesh of the "
+                        "torch.distributed ranks (initialized from the "
+                        "environment under torchrun)")
+    p.add_argument("--pod", type=int, default=1,
+                   help="pod axis size of the rank mesh; it only names the "
+                        "object axes (pod x data ranks share one object group), "
+                        "and needs a torch.distributed group like --mesh")
     p.add_argument("--reduce", default="rsag", choices=list(IMPLS) + ["auto"],
                    help="AND-allreduce schedule of the reduce phase; auto "
                         "picks allgather or rsag per round")
@@ -290,7 +344,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the 4096 B default (on a simulated plan "
                         "this times torch ops on one device, no wire)")
     p.add_argument("--pipeline", default="device", choices=list(PIPELINES))
-    p.add_argument("--backend", default="kernel", choices=list(BACKENDS))
+    p.add_argument("--backend", default=None, choices=list(BACKENDS),
+                   help="kernel (default): the hand-written CUDA kernels; torch: "
+                        "their plain versions; matmul: complement-plane products")
+    p.add_argument("--no-kernel", action="store_true",
+                   help="deprecated: use --backend torch")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--max-iterations", type=int, default=None)
     p.add_argument("--data-dir", default=None,
@@ -314,12 +372,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rules: top-k rules returned per query")
     p.add_argument("--rank-by", default="confidence", choices=["confidence", "lift"],
                    help="rules: top-k rank metric")
+    # observability (every subcommand)
+    p.add_argument("--trace", metavar="PATH", default=None,
+                   help="write a Chrome/Perfetto trace_event JSON timeline of the "
+                        "run (mining rounds with their expand/dispatch/allreduce/"
+                        "filter phases, query micro-batches, stream stage/commit) "
+                        "to PATH; validate with `python -m repro_torch.obs.trace PATH`")
+    p.add_argument("--stats-json", metavar="PATH", default=None,
+                   help="also write the run's JSON stats to PATH (with --trace "
+                        "they carry a per-span latency rollup)")
+    p.add_argument("--device-trace", metavar="DIR", default=None,
+                   help="run a torch.profiler session beside the run and export "
+                        "its Chrome trace into DIR")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    print(json.dumps(COMMANDS[args.command](args), indent=2))
+    # --mesh under torchrun: this command owns the default group it starts
+    owns_group = args.mesh and not dist.is_initialized() and "WORLD_SIZE" in os.environ
+    if owns_group:
+        dist.init_process_group(GROUP_BACKENDS[args.device])
+    tracer = Tracer() if args.trace else None
+    exported = False
+    try:
+        if args.device_trace and not start_device_trace(args.device_trace):
+            raise SystemExit("--device-trace: the torch.profiler session did not start")
+        with use_tracer(tracer):
+            out = COMMANDS[args.command](args)
+    finally:
+        if args.device_trace:
+            exported = stop_device_trace()
+        if owns_group:
+            dist.destroy_process_group()
+    if args.device_trace:
+        if not exported:
+            raise SystemExit(f"--device-trace: exporting the profiler's trace into "
+                             f"{args.device_trace} failed")
+        out["device_trace_path"] = os.path.join(args.device_trace, DEVICE_TRACE_FILE)
+    if tracer is not None:
+        tracer.save(args.trace)
+        out["trace_path"] = args.trace
+        out["span_rollup"] = span_rollup(tracer.to_dict()["traceEvents"])
+    if args.stats_json:
+        with open(args.stats_json, "w") as fh:
+            json.dump(out, fh, indent=2)
+    print(json.dumps(out, indent=2))
 
 
 if __name__ == "__main__":

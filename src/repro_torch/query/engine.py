@@ -21,6 +21,11 @@ the cached steps.  With ``plan.reduce_impl == "auto"`` each micro-batch
 resolves allgather-vs-rsag from its padded slot count
 (``plan.resolve_impl``) and the choice is recorded in ``stats``.
 
+Every micro-batch records a ``query/micro_batch`` span on the current
+tracer (:mod:`repro_torch.obs`) and its service time, on the engine's
+injectable ``clock``, in ``stats.latency_percentiles["micro_batch"]`` and
+the per-kind ``service_s`` histograms of the stats registry.
+
 Backends are those of the mining engine: ``kernel`` (K1, K5, K6),
 ``torch`` (their plain versions, the reference's jnp steps) and
 ``matmul`` (the closure as complement-plane matrix products, the serving
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 
 import numpy as np
 import torch
@@ -41,6 +47,7 @@ from repro_torch.dist import collectives
 from repro_torch.kernels import ops
 from repro_torch.kernels import serve as skern
 from repro_torch.obs import StatsBase
+from repro_torch.obs import trace as obs
 from repro_torch.query.store import ConceptStore, lookup_ids
 
 BACKENDS = ("kernel", "torch", "matmul")
@@ -49,8 +56,10 @@ BACKENDS = ("kernel", "torch", "matmul")
 @dataclasses.dataclass
 class QueryStats(StatsBase):
     """Serving-side stats: the schedule census (``reduce_rounds`` /
-    ``auto_hop_bytes`` / ``hop_calibrated``) inherited from
-    :class:`repro_torch.obs.StatsBase`, plus the query census."""
+    ``auto_hop_bytes`` / ``hop_calibrated``) and ``latency_percentiles``
+    inherited from :class:`repro_torch.obs.StatsBase` — one definition
+    shared with the mining engine's ``EngineStats`` — plus the query
+    census."""
 
     queries: int = 0
     micro_batches: int = 0
@@ -72,9 +81,14 @@ class QueryConfig:
 
 
 class QueryEngine:
-    def __init__(self, store: ConceptStore, cfg: QueryConfig | None = None):
+    def __init__(
+        self, store: ConceptStore, cfg: QueryConfig | None = None, *, clock=time.perf_counter
+    ):
         self.store = store
         self.cfg = cfg or QueryConfig()
+        # the clock of the micro-batch service timings (a caller running a
+        # virtual timebase passes its own)
+        self.clock = clock
         if self.cfg.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.cfg.backend!r}; choose {BACKENDS}")
         if self.cfg.slots < 1:
@@ -218,6 +232,18 @@ class QueryEngine:
                 chunk = np.concatenate([chunk, pad], axis=0)
             yield lo, b, chunk
 
+    def _obs_batch(self, kind: str, dt: float, version: int | None = None):
+        """One micro-batch's telemetry: the ``micro_batch`` percentile key,
+        the per-kind ``service_s`` histogram, a dispatch counter and the
+        snapshot-version gauge, all in the stats registry."""
+        st = self.stats
+        st.observe_latency("micro_batch", dt)
+        reg = st.registry
+        reg.observe("service_s", dt, kind=kind)
+        reg.counter("micro_batches_total", kind=kind)
+        if version is not None:
+            reg.gauge("snapshot_version", version)
+
     def _charge_round(self, cap: int) -> str:
         impl = self.plan.resolve_impl(cap, self.W, self.n_attrs)
         st = self.stats
@@ -248,14 +274,17 @@ class QueryEngine:
             return out_c, out_s, out_i
         batches = 0
         for lo, b, chunk in self._chunks(attrsets):
-            impl = self._charge_round(chunk.shape[0])
-            gc, gs, ids = self._closure_step(impl, snap.probe)(
-                rows, device_bits(chunk, self.device), n_pad,
-                snap.intents, snap.skeys, snap.n_concepts,
-            )
-            out_c[lo : lo + b] = host_bits(gc)[:b]
-            out_s[lo : lo + b] = gs.cpu().numpy()[:b]
-            out_i[lo : lo + b] = ids.cpu().numpy()[:b]
+            t0 = self.clock()
+            with obs.current().span("query/micro_batch", kind="closure", slots=chunk.shape[0]):
+                impl = self._charge_round(chunk.shape[0])
+                gc, gs, ids = self._closure_step(impl, snap.probe)(
+                    rows, device_bits(chunk, self.device), n_pad,
+                    snap.intents, snap.skeys, snap.n_concepts,
+                )
+                out_c[lo : lo + b] = host_bits(gc)[:b]
+                out_s[lo : lo + b] = gs.cpu().numpy()[:b]
+                out_i[lo : lo + b] = ids.cpu().numpy()[:b]
+            self._obs_batch("closure", self.clock() - t0, snap.version)
             batches += 1
         self.stats.charge("closure", B, batches)
         return out_c, out_s, out_i
@@ -276,13 +305,16 @@ class QueryEngine:
             return out_i, out_v
         batches = 0
         for lo, b, chunk in self._chunks(attrsets):
-            impl = self._charge_round(chunk.shape[0])
-            _, _, idx, vals = self._topk_step(impl, k)(
-                rows, device_bits(chunk, self.device), n_pad,
-                snap.intents, snap.supports, snap.n_concepts,
-            )
-            out_i[lo : lo + b] = idx.cpu().numpy()[:b]
-            out_v[lo : lo + b] = vals.cpu().numpy()[:b]
+            t0 = self.clock()
+            with obs.current().span("query/micro_batch", kind="topk", slots=chunk.shape[0]):
+                impl = self._charge_round(chunk.shape[0])
+                _, _, idx, vals = self._topk_step(impl, k)(
+                    rows, device_bits(chunk, self.device), n_pad,
+                    snap.intents, snap.supports, snap.n_concepts,
+                )
+                out_i[lo : lo + b] = idx.cpu().numpy()[:b]
+                out_v[lo : lo + b] = vals.cpu().numpy()[:b]
+            self._obs_batch("topk", self.clock() - t0, snap.version)
             batches += 1
         self.stats.charge("topk", B, batches)
         return out_i, out_v
@@ -299,11 +331,14 @@ class QueryEngine:
             return out
         batches = 0
         for lo, b, chunk in self._chunks(intents):
-            ids = lookup_ids(
-                device_bits(chunk, self.device), snap.intents, snap.skeys,
-                snap.n_concepts, n_attrs=self.n_attrs, probe=snap.probe,
-            )
-            out[lo : lo + b] = ids.cpu().numpy()[:b]
+            t0 = self.clock()
+            with obs.current().span("query/micro_batch", kind="lookup", slots=chunk.shape[0]):
+                ids = lookup_ids(
+                    device_bits(chunk, self.device), snap.intents, snap.skeys,
+                    snap.n_concepts, n_attrs=self.n_attrs, probe=snap.probe,
+                )
+                out[lo : lo + b] = ids.cpu().numpy()[:b]
+            self._obs_batch("lookup", self.clock() - t0, snap.version)
             batches += 1
         self.stats.charge("lookup", B, batches)
         return out
@@ -353,8 +388,11 @@ class QueryEngine:
         step = self._extents_step()
         batches = 0
         for lo, b, chunk in self._chunks(np.clip(ids, 0, snap.cap - 1)):
-            packed = step(snap.ext_cols, torch.from_numpy(chunk).to(self.device).long())
-            out[lo : lo + b] = host_bits(packed)[:b]
+            t0 = self.clock()
+            with obs.current().span("query/micro_batch", kind="extents", slots=chunk.shape[0]):
+                packed = step(snap.ext_cols, torch.from_numpy(chunk).to(self.device).long())
+                out[lo : lo + b] = host_bits(packed)[:b]
+            self._obs_batch("extents", self.clock() - t0, snap.version)
             batches += 1
             self.stats.collective_rounds += 1
             # the round's all-gather moves each shard's [Nl, B] membership
@@ -409,14 +447,17 @@ class QueryEngine:
         step = self._rules_step(k)
         batches = 0
         for lo, b, chunk in self._chunks(attrsets):
-            idx, vals, union = step(
-                index.premise, index.added, index.confidence, metric,
-                index.rule_id, index.n_rules, device_bits(chunk, self.device),
-                np.float32(min_conf),
-            )
-            out_i[lo : lo + b] = idx.cpu().numpy()[:b]
-            out_s[lo : lo + b] = vals.cpu().numpy()[:b]
-            out_c[lo : lo + b] = host_bits(union)[:b]
+            t0 = self.clock()
+            with obs.current().span("query/micro_batch", kind="rules", slots=chunk.shape[0]):
+                idx, vals, union = step(
+                    index.premise, index.added, index.confidence, metric,
+                    index.rule_id, index.n_rules, device_bits(chunk, self.device),
+                    np.float32(min_conf),
+                )
+                out_i[lo : lo + b] = idx.cpu().numpy()[:b]
+                out_s[lo : lo + b] = vals.cpu().numpy()[:b]
+                out_c[lo : lo + b] = host_bits(union)[:b]
+            self._obs_batch("rules", self.clock() - t0)
             batches += 1
         self.stats.charge("rules", B, batches)
         return out_i, out_s, out_c

@@ -16,6 +16,9 @@ The insertion is the device twin of the vectorized host path in
 
 followed by one plan-SPMD support round over the grown context and the
 two order-table matmuls (both inside ``ConceptStore.make_snapshot``).
+``stage`` and ``commit`` record ``stream/stage`` and ``stream/commit``
+spans on the current tracer; the staged wall ticks on the updater's
+injectable ``clock``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.core import incremental
 from repro_torch.core.context import FormalContext
 from repro_torch.core.frontier import _sort_unique
 from repro_torch.kernels.ops import bucket_size
+from repro_torch.obs import trace as obs
 from repro_torch.query.store import ConceptStore, StoreState
 
 # Candidate rows (intents × P) per sort-unique pass of the grow step.
@@ -82,8 +86,11 @@ class UpdateReceipt:
 
 
 class StreamUpdater:
-    def __init__(self, store: ConceptStore, row_slack: int = 64):
+    def __init__(self, store: ConceptStore, row_slack: int = 64, *, clock=time.perf_counter):
         self.store = store
+        # the clock of the staged-wall measurement (a caller running a
+        # virtual timebase passes its own)
+        self.clock = clock
         # Round the grown context's row padding up to this quantum (kept a
         # multiple of the plan's row alignment), as the reference does so
         # its compiled steps see a new row count only once per ~row_slack
@@ -102,8 +109,19 @@ class StreamUpdater:
         """
         store = self.store
         state = store.state  # one consistent (ctx, rows, snapshot) view
+        t0 = self.clock()
+        with obs.current().span("stream/stage") as sp:
+            receipt = self._stage(store, state, new_rows, t0)
+            sp.set(
+                n_new_objects=receipt.n_new_objects,
+                n_intersections=receipt.n_intersections,
+                n_concepts_after=receipt.n_concepts_after,
+                version=receipt.version,
+            )
+        return receipt
+
+    def _stage(self, store, state, new_rows, t0) -> UpdateReceipt:
         snap, ctx = state.snapshot, state.ctx
-        t0 = time.perf_counter()
         new_rows = np.ascontiguousarray(new_rows, dtype=np.uint32)
         if new_rows.ndim != 2 or new_rows.shape[1] != ctx.W:
             raise ValueError(f"new rows must be [K, {ctx.W}] packed uint32")
@@ -150,13 +168,14 @@ class StreamUpdater:
             n_intersections=P.shape[0],
             n_concepts_before=snap.n_concepts,
             n_concepts_after=next_snap.n_concepts,
-            stage_wall_s=time.perf_counter() - t0,
+            stage_wall_s=self.clock() - t0,
             version=next_snap.version,
         )
 
     def commit(self):
         """Swap the staged snapshot in (one reference assignment)."""
-        return self.store.commit()
+        with obs.current().span("stream/commit"):
+            return self.store.commit()
 
     def apply(self, new_rows: np.ndarray) -> UpdateReceipt:
         """stage + commit in one call (the synchronous convenience path)."""

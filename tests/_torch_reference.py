@@ -175,6 +175,61 @@ def smoke_constants() -> dict:
     return out
 
 
+def cand_constants() -> dict:
+    """The reference values of chip_smoke.py's 2-D mining phase.
+
+    For every plan of ``CAND_PLANS`` and driver of ``CAND_DRIVERS`` (and the
+    ``CAND_SMALL_BATCH`` run), the JAX package (``backend="jnp"``, under the
+    binding above) mines full-scale mushroom at ``MAIN_MIN_SUPPORT`` on
+    ``ShardPlan.simulated(k, cand_parts=c, ...)``; census-income as
+    published at ``CAND_CENSUS_PLAN`` and ``CENSUS_MIN_SUPPORT``.  Records
+    the counts, the modeled wire bytes and the schedule census.  Some
+    minutes on a CPU; run it as
+    ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py cand``
+    and copy the printed JSON into chip_smoke.py's ``CAND_EXPECTED``.
+    """
+    import sys
+    from pathlib import Path
+
+    import repro.core as ref_core
+    from repro.data import fca_datasets
+    from repro.dist.shardplan import ShardPlan
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    def run(ctx, k, c, impl, driver, min_support, **plan_kw):
+        plan = ShardPlan.simulated(k, cand_parts=c, reduce_impl=impl, **plan_kw)
+        eng = ref_core.ClosureEngine(ctx, plan=plan, backend="jnp")
+        if driver == "mrcbo":
+            res = ref_core.mrcbo(ctx, eng, min_support=min_support)
+        else:
+            res = ref_core.mrganter_plus(ctx, eng, local_prune=True, min_support=min_support,
+                                         dedupe_closures=driver == "mrganter+dedupe")
+        return {"concepts": res.n_concepts, "iterations": res.n_iterations,
+                "closures": res.n_closures_computed, "bytes": res.modeled_comm_bytes,
+                "reduce_rounds": dict(eng.stats.reduce_rounds)}
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "axis_frame", lambda name: jax.lax.axis_size(name),
+                   raising=False)
+        ctx, _ = fca_datasets.load("mushroom", scale=1.0)
+        for k, c, impl in cs.CAND_PLANS:
+            for driver in cs.CAND_DRIVERS:
+                out[cs.cand_key(k, c, impl, driver)] = run(ctx, k, c, impl, driver,
+                                                           cs.MAIN_MIN_SUPPORT)
+        k, c, impl, mb = cs.CAND_SMALL_BATCH
+        out[cs.cand_key(k, c, impl, "mrganter+", mb)] = run(
+            ctx, k, c, impl, "mrganter+", cs.MAIN_MIN_SUPPORT, max_batch=mb)
+        cctx, _ = fca_datasets.load("census-income", scale=1.0)
+        k, c, impl = cs.CAND_CENSUS_PLAN
+        out["census " + cs.cand_key(k, c, impl, "mrganter+")] = run(
+            cctx, k, c, impl, "mrganter+", cs.CENSUS_MIN_SUPPORT)
+    jax.clear_caches()
+    return out
+
+
 def lm_constants() -> dict:
     """The reference tokens of chip_smoke.py's reduced LM serve phase.
 
@@ -216,5 +271,7 @@ if __name__ == "__main__":
 
     if sys.argv[1:] == ["lm"]:
         print(json.dumps(lm_constants()))
+    elif sys.argv[1:] == ["cand"]:
+        print(json.dumps(cand_constants(), indent=1))
     else:
         print(json.dumps(smoke_constants(), indent=1))

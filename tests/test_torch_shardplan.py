@@ -125,10 +125,13 @@ def test_plan_validation_matches_reference(case):
 
 
 def test_multi_shard_plans_raise():
-    """Multi-shard plans run; what this slice does not port raises."""
+    """Multi-shard plans run, 2-D ones with the reference's geometry; what
+    the port refuses raises."""
     assert ShardPlan(n_parts=2).n_parts == 2
-    with pytest.raises(NotImplementedError, match="2-D candidate"):
-        ShardPlan.simulated(2, cand_parts=2)
+    plan, ref = ShardPlan.simulated(2, cand_parts=2), ref_sp.ShardPlan.simulated(2, cand_parts=2)
+    assert (plan.n_parts, plan.cand_parts, plan.cand_axes, plan.row_alignment) == (
+        ref.n_parts, ref.cand_parts, ref.cand_axes, ref.row_alignment)
+    assert plan.describe() == {**ref.describe(), "mode": "simulated", "backend": None}
     # out_shard= is ported now; with post= it raises, as in the reference
     with pytest.raises(ValueError, match="mutually exclusive"):
         ShardPlan.simulated(2).spmd(lambda r: (r,), n_rep=0, post=lambda r: r,
@@ -378,6 +381,55 @@ cli = fca.cmd_mine(fca.build_parser().parse_args(
      "--reduce", "rsag", "--device", "cpu"]))
 out["cli"] = {k: cli[k] for k in ("plan", "concepts", "iterations", "closures_computed",
                                   "modeled_comm_bytes", "reduce_rounds")}
+
+# the 2-D plan: a 2 x 2 (candidate x object) mesh of the four ranks
+from repro_torch.launch.mesh import make_local_mesh
+mesh = make_local_mesh(cand=2)
+synthetic = core.FormalContext.synthetic(60, 24, 0.35, seed=42)
+MESH_DRIVERS = dict(DRIVERS, **{
+    "mrganter+dedupe": lambda c, e: core.mrganter_plus(c, e, dedupe_closures=True),
+    "mrganter+iceberg": lambda c, e: core.mrganter_plus(c, e, local_prune=True, min_support=6),
+    "mrcbo+iceberg": lambda c, e: core.mrcbo(c, e, min_support=6),
+})
+out["mesh"] = {"rank": dist.get_rank(), "object": dist.get_rank(mesh.object_group),
+               "cand": dist.get_rank(mesh.cand_group)}
+for impl in ("allgather", "rsag", "pmin", "auto"):
+    for backend in ("kernel", "torch"):
+        plan = ShardPlan.over_mesh(mesh, "cpu", reduce_impl=impl)
+        for name, drive in DRIVERS.items():
+            eng = core.ClosureEngine(ctx, plan=plan, backend=backend)
+            res = drive(ctx, eng)
+            out[f"2d/{impl}/{backend}/{name}"] = {
+                "intents": [y.tobytes().hex() for y in res.intents],
+                "iterations": res.n_iterations,
+                "closures": res.n_closures_computed,
+                "bytes": res.modeled_comm_bytes,
+                "stats": {k: getattr(eng.stats, k) for k in STAT_FIELDS},
+            }
+for backend in ("kernel", "torch"):
+    plan = ShardPlan.over_mesh(mesh, "cpu", reduce_impl="rsag", block_n=64, max_batch=64)
+    for name, drive in MESH_DRIVERS.items():
+        if name == "mrganter":
+            continue
+        eng = core.ClosureEngine(synthetic, plan=plan, backend=backend)
+        res = drive(synthetic, eng)
+        out[f"2d-synthetic/{backend}/{name}"] = {
+            "intents": [y.tobytes().hex() for y in res.intents],
+            "iterations": res.n_iterations,
+            "closures": res.n_closures_computed,
+            "bytes": res.modeled_comm_bytes,
+            "stats": {k: getattr(eng.stats, k) for k in STAT_FIELDS},
+        }
+cli2d = fca.cmd_mine(fca.build_parser().parse_args(
+    ["mine", "--dataset", "mushroom", "--scale", "0.01", "--local-prune", "--parts", "2",
+     "--cand-shards", "2", "--device", "cpu"]))
+out["cli2d"] = {k: cli2d[k] for k in ("plan", "concepts", "iterations", "closures_computed",
+                                      "modeled_comm_bytes", "reduce_rounds")}
+trace, stats = f"trace{dist.get_rank()}.json", f"stats{dist.get_rank()}.json"
+fca.main(["serve", "--dataset", "mushroom", "--scale", "0.003", "--cand-shards", "2",
+          "--algorithm", "mrcbo", "--queries", "40", "--topk", "12", "--slots", "16",
+          "--updates", "4", "--device", "cpu", "--trace", trace, "--stats-json", stats])
+out["serve2d"] = {"trace": open(trace).read(), "stats": json.load(open(stats))}
 print(json.dumps(out))
 """
 
@@ -433,6 +485,102 @@ def test_cli_under_a_process_group_holds_one_shard_per_rank(group_runs):
                                                want["closures_computed"],
                                                want["reduce_bytes_total"]), f"rank {rank}"
         assert cli["reduce_rounds"] == simulated["reduce_rounds"], f"rank {rank}"
+
+
+MESH_DRIVERS = dict(DRIVERS, **{
+    "mrganter+dedupe": lambda pkg, c, e: pkg.mrganter_plus(c, e, dedupe_closures=True),
+    "mrganter+iceberg": lambda pkg, c, e: pkg.mrganter_plus(c, e, local_prune=True,
+                                                            min_support=6),
+    "mrcbo+iceberg": lambda pkg, c, e: pkg.mrcbo(c, e, min_support=6),
+})
+
+
+def _reference_2d(ctx_name, impl, driver, **plan_kw) -> dict:
+    """The reference on a simulated 2 x 2 (object x candidate) plan."""
+    key = (ctx_name, "2x2", impl, driver, tuple(sorted(plan_kw.items())))
+    if key not in _reference_runs:
+        ctx = _context(ctx_name)
+        plan = ref_sp.ShardPlan.simulated(2, cand_parts=2, reduce_impl=impl, **plan_kw)
+        eng = ref_core.ClosureEngine(ctx, plan=plan, backend="jnp")
+        _reference_runs[key] = _summary(MESH_DRIVERS[driver](ref_core, ctx, eng), eng)
+    return _reference_runs[key]
+
+
+def test_mesh_places_one_object_shard_and_one_block_per_rank(group_runs):
+    """The 2 x 2 mesh runs the candidate axis major: ranks 0, 1 close block
+    0 over object shards 0, 1; ranks 2, 3 block 1."""
+    for rank, out in enumerate(group_runs):
+        assert out["mesh"] == {"rank": rank, "object": rank % 2, "cand": rank // 2}
+
+
+@pytest.mark.parametrize("driver", list(DRIVERS))
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_2d_process_group_ranks_return_the_reference_intents(jax_reference,  # noqa: F811
+                                                             group_runs, impl, backend,
+                                                             driver):
+    """A 2 x 2 gloo mesh (object x candidate) against the reference's
+    simulated 2 x 2 plan: intents in order, counts, bytes and the schedule
+    census on every rank."""
+    want = _reference_2d("paper", impl, driver)
+    for rank, out in enumerate(group_runs):
+        assert out[f"2d/{impl}/{backend}/{driver}"] == want, f"rank {rank}"
+
+
+@pytest.mark.parametrize("driver", [d for d in MESH_DRIVERS if d != "mrganter"])
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+def test_2d_process_group_chunks_match_the_reference(jax_reference, group_runs,  # noqa: F811
+                                                     backend, driver):
+    """The synthetic context at max_batch 64: rounds span several chunks of
+    two blocks, each rank closing its block at its row offset."""
+    want = _reference_2d("synthetic", "rsag", driver, block_n=64, max_batch=64)
+    assert want["stats"]["closure_calls"] > want["iterations"]  # several chunks a round
+    for rank, out in enumerate(group_runs):
+        assert out[f"2d-synthetic/{backend}/{driver}"] == want, f"rank {rank}"
+
+
+def test_cli_2d_under_a_process_group_holds_one_block_per_rank(group_runs):
+    """``fca mine --cand-shards 2 --parts 2`` run by the four ranks builds a
+    2 x 2 mesh plan (``--parts`` not read) and mines what the simulated
+    2 x 2 CLI run mines, at the same modeled bytes and schedule census."""
+    args = ["mine", "--dataset", "mushroom", "--scale", "0.01", "--local-prune",
+            "--parts", "2", "--cand-shards", "2", "--device", "cpu"]
+    simulated = fca.cmd_mine(fca.build_parser().parse_args(args))
+    assert simulated["plan"]["mode"] == "simulated" and simulated["plan"]["cand_parts"] == 2
+    for rank, out in enumerate(group_runs):
+        cli = out["cli2d"]
+        assert cli["plan"]["mode"] == "group", f"rank {rank}"
+        assert (cli["plan"]["n_parts"], cli["plan"]["cand_parts"]) == (2, 2)
+        assert cli["plan"]["cand_axes"] == ["cand"] and cli["plan"]["axes"] == ["data"]
+        assert cli["plan"]["mesh_shape"] == {"cand": 2, "data": 2}
+        for key in ("concepts", "iterations", "closures_computed", "modeled_comm_bytes",
+                    "reduce_rounds"):
+            assert cli[key] == simulated[key], (rank, key)
+    assert simulated["concepts"] == 4440
+
+
+def test_cli_2d_serve_under_a_process_group_traces_and_writes_stats(group_runs):
+    """``fca serve --cand-shards 2 --trace --stats-json`` on every rank: the
+    trace validates, the stats file carries the rollup, the trace path and
+    well-formed micro-batch latency percentiles."""
+    from repro.obs import validate_trace as ref_validate
+    from repro_torch.obs import validate_trace
+
+    for rank, out in enumerate(group_runs):
+        trace = json.loads(out["serve2d"]["trace"])
+        assert validate_trace(trace)["spans"] > 0 and ref_validate(trace)
+        stats = out["serve2d"]["stats"]
+        assert stats["plan"]["cand_parts"] == 2 and stats["plan"]["mode"] == "group"
+        assert stats["trace_path"] == f"trace{rank}.json"
+        lat = stats["query_stats"]["latency_percentiles"]["micro_batch"]
+        assert set(lat) == {"p50", "p95", "p99"}
+        assert 0 <= lat["p50"] <= lat["p95"] <= lat["p99"]
+        roll = stats["span_rollup"]
+        # closure, top-k and lookup micro-batches (the order reads are not)
+        assert 3 <= roll["query/micro_batch"]["count"] <= stats["query_stats"]["micro_batches"]
+        for name in ("mine/mrcbo", "mine/round", "mine/round/dispatch",
+                     "stream/stage", "stream/commit"):
+            assert roll[name]["count"] >= 1, name
 
 
 # -- the CLI -----------------------------------------------------------------
