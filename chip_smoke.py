@@ -48,7 +48,11 @@ checks, on the card:
      (``K7_EDGE_*``): G ∈ {1, 2, 3, 4, 8}, S and T ∈ {63, 64, 65, 127,
      128, 129, 4097}, hd ∈ {8, 24, 128, 256}, windows 64, 65 and 128,
      valid_from on and beside the 64- and 128-row edges, and q, k and v
-     as slices of one fused projection;
+     as slices of one fused projection; K2 and K4 with the valid count on
+     the card (``COUNT_*``): a 0-dim int32 tensor at 0, 1, B - 1, B and
+     B + 5, row_off 0 and B // 4, every variant, K2 on the tensor and the
+     SIMT body, K4 at K 1 and 8, each equal to the int form's launch and to
+     the plain version;
   4. main path, one shard — MRGanter+ (local pruning) and MRCbo on the
      full-scale mushroom context (8124 x 125) at min_support=406 through
      ``backend="kernel"``: concept, iteration and closure counts equal the
@@ -109,6 +113,22 @@ checks, on the card:
      (``start_device_trace``) over a 2 × 4 and a 1 × 4 run must start,
      export, and name the K2 and K3 forms of the tensor-core closure body
      and K4's filter kernel;
+  14. async rounds — MRGanter+ (local pruning) and MRCbo with
+     ``rounds="async"`` on mushroom as in phase 4 at 1 x 1 and 1 x 4 (K1,
+     K2), 8 x 1 and 2 x 4 rsag (K1, K3, K4); MRGanter+ at 2 x 4 and max_batch
+     1024 (speculative rounds fall back on the card); MRGanter's walk (K1)
+     capped at 200 iterations; census-income at 8 x 1 rsag.  Each a guarded
+     run (every speculative dispatch under ``set_sync_debug_mode("error")``,
+     after a positive control that a host read there raises), a warm async
+     run and a warm sync run: counts, bytes, schedule, transfer and
+     speculation census equal the reference's async runs
+     (``ASYNC_EXPECTED``), concept sets equal phase 4's, iterations the sync
+     run's, MRGanter's walk the sync walk in order; the walls, host-blocked
+     and dispatch seconds and the collector's pauses of all three.  One
+     traced async run: valid, with a ``spec/dispatch`` span inside an
+     earlier round's window.  Then MRGanter+ at 1 x 1 and the walk, sync
+     and async, under ``torch.profiler``: launches, sorts, copies and
+     synchronisations enqueued, the device's self time;
   9. rules — full-scale mushroom mined at min_support=812 on k = 8 rsag,
      the DG and Luxenburger bases at min_conf 0.5, the rule index, and
      1024 seeded rule queries at k = 5 ranked by confidence and by lift
@@ -145,8 +165,8 @@ checks, on the card:
      parent tree ran between K3 and K4 on the same chunks (the simulated
      AND-allreduce, the support sum, the LOW gather), on its costliest
      chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
-     The kernels line's ``launches`` also counts phase 12's kernel runs,
-     whose chunks are not replayed here.
+     The kernels line's ``launches`` also counts phase 12's kernel runs
+     and phase 14's warm async runs, whose chunks are not replayed here.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -244,6 +264,55 @@ CAND_EXPECTED = {
 
 def cand_key(k: int, c: int, impl: str, driver: str, max_batch: int | None = None) -> str:
     return f"{k}x{c} {impl} {driver}" + (f" max_batch={max_batch}" if max_batch else "")
+
+
+# The async main path (phase 14): phase 4's context and threshold with
+# ``rounds="async"`` on object x candidate plans (k, c, schedule) — K2 on
+# 1 x 1 and 1 x 4, K1, K3 and K4 on 8 x 1 and 2 x 4 — for MRGanter+ (local
+# pruning) and MRCbo; MRGanter+ at 2 x 4 and a max_batch of 1024, whose
+# speculative chunks under-cover and fall back; MRGanter's walk (K1) on one
+# shard, capped at 200 iterations; census-income as in phase 5 (8 x 1
+# rsag).  ASYNC_EXPECTED holds the reference's async runs on the same
+# plans (the JAX package, backend="jnp"): counts, modeled wire bytes,
+# schedule census, the H2D / D2H transfer census and the speculation
+# census, derived once on the CPU by
+# ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py async``.
+ASYNC_PLANS = ((1, 1, "rsag"), (8, 1, "rsag"), (1, 4, "rsag"), (2, 4, "rsag"))
+ASYNC_DRIVERS = ("mrganter+", "mrcbo")
+ASYNC_SMALL_BATCH = (2, 4, "rsag", 1024)
+ASYNC_GANTER = (1, 1, "rsag", 200)  # the plan and max_iterations of MRGanter's walk
+ASYNC_CENSUS_PLAN = (8, 1, "rsag")
+ASYNC_CENSUS_FIELDS = ("h2d_transfers", "h2d_bytes", "d2h_transfers", "d2h_bytes",
+                       "spec_rounds", "spec_fallbacks", "spec_discarded")
+ASYNC_EXPECTED = {
+    '1x1 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180910, 'bytes': 0, 'reduce_rounds': {'rsag': 28}, 'h2d_transfers': 6, 'h2d_bytes': 29952, 'd2h_transfers': 54, 'd2h_bytes': 1413552, 'spec_rounds': 12, 'spec_fallbacks': 4, 'spec_discarded': 5},
+    '1x1 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 0, 'reduce_rounds': {'rsag': 24}, 'h2d_transfers': 3, 'h2d_bytes': 288, 'd2h_transfers': 32, 'd2h_bytes': 1208824, 'spec_rounds': 11, 'spec_fallbacks': 3, 'spec_discarded': 4},
+    '8x1 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 180910, 'bytes': 42292992, 'reduce_rounds': {'rsag': 28}, 'h2d_transfers': 6, 'h2d_bytes': 29952, 'd2h_transfers': 54, 'd2h_bytes': 1413552, 'spec_rounds': 12, 'spec_fallbacks': 4, 'spec_discarded': 5},
+    '8x1 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 35297024, 'reduce_rounds': {'rsag': 24}, 'h2d_transfers': 3, 'h2d_bytes': 288, 'd2h_transfers': 32, 'd2h_bytes': 1208824, 'spec_rounds': 11, 'spec_fallbacks': 3, 'spec_discarded': 4},
+    '1x4 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 246109, 'bytes': 13486080, 'reduce_rounds': {'rsag': 15}, 'h2d_transfers': 5, 'h2d_bytes': 25856, 'd2h_transfers': 27, 'd2h_bytes': 3889988, 'spec_rounds': 11, 'spec_fallbacks': 3, 'spec_discarded': 4},
+    '1x4 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 11864064, 'reduce_rounds': {'rsag': 12}, 'h2d_transfers': 3, 'h2d_bytes': 288, 'd2h_transfers': 16, 'd2h_bytes': 2771576, 'spec_rounds': 9, 'spec_fallbacks': 1, 'spec_discarded': 2},
+    '2x4 rsag mrganter+': {'concepts': 4282, 'iterations': 8, 'closures': 246109, 'bytes': 35963136, 'reduce_rounds': {'rsag': 15}, 'h2d_transfers': 5, 'h2d_bytes': 25856, 'd2h_transfers': 27, 'd2h_bytes': 3889988, 'spec_rounds': 11, 'spec_fallbacks': 3, 'spec_discarded': 4},
+    '2x4 rsag mrcbo': {'concepts': 4282, 'iterations': 8, 'closures': 139782, 'bytes': 31637760, 'reduce_rounds': {'rsag': 12}, 'h2d_transfers': 3, 'h2d_bytes': 288, 'd2h_transfers': 16, 'd2h_bytes': 2771576, 'spec_rounds': 9, 'spec_fallbacks': 1, 'spec_discarded': 2},
+    '2x4 rsag mrganter+ max_batch=1024': {'concepts': 4282, 'iterations': 8, 'closures': 180611, 'bytes': 23609600, 'reduce_rounds': {'rsag': 48}, 'h2d_transfers': 7, 'h2d_bytes': 95488, 'd2h_transfers': 95, 'd2h_bytes': 850184, 'spec_rounds': 13, 'spec_fallbacks': 5, 'spec_discarded': 6},
+    '1x1 rsag mrganter max_iterations=200': {'concepts': 200, 'iterations': 200, 'closures': 24474, 'bytes': 0, 'reduce_rounds': {'rsag': 200}, 'h2d_transfers': 2, 'h2d_bytes': 256, 'd2h_transfers': 201, 'd2h_bytes': 4936, 'spec_rounds': 199, 'spec_fallbacks': 0, 'spec_discarded': 0},
+    'census 8x1 rsag mrganter+': {'concepts': 104, 'iterations': 4, 'closures': 12767, 'bytes': 4804800, 'reduce_rounds': {'rsag': 5}, 'h2d_transfers': 2, 'h2d_bytes': 320, 'd2h_transfers': 8, 'd2h_bytes': 344768, 'spec_rounds': 4, 'spec_fallbacks': 1, 'spec_discarded': 1},
+}
+
+
+def async_key(k: int, c: int, impl: str, driver: str, max_batch: int | None = None,
+              max_iterations: int | None = None) -> str:
+    return cand_key(k, c, impl, driver, max_batch) + (
+        f" max_iterations={max_iterations}" if max_iterations else "")
+
+
+def async_record(res, eng) -> dict:
+    """What phase 14 holds against the reference's async run (either
+    package's MRResult and engine)."""
+    s = eng.stats
+    return {"concepts": res.n_concepts, "iterations": res.n_iterations,
+            "closures": res.n_closures_computed, "bytes": res.modeled_comm_bytes,
+            "reduce_rounds": dict(s.reduce_rounds),
+            **{f: getattr(s, f) for f in ASYNC_CENSUS_FIELDS}}
 
 
 # The serving tier (phases 8 and 9).  Serve: phase 4's context, threshold
@@ -502,7 +571,7 @@ def check_kernels(device) -> list[dict]:
                               k2.fused_step_plain(rows, cands, mask, sc, **kw))
                 records.append({"kernel": "fused_step", "variant": variant, "W": W,
                                 "N": 256, "B": B})
-    # ragged N and B: the batched_closure wrapper pads both with all-ones rows
+    # ragged N and B: the batched_closure wrapper hands both to K1 as they are
     for W, N, B, n_valid in ((4, 1000, 13, 990), (5, 8124, 125, 8124), (33, 300, 1, 300)):
         rows_np = bitsets(rng, N, W, 0.7)
         rows = device_bits(rows_np, device)
@@ -639,6 +708,77 @@ def check_filter_kernel(device) -> list[dict]:
     return records
 
 
+# K2 and K4 with the valid count on the device (phase 3): the count as a
+# 0-dim int32 tensor on the card at 0, 1, B - 1, B and B + 5, row_off 0 and
+# B // 4, every variant; K2 on the tensor body (W 4, 5) and the SIMT body
+# (W 11), K4 at K in {1, 8}.  Each launch equals the int form's launch and
+# the plain version on the same count, bit for bit.
+COUNT_K2_SHAPES = ((4, 8192, 8192), (5, 512, 40), (11, 256, 130))  # W, N, B
+COUNT_K4_SHAPES = ((1, 4, 8192), (1, 11, 255), (8, 4, 8192), (8, 11, 255))  # K, W, B
+
+
+def count_values(B: int) -> tuple[int, ...]:
+    return (0, 1, B - 1, B, B + 5)
+
+
+def check_device_counts(device) -> list[dict]:
+    """Phase 3: K2 and K4 reading n_valid from the device (``COUNT_*``)
+    against their int form and their plain version, bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import device_bits
+    from repro_torch.kernels import frontier as fk
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(20121023)
+    records = []
+
+    def check(name, kern, plain, args, sc, kw, **rec):
+        dev = (torch.tensor(sc[0], dtype=torch.int32, device=device), *sc[1:])
+        got = kern(*args, dev, **kw)
+        require_equal(f"{name} device count {sc}", got, kern(*args, sc, **kw))
+        require_equal(f"{name} device count {sc} (plain)", got, plain(*args, dev, **kw))
+        records.append({"kernel": kern.__name__, "count": "device", "scalars": list(sc),
+                        "kept": int(got[2].sum()), **rec})
+
+    for W, N, B in COUNT_K2_SHAPES:
+        rows_np = bitsets(rng, N, W, 0.7)
+        cands_np = candidates(rng, rows_np, B)
+        rows, cands = device_bits(rows_np, device), device_bits(cands_np, device)
+        mask = ops.attr_mask_tensor(W * 32 - 7, W, device)[None, :]
+        parent = device_bits(cands_np & bitsets(rng, B, W, 0.5), device)
+        lowrow = device_bits(bitsets(rng, B, W, 0.3), device)
+        for variant, (iceberg, cbo, _) in fk.VARIANTS.items():
+            kw = dict(iceberg=iceberg, cbo=cbo)
+            if cbo:
+                kw.update(parent=parent, lowrow=lowrow)
+            for n_valid in count_values(B):
+                for row_off in (0, B // 4):
+                    check(f"K2 {variant} W={W} N={N} B={B}", fk.fused_step,
+                          fk.fused_step_plain, (rows, cands, mask),
+                          (n_valid, N // 50, 3, row_off), kw, variant=variant, W=W, B=B)
+    for K, W, B in COUNT_K4_SHAPES:
+        n_attrs = W * 32 - 5
+        mask = ops.attr_mask_tensor(n_attrs, W, device)
+        lc = device_bits(bitsets(rng, K * B, W, 0.9), device).reshape(K, B, W) & mask
+        ls = torch.from_numpy(rng.integers(0, 300 // K + 2, size=(K, B)).astype(np.int32))
+        ls = ls.to(device)
+        parent = device_bits(bitsets(rng, B, W, 0.6), device) & lc[0]
+        LOW = device_bits(bitsets(rng, n_attrs, W, 0.02), device) & mask
+        gens = torch.from_numpy(rng.integers(0, n_attrs, size=B).astype(np.int32)).to(device)
+        for variant, (iceberg, cbo, _) in fk.VARIANTS.items():
+            kw = dict(iceberg=iceberg, cbo=cbo)
+            if cbo:
+                kw.update(parent=parent, LOW=LOW, gens=gens)
+            for n_valid in count_values(B):
+                for row_off in (0, B // 4):
+                    check(f"K4 {variant} K={K} W={W} B={B}", fk.filter_step,
+                          fk.filter_step_plain, (lc, ls if iceberg else None),
+                          (n_valid, 100 // K, 7, row_off), kw, variant=variant, K=K, W=W, B=B)
+    return records
+
+
 # The widest rows, in words, on which K1/K2/K3's launchers must take the
 # tensor-core body (TCF_MAX_W in csrc/frontier.cu): phases 3-5 and 8 hold
 # the launchers' reports in the wrappers' tc_launches counters to it, and
@@ -770,30 +910,35 @@ def gc_pauses():
 
 
 def drive_main_path(ctx, backend: str, algorithm: str, device, plan_kw: dict | None = None,
-                    min_support: int = MAIN_MIN_SUPPORT):
+                    min_support: int = MAIN_MIN_SUPPORT, rounds: str = "sync",
+                    max_iterations: int | None = None):
     """One run of a main path through the port's entry points; launch
     counts are set to 0 just before it and read just after.  ``plan_kw``
     (``n_parts``, ``reduce_impl``, or a whole ``plan``) selects the
-    object shards and candidate blocks."""
+    object shards and candidate blocks, ``rounds`` the round mode."""
     import torch
 
     from repro_torch import kernels
-    from repro_torch.core import ClosureEngine, mrcbo, mrganter_plus
+    from repro_torch.core import ClosureEngine, mrcbo, mrganter, mrganter_plus
 
     eng = ClosureEngine(ctx, backend=backend, device=device, **(plan_kw or {}))
+    kw = {"min_support": min_support, "rounds": rounds, "max_iterations": max_iterations}
     kernels.reset_launches()
     torch.cuda.synchronize()
     with gc_pauses() as paused:
         t0 = time.perf_counter()
         if algorithm == "mrcbo":
-            res = mrcbo(ctx, eng, min_support=min_support)
+            res = mrcbo(ctx, eng, **kw)
+        elif algorithm == "mrganter":
+            res = mrganter(ctx, eng, **kw)
         else:  # mrganter+, mrganter+dedupe (closure dedupe on the card too)
-            res = mrganter_plus(ctx, eng, local_prune=True, min_support=min_support,
-                                dedupe_closures=algorithm == "mrganter+dedupe")
+            res = mrganter_plus(ctx, eng, local_prune=True,
+                                dedupe_closures=algorithm == "mrganter+dedupe", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     plan = eng.plan
     GC_PAUSES.append({"objects": ctx.n_objects, "backend": backend, "algorithm": algorithm,
+                      "rounds": rounds,
                       "plan": {"n_parts": plan.n_parts, "cand_parts": plan.cand_parts,
                                "reduce_impl": plan.reduce_impl,
                                "max_batch": plan.max_batch},
@@ -1379,6 +1524,238 @@ def run_tracing_phase(device, main_intents) -> dict:
         raise AssertionError(f"tracing: the device trace names no {missing}")
     emit({"phase": "tracing", **report})
     return report
+
+
+# ---------------------------------------------------------------------------
+# async rounds (phase 14)
+# ---------------------------------------------------------------------------
+
+SPEC_DISPATCHES = ("spec_oplus", "spec_cbo", "spec_ganter")
+
+
+@contextlib.contextmanager
+def spec_sync_guard():
+    """Run every speculative dispatch (``DeviceFrontier.spec_*``) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read of a device
+    value, a synchronising copy or a stream synchronisation inside one
+    raises.  Yields the count of guarded dispatches."""
+    import functools
+
+    import torch
+
+    from repro_torch.core.frontier import DeviceFrontier
+
+    count = {"dispatches": 0}
+    real = {name: getattr(DeviceFrontier, name) for name in SPEC_DISPATCHES}
+
+    def guarded(fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kw):
+            before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(self, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+            count["dispatches"] += 1
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(DeviceFrontier, name, guarded(fn))
+    try:
+        yield count
+    finally:
+        for name, fn in real.items():
+            setattr(DeviceFrontier, name, fn)
+
+
+def check_sync_guard(device) -> str:
+    """The guard's positive control: a host read of a device count inside
+    a guarded dispatch must raise, or the guard proves nothing."""
+    import torch
+
+    from repro_torch.core.frontier import DeviceFrontier
+
+    def reads_the_count(self):
+        return int(torch.ones((), dtype=torch.int32, device=device) + 1)
+
+    DeviceFrontier.spec_ganter, real = reads_the_count, DeviceFrontier.spec_ganter
+    try:
+        with spec_sync_guard():
+            DeviceFrontier.spec_ganter(None)
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        DeviceFrontier.spec_ganter = real
+    raise AssertionError("sync guard: a host read inside a guarded dispatch did not raise")
+
+
+def profile_rounds(device, ctx) -> dict:
+    """Where a warm run's host time goes, sync beside async: MRGanter+ at
+    1 x 1 and MRGanter's walk (ASYNC_GANTER) under ``torch.profiler``
+    (CPU and CUDA activities): kernel launches and sorts enqueued, the
+    device's self time, the copies and stream synchronisations, the
+    costliest host ops by self time.  The profiler slows the host, so
+    these walls are not the phase's walls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k, c, impl, cap = ASYNC_GANTER
+    out = {}
+    for algorithm, max_iterations in (("mrganter+", None), ("mrganter", cap)):
+        for rounds in ("sync", "async"):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, eng, wall, _ = drive_main_path(ctx, "kernel", algorithm, device,
+                                                  {"plan": cand_plan(k, c, impl)},
+                                                  MAIN_MIN_SUPPORT, rounds, max_iterations)
+            ops = prof.key_averages()
+            by = {e.key: e for e in ops}
+
+            def count(name):
+                return by[name].count if name in by else 0
+
+            out[f"{algorithm} {rounds}"] = {
+                "wall_ms": wall * 1e3, "host_blocked_ms": eng.stats.host_blocked_s * 1e3,
+                "kernel_launches": count("cudaLaunchKernel"), "sorts": count("aten::sort"),
+                "memcpy_async": count("cudaMemcpyAsync"),
+                "stream_synchronize": count("cudaStreamSynchronize"),
+                "event_synchronize": count("cudaEventSynchronize"),
+                "device_self_ms": sum(getattr(e, "self_device_time_total",
+                                              getattr(e, "self_cuda_time_total", 0))
+                                      for e in ops) / 1e3,
+                "top_self_cpu_ms": [(e.key, e.count, e.self_cpu_time_total / 1e3) for e in
+                                    sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]]}
+    return out
+
+
+def run_async_path(device, main_intents) -> tuple[dict, dict]:
+    """Phase 14: the main path with ``rounds="async"``.  For every plan of
+    ASYNC_PLANS and driver of ASYNC_DRIVERS a guarded async run (cold:
+    every speculative dispatch under ``set_sync_debug_mode("error")``, the
+    guard's positive control first), a warm async run and a warm sync run
+    on full-scale mushroom at MAIN_MIN_SUPPORT (the walls are the
+    unguarded ones); MRGanter+ at ASYNC_SMALL_BATCH (under-coverage must
+    fall back on the card); MRGanter's walk at ASYNC_GANTER beside its sync
+    walk; census-income at ASYNC_CENSUS_PLAN.  Every async run's counts,
+    bytes, schedule, transfer and speculation census equal the reference's
+    async run (ASYNC_EXPECTED); concept sets equal phase 4's (MRGanter's
+    walk: its sync walk's intents, in order) and iteration counts the sync
+    run's; the kernels of the plan launched (K1 and K2 on one object shard,
+    K1, K3 and K4 on k > 1; MRGanter's walk K1 alone), as often in every
+    async run.  Then one traced async run (2 x 4): the trace valid, and a
+    ``spec/dispatch`` span inside an earlier round's window; and
+    ``profile_rounds``.  Returns the report and the launches of the warm
+    async kernel runs."""
+    import numpy as np
+
+    from repro_torch.data import fca_datasets
+    from repro_torch.obs import Tracer, async_overlaps, span_rollup, use_tracer, validate_trace
+
+    ctx, spec = fca_datasets.load("mushroom", scale=1.0)
+    cctx, _ = fca_datasets.load("census-income", scale=1.0)
+    main_set = intent_set(main_intents)
+    launches = {n: 0 for n in ("closure", "fused_step", "map_closure", "filter_step")}
+    report = {"sync_guard_control": check_sync_guard(device)}
+    guarded_total = 0
+
+    def drive(c, algorithm, plan, ms, rounds, guarded=False, **kw):
+        with spec_sync_guard() if guarded else contextlib.nullcontext() as guard:
+            run = drive_main_path(c, "kernel", algorithm, device, {"plan": plan}, ms, rounds,
+                                  **kw)
+        if guarded and guard["dispatches"] != run[1].stats.spec_rounds:
+            raise AssertionError(f"{guard['dispatches']} guarded dispatches, "
+                                 f"{run[1].stats.spec_rounds} speculative rounds")
+        return run, GC_PAUSES[-1]["gc_ms"]
+
+    def runs_of(key, c, algorithm, plan, ms=MAIN_MIN_SUPPORT, **kw):
+        """The guarded async run, the warm async run and the warm sync run,
+        each async run held against the reference."""
+        nonlocal guarded_total
+        runs = {"async_guarded": drive(c, algorithm, plan, ms, "async", True, **kw),
+                "async": drive(c, algorithm, plan, ms, "async", **kw),
+                "sync": drive(c, algorithm, plan, ms, "sync", **kw)}
+        for name in ("async_guarded", "async"):
+            got = async_record(*runs[name][0][:2])
+            if got != ASYNC_EXPECTED[key]:
+                raise AssertionError(f"async {key} ({name}): {got} != reference "
+                                     f"{ASYNC_EXPECTED[key]}")
+        guarded_total += got["spec_rounds"]
+        counts = runs["async"][0][3]
+        if runs["async_guarded"][0][3] != counts:
+            raise AssertionError(f"async {key}: launch counts differ between runs")
+        if any(r[0].n_iterations != runs["sync"][0][0].n_iterations for r, _ in runs.values()):
+            raise AssertionError(f"async {key}: iterations differ from the sync run's")
+        for n in launches:
+            launches[n] += counts[n]
+        report[key] = dict(got, launches=counts, walls={
+            name: {"wall_s": r[2], "host_blocked_s": r[1].stats.host_blocked_s,
+                   "dispatch_s": r[1].stats.dispatch_s, "d2h_transfers": r[1].stats.d2h_transfers,
+                   "gc_ms": gc_ms}
+            for name, (r, gc_ms) in runs.items()})
+        return {name: r for name, (r, _) in runs.items()}
+
+    def same_set(key, runs, want):
+        if any(intent_set(r[0].intents) != want for r in runs.values()):
+            raise AssertionError(f"async {key}: a concept set differs from phase 4's")
+
+    for k, c, impl in ASYNC_PLANS:
+        for algorithm in ASYNC_DRIVERS:
+            key = async_key(k, c, impl, algorithm)
+            runs = runs_of(key, ctx, algorithm, cand_plan(k, c, impl))
+            same_set(key, runs, main_set)
+            check_cand_counts(f"async {key}", k, runs["async"][3])
+
+    k, c, impl, mb = ASYNC_SMALL_BATCH
+    key = async_key(k, c, impl, "mrganter+", mb)
+    runs = runs_of(key, ctx, "mrganter+", cand_plan(k, c, impl, mb))
+    same_set(key, runs, main_set)
+    check_cand_counts(f"async {key}", k, runs["async"][3])
+    if report[key]["spec_fallbacks"] == 0:
+        raise AssertionError(f"async {key}: no speculative round fell back")
+
+    k, c, impl, cap = ASYNC_GANTER
+    key = async_key(k, c, impl, "mrganter", max_iterations=cap)
+    runs = runs_of(key, ctx, "mrganter", cand_plan(k, c, impl), max_iterations=cap)
+    walk = np.stack(runs["sync"][0].intents).tobytes()
+    if any(np.stack(r[0].intents).tobytes() != walk for r in runs.values()):
+        raise AssertionError(f"async {key}: the walk differs from the sync walk")
+    counts = runs["async"][3]
+    if counts["closure"] == 0 or any(v for n, v in counts.items() if n != "closure"):
+        raise AssertionError(f"async {key}: launches {counts}, K1 alone expected")
+
+    k, c, impl = ASYNC_CENSUS_PLAN
+    key = "census " + async_key(k, c, impl, "mrganter+")
+    runs = runs_of(key, cctx, "mrganter+", cand_plan(k, c, impl), CENSUS_MIN_SUPPORT)
+    check_cand_counts(f"async {key}", k, runs["async"][3])
+
+    # one traced async run: valid, and a dispatch inside an earlier round
+    tracer = Tracer()
+    with use_tracer(tracer):
+        (tres, _, twall, _), _ = drive(ctx, "mrganter+", cand_plan(2, 4, "rsag"),
+                                       MAIN_MIN_SUPPORT, "async")
+    trace = json.loads(json.dumps(tracer.to_dict()))
+    summary = validate_trace(trace)
+    overlaps = [o for o in async_overlaps(trace) if o["span"].startswith("spec/dispatch")]
+    earlier = [o for o in overlaps if int(o["span"][len("spec/dispatch["):-1]) > o["round_id"]]
+    if not earlier:
+        raise AssertionError("async trace: no spec/dispatch span inside an earlier round")
+    if intent_set(tres.intents) != main_set:
+        raise AssertionError("async trace: the traced run's concept set differs")
+    roll = span_rollup(trace["traceEvents"])
+    report["traced 2x4 rsag mrganter+"] = {
+        "trace": summary, "spec_dispatch_overlaps": len(overlaps),
+        "inside_an_earlier_round": len(earlier), "wall_s": twall,
+        "rollup": {n: {"count": r["count"], "total_ms": r["total_s"] * 1e3,
+                       "p50_ms": r["p50_s"] * 1e3}
+                   for n, r in roll.items()
+                   if n in ("mine/mrganter_plus", "mine/round", "spec/dispatch",
+                            "spec/reconcile")}}
+    report["sync_debug_guarded_dispatches"] = guarded_total
+    report["profiled"] = profile_rounds(device, ctx)
+    emit({"phase": "async_path", "dataset": spec.name, "objects": ctx.n_objects,
+          "attributes": ctx.n_attrs, "min_support": MAIN_MIN_SUPPORT, "runs": report,
+          "launches": launches})
+    return report, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2891,14 +3268,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     records = (check_kernels(device) + check_sharded_kernels(device)
-               + check_filter_kernel(device) + check_tc_kernels(device)
+               + check_filter_kernel(device) + check_device_counts(device)
+               + check_tc_kernels(device)
                + check_serve_kernels(device) + check_contains_split(device)
                + check_rules_split(device) + check_attention_kernel(device)
                + check_attention_edges(device))
     emit({"phase": "kernels", "cases": len(records), "seconds": time.perf_counter() - t0,
           "by_kernel": {k: sum(r["kernel"] == k for r in records)
                         for k in dict.fromkeys(r["kernel"] for r in records)},
-          "bit_exact": "K1-K6", "tc_edge_cases": {
+          "bit_exact": "K1-K6",
+          "device_count_cases": {k: sum(r["kernel"] == k for r in records
+                                        if r.get("count") == "device")
+                                 for k in ("fused_step", "filter_step")},
+          "tc_edge_cases": {
               k: sum(r["kernel"] == k for r in records if r.get("tc_edge"))
               for k in ("closure", "map_closure", "fused_step")},
           "split_edge_cases": {k: sum(r["kernel"] == k for r in records if r.get("split_edge"))
@@ -2946,6 +3328,12 @@ def main() -> int:
     t0 = time.perf_counter()
     run_tracing_phase(device, main_intents)
     emit({"phase": "tracing_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, async_launches = run_async_path(device, main_intents)
+    for name, n in async_launches.items():  # the async runs' launches, their chunks untimed
+        launches[name] += n
+    emit({"phase": "async_path_seconds", "seconds": time.perf_counter() - t0,
+          "launches": async_launches})
     t0 = time.perf_counter()
     _, rules_chunks, launches["rules_topk"] = run_rules_phase(device)
     emit({"phase": "rules_seconds", "seconds": time.perf_counter() - t0})

@@ -63,11 +63,16 @@ class EngineStats(StatsBase):
     d2h_transfers: int = 0
     d2h_bytes: int = 0
     # wall seconds the host spent enqueueing device work vs blocked waiting
-    # on device results, and the α/β split of the modeled reduce cost
+    # on device results, the α/β split of the modeled reduce cost, and the
+    # async rounds' census: speculative rounds dispatched, those that fell
+    # back to a synchronous re-dispatch, and those discarded unread
     dispatch_s: float = 0.0
     host_blocked_s: float = 0.0
     modeled_dispatch_bytes: int = 0
     modeled_collective_bytes: int = 0
+    spec_rounds: int = 0
+    spec_fallbacks: int = 0
+    spec_discarded: int = 0
 
 
 class ClosureEngine:
@@ -147,7 +152,6 @@ class ClosureEngine:
             cands,
             self.ctx.n_attrs,
             n_valid_rows=n_local,
-            block_n=self.block_n,
             use_kernel=self.backend == "kernel",
             mask=self.mask,
         )

@@ -137,14 +137,15 @@ def select_lectic(
     *largest* feasible generator.  The order is over generator indices,
     not over the words, so no unsigned key is needed: an argmax over
     ``where(ok, arange, -1)`` (first maximum on ties, as in the reference)
-    plus a gather, so the selection never forces a readback.
-    Returns ``(Y_next [W], found [] bool)``; ``Y_next`` is ``closures[0]``
-    garbage when nothing is feasible — gate on ``found``.
+    plus a gather, so the selection never forces a readback (the gather is
+    ``index_select``: indexing with a 0-dim tensor would read it on the
+    host).  Returns ``(Y_next [W], found [] bool)``; ``Y_next`` is
+    ``closures[0]`` garbage when nothing is feasible — gate on ``found``.
     """
     idx_all = torch.arange(ok.shape[0], dtype=torch.int32, device=ok.device)
     score = torch.where(ok, idx_all, -1)
-    idx = torch.argmax(score)
-    return closures[idx], score[idx] >= 0
+    idx = torch.argmax(score).reshape(1)
+    return closures.index_select(0, idx)[0], score.index_select(0, idx)[0] >= 0
 
 
 def lectic_sort_key(row: np.ndarray, n_attrs: int) -> tuple:

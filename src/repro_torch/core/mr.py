@@ -30,10 +30,15 @@ the candidate axis; MRGanter's single-intent frontier stays 1-D.  Each
 public driver records its run as the root span ``mine/<algorithm>`` on the
 current tracer (:mod:`repro_torch.obs`).
 
-Rounds are synchronous: the host reads each round's survivor count before
-it dispatches the next.  Speculative asynchronous rounds
-(``rounds="async"`` in the reference) come with a later slice of the port
-and raise ``NotImplementedError`` here.
+Round scheduling on the device pipeline (``rounds=``): ``"sync"`` reads
+every round's survivor count on the host before it dispatches the next
+(the bit-exact oracle); ``"async"`` dispatches round r+1 against round
+r's unreconciled survivor buffer, its count chained on the device, and
+reconciles round r only once round r+1 is in flight
+(``DeviceFrontier.spec_*`` / ``reconcile_*``).  Concept sets and iteration
+counts are the same in both modes; the per-round census may differ (a
+speculative chunk is padded to its coverage before the true count is
+known).
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from repro_torch.core.hashindex import TwoLevelHash
 from repro_torch.obs import trace as obs
 
 PIPELINES = ("device", "host")
-ROUNDS = ("sync",)
+ROUNDS = ("sync", "async")
 
 
 @dataclasses.dataclass
@@ -96,16 +101,20 @@ def _seeds_for(Y: np.ndarray, tables: lectic.LecticTables) -> np.ndarray:
     return seeds[valid]
 
 
+def _check_rounds(rounds: str, pipeline: str):
+    if rounds not in ROUNDS:
+        raise ValueError(f"unknown rounds mode {rounds!r}; choose {ROUNDS}")
+    if rounds == "async" and pipeline != "device":
+        raise ValueError(
+            "rounds='async' requires pipeline='device' — the host loop has "
+            "no device futures to overlap"
+        )
+
+
 def _check_modes(pipeline: str, rounds: str):
     if pipeline not in PIPELINES:
         raise ValueError(f"unknown pipeline {pipeline!r}; choose {PIPELINES}")
-    if rounds == "async":
-        raise NotImplementedError(
-            "rounds='async' (speculative rounds) is not ported yet: it comes "
-            "with the async-rounds slice of repro_torch; use rounds='sync'"
-        )
-    if rounds not in ROUNDS:
-        raise ValueError(f"unknown rounds mode {rounds!r}; choose {ROUNDS}")
+    _check_rounds(rounds, pipeline)
 
 
 def _result(
@@ -154,7 +163,13 @@ def mrganter(
     """``min_support`` mines the iceberg lattice in strict lectic order:
     the Alg.-5 scan restricts to frequent successors.  The next *frequent*
     closure after Y is Y ⊕ a for the largest feasible frequent a, so the
-    jump skips infrequent closures without ever visiting them."""
+    jump skips infrequent closures without ever visiting them.
+
+    ``rounds="async"`` chains the Alg.-5 steps on the device: each step's
+    selected intent is broadcast into the frontier slot at dispatch, step
+    r+1 is dispatched before step r's packed readback is awaited, and a
+    step dispatched past the walk's true end is discarded unread.  The
+    emission order stays exactly lectic."""
     _check_modes(pipeline, rounds)
     min_support = _check_min_support(min_support)
     t0 = time.perf_counter()
@@ -164,6 +179,10 @@ def mrganter(
         return _result(engine, [], 1, t0, "mrganter", min_support)
     intents = [Y]
     n_iter = 1
+
+    if pipeline == "device" and rounds == "async":
+        return _mrganter_async(engine, Y, full, intents, n_iter, t0,
+                               max_iterations=max_iterations, min_support=min_support)
 
     if pipeline == "device":
         fr = DeviceFrontier(engine)
@@ -212,6 +231,33 @@ def mrganter(
     return _result(engine, intents, n_iter, t0, "mrganter", min_support)
 
 
+def _mrganter_async(engine, Y, full, intents, n_iter, t0, *, max_iterations, min_support):
+    """MRGanter's round loop around futures: step r is reconciled only once
+    step r+1 is in flight."""
+    fr = DeviceFrontier(engine)
+    fr.set_frontier(Y[None, :])
+    capped = max_iterations is not None and n_iter >= max_iterations
+    pending = (None if np.array_equal(Y, full) or capped
+               else fr.spec_ganter(min_support=min_support))
+    while pending is not None:
+        speculate = max_iterations is None or n_iter + 1 < max_iterations
+        nxt = fr.spec_ganter(min_support=min_support) if speculate else None
+        Y, flag = fr.reconcile_ganter(pending)
+        n_iter += 1  # an exhausting iceberg scan is a map/reduce round too
+        if min_support is None:
+            intents.append(Y)
+            stop = flag  # reached the top
+        else:
+            if not flag:  # flag: no frequent successor; Y is garbage
+                intents.append(Y)
+            stop = flag or np.array_equal(Y, full)
+        if stop or nxt is None:
+            fr.discard_spec(nxt)
+            break
+        pending = nxt
+    return _result(engine, intents, n_iter, t0, "mrganter", min_support)
+
+
 # ---------------------------------------------------------------------------
 # MRGanter+ (Algorithms 4 + 6): keep all new closures, dedupe via the
 # two-level hash; iterations collapse to ~lattice depth.
@@ -243,6 +289,16 @@ def mrganter_plus(
     threshold are compacted away right after the support count and never
     join the frontier.  Lossless: each frequent closed Z ≠ ∅'' equals
     closure(D ⊕ a) for a frequent closed proper subset D.
+
+    ``rounds="async"`` keeps round r's survivor buffer on the device and
+    dispatches round r+1's expansion against it before round r's counts
+    are read back; the host registry reconciles novelty one round behind
+    the device.  The async frontier is the round's unique closure set
+    (novel and stale) rather than the novel subset: stale rows only
+    regenerate closures registered in earlier rounds, so the novel set of
+    each round, the concept set and the iteration count are those of sync.
+    ``dedupe_closures`` is implied (the adopted slot is deduped, bounding
+    the stale rows re-expanded).
     """
     _check_modes(pipeline, rounds)
     if local_prune is not None:
@@ -256,6 +312,11 @@ def mrganter_plus(
     H.add(Y0)
     intents = [Y0]
     n_iter = 1
+
+    if pipeline == "device" and rounds == "async":
+        return _mrganter_plus_async(ctx, engine, H, Y0, intents, n_iter, t0,
+                                    dedupe_candidates=dedupe_candidates,
+                                    max_iterations=max_iterations, min_support=min_support)
 
     if pipeline == "device":
         fr = DeviceFrontier(engine, dedupe_closures=dedupe_closures)
@@ -306,6 +367,55 @@ def mrganter_plus(
     return _result(engine, intents, n_iter, t0, "mrganter+", min_support)
 
 
+def _mrganter_plus_async(ctx, engine, H, Y0, intents, n_iter, t0, *,
+                         dedupe_candidates, max_iterations, min_support):
+    """MRGanter+'s round loop around futures.
+
+    It stops where the sync loop stops: a reconciled round counts iff its
+    true seed count was nonzero, and the walk ends when the registry finds
+    no novel closure — or when the sole novel intent is the full attribute
+    set, which has no ⊕-successors, so that sync's next expansion would be
+    empty (the async frontier also holds stale rows, which sync would not
+    expand, so this case is told apart on the host)."""
+    full = ctx.attr_mask()
+    fr = DeviceFrontier(engine, dedupe_closures=True)
+    fr.set_frontier(Y0[None, :])
+
+    def spec():
+        return fr.spec_oplus(dedupe=dedupe_candidates, min_support=min_support)
+
+    capped = max_iterations is not None and n_iter >= max_iterations
+    pending = None if capped else spec()
+    while pending is not None:
+        speculate = max_iterations is None or n_iter + 1 < max_iterations
+        nxt = spec() if speculate else None
+        rec = fr.reconcile_oplus(pending, min_support=min_support)
+        if rec.n_seeds == 0:  # no closure round ran: uncounted, as in sync
+            fr.discard_spec(nxt)
+            break
+        n_iter += 1
+        if rec.closures.shape[0] == 0:
+            # an iceberg round pruned every closure: the exhausting round
+            # still counts, as in sync
+            fr.discard_spec(nxt)
+            break
+        new = rec.closures[H.add_batch(rec.closures)]
+        intents.extend(new)
+        sync_would_stop = new.shape[0] == 0 or (
+            new.shape[0] == 1 and np.array_equal(new[0], full))
+        if sync_would_stop or nxt is None:
+            fr.discard_spec(nxt)
+            break
+        if rec.under_covered:
+            # the round in flight chained on a partial frontier: discard it,
+            # restore the true (novel) frontier and dispatch again
+            fr.discard_spec(nxt)
+            fr.set_frontier(new)
+            nxt = spec()
+        pending = nxt
+    return _result(engine, intents, n_iter, t0, "mrganter+", min_support)
+
+
 # ---------------------------------------------------------------------------
 # MRCbo: distributed CloseByOne under the same engine (paper §5 baseline).
 # ---------------------------------------------------------------------------
@@ -323,7 +433,14 @@ def mrcbo(
 ) -> MRResult:
     """``min_support`` prunes the CbO tree at infrequent nodes: intents
     only grow along the canonical generation path, so every frequent
-    concept's ancestors are frequent and pruning is lossless."""
+    concept's ancestors are frequent and pruning is lossless.
+
+    ``rounds="async"`` expands round r's canonical survivors while their
+    count is still on the device.  The canonicity filter makes the survivor
+    buffer exactly the next frontier (no registry lag), so a covered
+    speculation is exact; under-coverage closes the uncovered tail
+    synchronously and re-adopts the whole survivor set before speculating
+    again."""
     _check_modes(pipeline, rounds)
     min_support = _check_min_support(min_support)
     t0 = time.perf_counter()
@@ -332,6 +449,10 @@ def mrcbo(
         return _result(engine, [], 1, t0, "mrcbo", min_support)
     intents = [root]
     n_iter = 1
+
+    if pipeline == "device" and rounds == "async":
+        return _mrcbo_async(engine, root, intents, n_iter, t0,
+                            max_iterations=max_iterations, min_support=min_support)
 
     if pipeline == "device":
         fr = DeviceFrontier(engine)
@@ -373,4 +494,31 @@ def mrcbo(
                 intents.append(Z)
                 next_frontier.append((Z, a))
         frontier = next_frontier
+    return _result(engine, intents, n_iter, t0, "mrcbo", min_support)
+
+
+def _mrcbo_async(engine, root, intents, n_iter, t0, *, max_iterations, min_support):
+    """MRCbo's round loop around futures (see :func:`mrcbo`)."""
+    fr = DeviceFrontier(engine)
+    fr.set_frontier(root[None, :], gens=np.array([-1], np.int32))
+    capped = max_iterations is not None and n_iter >= max_iterations
+    pending = None if capped else fr.spec_cbo(min_support=min_support)
+    while pending is not None:
+        speculate = max_iterations is None or n_iter + 1 < max_iterations
+        nxt = fr.spec_cbo(min_support=min_support) if speculate else None
+        rec = fr.reconcile_cbo(pending, min_support=min_support)
+        if rec.n_seeds == 0:  # the frontier was exhausted before any round
+            fr.discard_spec(nxt)
+            break
+        n_iter += 1
+        intents.extend(rec.new_intents)
+        if rec.n_new == 0 or nxt is None:
+            fr.discard_spec(nxt)
+            break
+        if rec.under_covered:
+            # the reconcile re-adopted the whole survivor set; the round in
+            # flight ran on a partial frontier: discard it, dispatch again
+            fr.discard_spec(nxt)
+            nxt = fr.spec_cbo(min_support=min_support)
+        pending = nxt
     return _result(engine, intents, n_iter, t0, "mrcbo", min_support)

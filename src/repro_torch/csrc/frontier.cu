@@ -24,8 +24,12 @@
 //                && (!CBO || ((closure[b] ^ parent[b]) & lowrow[b]) == 0)
 // n_valid, min_sup, n_pad and row_off are plain int launch arguments, so
 // no threshold or window forces a rebuild; ICEBERG and CBO are template
-// parameters.  CbO's LOW[gen] gather stays outside the kernel, as in the
-// reference engine (lowrow = LOW[gens]).
+// parameters.  n_valid may come from the device instead (n_valid_dev, a
+// nullable int pointer): the count an earlier kernel left there, read
+// before the keep test, so that a speculative round chains on its
+// predecessor's survivor count with no host read between them.  CbO's
+// LOW[gen] gather stays outside the kernel, as in the reference engine
+// (lowrow = LOW[gens]).
 //
 // K3 — the map half of a multi-shard round.
 //
@@ -209,10 +213,12 @@ fused_step_kernel(const uint32_t* __restrict__ rows,
                   uint32_t* __restrict__ out_c,
                   int* __restrict__ out_s,
                   uint8_t* __restrict__ keep,
+                  const int* __restrict__ n_valid_dev,
                   int N, int B, int W,
                   int n_valid, int min_sup, int n_pad, int row_off)
 {
     extern __shared__ uint32_t smem[];
+    if (n_valid_dev != nullptr) n_valid = __ldg(n_valid_dev);
     const int b0 = blockIdx.x * CLOSURE_GROUP;
     const int G = min(CLOSURE_GROUP, B - b0);
     ClosureSmem s = closure_setup(smem, cands, b0, G, W);
@@ -306,6 +312,7 @@ struct TcfArgs {
     int* out_s;              // [K][B]
     uint8_t* keep;           // [B] (K2)
     int* arrived;            // [candidate tiles] (K2 with a row split)
+    const int* n_valid_dev;  // the valid count on the device, or null: n_valid (K2)
     int N, B, n_valid, min_sup, n_pad, row_off;
     int tps, nsplit;         // row tiles of one split, splits
 };
@@ -630,12 +637,15 @@ __global__ void __launch_bounds__(TCF_THREADS, 1) closure_tc_kernel(const TcfArg
         if (!last_cta) return;
         __threadfence();
     }
+    // the count is read here, not in the prologue, so that it holds no
+    // register across the products
+    const int n_valid = a.n_valid_dev != nullptr ? __ldg(a.n_valid_dev) : a.n_valid;
     const int G = min(TCF_CANDS, a.B - b0);
     for (int g = tid; g < G; g += consumers) {
         const int b = b0 + g;
         const int sup = __ldcg(out_s + b) - a.n_pad;
         out_s[b] = sup;
-        bool k = b + a.row_off < a.n_valid;
+        bool k = b + a.row_off < n_valid;
         if (ICEBERG) k = k && sup >= a.min_sup;
         if (CBO && k) {
             const size_t o = (size_t)b * W;
@@ -720,7 +730,7 @@ template <bool ICEBERG, bool CBO>
 static int launch_fused(const void* rows, const void* cands, const void* mask,
                         const void* parent, const void* lowrow,
                         void* out_c, void* out_s, void* keep, void* arrived,
-                        int N, int B, int W,
+                        const int* n_valid_dev, int N, int B, int W,
                         int n_valid, int min_sup, int n_pad, int row_off,
                         int* tensor_body, cudaStream_t stream)
 {
@@ -729,8 +739,8 @@ static int launch_fused(const void* rows, const void* cands, const void* mask,
         const TcfArgs a = {(const uint32_t*)rows, (const uint32_t*)cands,
                            (const uint32_t*)mask, (const uint32_t*)parent,
                            (const uint32_t*)lowrow, (uint32_t*)out_c, (int*)out_s,
-                           (uint8_t*)keep, (int*)arrived, N, B, n_valid, min_sup,
-                           n_pad, row_off, 1, 1};
+                           (uint8_t*)keep, (int*)arrived, n_valid_dev, N, B, n_valid,
+                           min_sup, n_pad, row_off, 1, 1};
         return dispatch_tc<true, ICEBERG, CBO>(a, W, 1, stream);
     }
     const size_t smem = closure_smem_bytes(W);
@@ -740,7 +750,7 @@ static int launch_fused(const void* rows, const void* cands, const void* mask,
     fused_step_kernel<ICEBERG, CBO><<<grid, CLOSURE_THREADS, smem, stream>>>(
         (const uint32_t*)rows, (const uint32_t*)cands, (const uint32_t*)mask,
         (const uint32_t*)parent, (const uint32_t*)lowrow,
-        (uint32_t*)out_c, (int*)out_s, (uint8_t*)keep,
+        (uint32_t*)out_c, (int*)out_s, (uint8_t*)keep, n_valid_dev,
         N, B, W, n_valid, min_sup, n_pad, row_off);
     return (int)cudaGetLastError();
 }
@@ -767,7 +777,8 @@ extern "C" int frontier_simt_max_w(int* max_w)
 // K2.  rows [N, W], cands [B, W], mask [W], parent/lowrow [B, W] (CbO
 // only, else null) → out_c [B, W], out_s [B], keep [B] (bool bytes);
 // arrived: int32 scratch [ceil(B / TCF_CANDS)] for W <= TCF_MAX_W, else
-// unused; B >= 1.  W <= TCF_MAX_W takes the tensor body, wider W the SIMT
+// unused; n_valid_dev: a device int read in place of n_valid, or null;
+// B >= 1.  W <= TCF_MAX_W takes the tensor body, wider W the SIMT
 // body; *tensor_body says which (1 or 0).  Launches on `stream` and
 // returns cudaGetLastError() (0 on success), or the error that stopped the
 // launch.
@@ -775,26 +786,28 @@ extern "C" int fused_step_launch(const void* rows, const void* cands,
                                  const void* mask, const void* parent,
                                  const void* lowrow, void* out_c,
                                  void* out_s, void* keep, void* arrived,
+                                 const void* n_valid_dev,
                                  int N, int B, int W,
                                  int n_valid, int min_sup, int n_pad,
                                  int row_off, int iceberg, int cbo,
                                  int* tensor_body, void* stream)
 {
     cudaStream_t st = (cudaStream_t)stream;
+    const int* nv = (const int*)n_valid_dev;
     if (iceberg && cbo)
         return launch_fused<true, true>(rows, cands, mask, parent, lowrow, out_c,
-                                        out_s, keep, arrived, N, B, W, n_valid,
+                                        out_s, keep, arrived, nv, N, B, W, n_valid,
                                         min_sup, n_pad, row_off, tensor_body, st);
     if (iceberg)
         return launch_fused<true, false>(rows, cands, mask, parent, lowrow, out_c,
-                                         out_s, keep, arrived, N, B, W, n_valid,
+                                         out_s, keep, arrived, nv, N, B, W, n_valid,
                                          min_sup, n_pad, row_off, tensor_body, st);
     if (cbo)
         return launch_fused<false, true>(rows, cands, mask, parent, lowrow, out_c,
-                                         out_s, keep, arrived, N, B, W, n_valid,
+                                         out_s, keep, arrived, nv, N, B, W, n_valid,
                                          min_sup, n_pad, row_off, tensor_body, st);
     return launch_fused<false, false>(rows, cands, mask, parent, lowrow, out_c,
-                                      out_s, keep, arrived, N, B, W, n_valid,
+                                      out_s, keep, arrived, nv, N, B, W, n_valid,
                                       min_sup, n_pad, row_off, tensor_body, st);
 }
 
@@ -811,7 +824,7 @@ extern "C" int map_closure_launch(const void* rows, const void* cands,
     if (*tensor_body) {
         const TcfArgs a = {(const uint32_t*)rows, (const uint32_t*)cands,
                            (const uint32_t*)mask, nullptr, nullptr, (uint32_t*)out_c,
-                           (int*)out_s, nullptr, nullptr, N, B, 0, 0, 0, 0, 1, 1};
+                           (int*)out_s, nullptr, nullptr, nullptr, N, B, 0, 0, 0, 0, 1, 1};
         return dispatch_tc<false, false, false>(a, W, K, (cudaStream_t)stream);
     }
     const size_t smem = closure_smem_bytes(W);
@@ -856,7 +869,8 @@ extern "C" int closure_launch(const void* rows, const void* cands, void* out_c,
 // and the int32 sum are exact in any order, so the result is the
 // collectives' bit for bit, whatever their schedule.  n_valid, min_sup,
 // n_pad and row_off are plain int launch arguments, so nothing is rebuilt
-// per threshold; ICEBERG and CBO are template parameters.  A gens entry
+// per threshold or count (n_valid_dev, where given, is read in place of
+// n_valid, as in K2); ICEBERG and CBO are template parameters.  A gens entry
 // outside [0, n_low) drops its candidate, as the plain version does (the
 // frontier never sends one).
 //
@@ -888,9 +902,11 @@ filter_kernel(const uint32_t* __restrict__ lc,
               uint32_t* __restrict__ gc,
               int* __restrict__ out_s,
               uint8_t* __restrict__ keep,
+              const int* __restrict__ n_valid_dev,
               int K, int B, int W, int L, int n_low,
               int n_valid, int min_sup, int n_pad, int row_off)
 {
+    if (n_valid_dev != nullptr) n_valid = __ldg(n_valid_dev);
     // no early exit: every lane reaches the segment's shuffles and ballot
     const int lane = threadIdx.x & 31, j = lane & (L - 1);
     const long b = ((long)blockIdx.x * FILTER_THREADS + threadIdx.x) / L;
@@ -942,8 +958,9 @@ filter_kernel(const uint32_t* __restrict__ lc,
 template <bool ICEBERG, bool CBO>
 static int launch_filter(const void* lc, const void* ls, const void* parent, const void* low,
                          const void* gens, void* gc, void* out_s, void* keep,
-                         int K, int B, int W, int n_low, int n_valid, int min_sup,
-                         int n_pad, int row_off, cudaStream_t stream)
+                         const int* n_valid_dev, int K, int B, int W, int n_low,
+                         int n_valid, int min_sup, int n_pad, int row_off,
+                         cudaStream_t stream)
 {
     int L = 1;
     while (L < W && L < 32) L <<= 1;
@@ -952,7 +969,7 @@ static int launch_filter(const void* lc, const void* ls, const void* parent, con
     if (grid > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
     filter_kernel<ICEBERG, CBO><<<(unsigned)grid, FILTER_THREADS, 0, stream>>>(
         (const uint32_t*)lc, (const int*)ls, (const uint32_t*)parent, (const uint32_t*)low,
-        (const int*)gens, (uint32_t*)gc, (int*)out_s, (uint8_t*)keep,
+        (const int*)gens, (uint32_t*)gc, (int*)out_s, (uint8_t*)keep, n_valid_dev,
         K, B, W, L, n_low, n_valid, min_sup, n_pad, row_off);
     return (int)cudaGetLastError();
 }
@@ -960,12 +977,14 @@ static int launch_filter(const void* lc, const void* ls, const void* parent, con
 // K4.  lc [K, B, W] and ls [K, B] (null: no supports; iceberg needs them)
 // → gc [B, W] (K > 1 only; at K = 1 the closures are lc), out_s [B] (with
 // ls) and keep [B] (bool bytes); CbO also reads parent [B, W], gens [B]
-// and LOW [n_low, W].  K, B, W >= 1.  Launches on `stream` and returns
+// and LOW [n_low, W]; n_valid_dev: a device int read in place of n_valid,
+// or null.  K, B, W >= 1.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for operands
 // the variant needs and did not get.
 extern "C" int filter_launch(const void* lc, const void* ls, const void* parent,
                              const void* low, const void* gens, void* gc, void* out_s,
-                             void* keep, int K, int B, int W, int n_low,
+                             void* keep, const void* n_valid_dev, int K, int B, int W,
+                             int n_low,
                              int n_valid, int min_sup, int n_pad, int row_off,
                              int iceberg, int cbo, void* stream)
 {
@@ -975,8 +994,9 @@ extern "C" int filter_launch(const void* lc, const void* ls, const void* parent,
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
 #define FILTER_CASE(I, C)                                                                  \
-    return launch_filter<I, C>(lc, ls, parent, low, gens, gc, out_s, keep, K, B, W, n_low, \
-                               n_valid, min_sup, n_pad, row_off, st)
+    return launch_filter<I, C>(lc, ls, parent, low, gens, gc, out_s, keep,                \
+                               (const int*)n_valid_dev, K, B, W, n_low, n_valid, min_sup, \
+                               n_pad, row_off, st)
     if (iceberg && cbo) FILTER_CASE(true, true);
     if (iceberg) FILTER_CASE(true, false);
     if (cbo) FILTER_CASE(false, true);

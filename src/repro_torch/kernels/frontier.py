@@ -15,7 +15,10 @@ Per candidate ``b`` of a chunk it computes
 :func:`fused_step` launches the CUDA kernel in ``csrc/frontier.cu`` for
 CUDA tensors and runs :func:`fused_step_plain` for CPU tensors.  The
 scalars ``(n_valid, min_sup, n_pad, row_off)`` are plain ints passed at
-launch, so no threshold or window forces a rebuild.  CbO's ``LOW[gen]``
+launch, so no threshold or window forces a rebuild.  ``n_valid`` may also
+be a 0-dim int32 tensor on the operands' device: the kernel then reads the
+count from the device, which is how an async round chains on the survivor
+count of the round before it without a host read.  CbO's ``LOW[gen]``
 gather stays with the caller (``lowrow``).  Survivor compaction stays in
 torch (:mod:`repro_torch.core.frontier`): it consumes only the keep mask
 and the closures.
@@ -81,13 +84,31 @@ VARIANTS = {
 }
 
 
-def pack_scalars(n_valid, min_sup=0, n_pad=0, row_off=0) -> tuple[int, ...]:
-    """The kernel's scalar operands as plain ints in the int32 range."""
-    out = tuple(int(v) for v in (n_valid, min_sup, n_pad, row_off))
+def pack_scalars(n_valid, min_sup=0, n_pad=0, row_off=0) -> tuple:
+    """The kernel's scalar operands as plain ints in the int32 range; a
+    0-dim int32 tensor ``n_valid`` (the count on the device) is kept as it
+    is, never read on the host."""
+    ints = (min_sup, n_pad, row_off)
+    if not isinstance(n_valid, torch.Tensor):
+        ints = (n_valid, *ints)
+    elif n_valid.dim() != 0 or n_valid.dtype != torch.int32:
+        raise ValueError(f"a tensor n_valid must be a 0-dim int32 tensor, got "
+                         f"{n_valid.dtype}{tuple(n_valid.shape)}")
+    out = tuple(int(v) for v in ints)
     for v in out:
         if not -(2**31) <= v < 2**31:
             raise ValueError(f"scalar {v} outside the int32 range")
-    return out
+    return out if len(out) == N_SCALARS else (n_valid, *out)
+
+
+def _count_operand(n_valid, device) -> tuple[int, int | None]:
+    """``(n_valid for the int argument, device pointer or None)``: a tensor
+    count goes to the kernel by pointer, its int argument unread."""
+    if not isinstance(n_valid, torch.Tensor):
+        return n_valid, None
+    if n_valid.device != device:
+        raise ValueError(f"n_valid on {n_valid.device}, operands on {device}")
+    return 0, n_valid.data_ptr()
 
 
 def fused_step_plain(
@@ -113,7 +134,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("frontier")
     flag = ctypes.POINTER(ctypes.c_int)
     lib.fused_step_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [flag, ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [flag, ctypes.c_void_p]
     )
     lib.fused_step_launch.restype = ctypes.c_int
     lib.map_closure_launch.argtypes = (
@@ -121,7 +142,7 @@ def _lib() -> ctypes.CDLL:
     )
     lib.map_closure_launch.restype = ctypes.c_int
     lib.filter_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     )
     lib.filter_launch.restype = ctypes.c_int
     return lib
@@ -152,7 +173,8 @@ def fused_step(
     """K2: masked closures [B, W], corrected supports [B], keep [B] bool.
 
     rows [N, W], cands [B, W] and mask [1, W] are int32 bitset blocks;
-    ``scalars`` is :func:`pack_scalars`' tuple.  CbO variants also take
+    ``scalars`` is :func:`pack_scalars`' tuple, its ``n_valid`` an int or
+    a 0-dim int32 tensor on the operands' device.  CbO variants also take
     parent/lowrow [B, W].  ``fused_step.launches`` counts kernel launches;
     ``fused_step.tc_launches`` those that took the tensor-core body, which
     the launcher chooses for rows of at most 10 words (wider rows take the
@@ -174,6 +196,7 @@ def fused_step(
     for t in operands:
         if t.device != rows.device:
             raise ValueError(f"operand on {t.device}, rows on {rows.device}")
+    n_valid, nv_ptr = _count_operand(scalars[0], rows.device)
     if rows.device.type == "cpu":
         return fused_step_plain(
             rows, cands, mask, scalars, parent=parent, lowrow=lowrow,
@@ -194,7 +217,8 @@ def fused_step(
             parent.data_ptr() if cbo else None,
             lowrow.data_ptr() if cbo else None,
             out_c.data_ptr(), out_s.data_ptr(), keep.data_ptr(),
-            arrived.data_ptr(), N, B, W, *scalars, int(iceberg), int(cbo),
+            arrived.data_ptr(), nv_ptr, N, B, W, n_valid, *scalars[1:], int(iceberg),
+            int(cbo),
             ctypes.byref(tensor_body), torch.cuda.current_stream(rows.device).cuda_stream,
         )
     if rc != 0:
@@ -311,7 +335,8 @@ def filter_step(
     process-group rank's reduced operands); ``ls=None`` returns no
     supports (iceberg needs them).  The closures are the AND over K; at
     K = 1 they are ``lc`` itself, not a copy.  ``scalars`` is
-    :func:`pack_scalars`' tuple; ``n_pad`` comes off the summed supports.
+    :func:`pack_scalars`' tuple (``n_valid`` an int or a 0-dim int32 tensor
+    on lc's device); ``n_pad`` comes off the summed supports.
     CbO variants also take parent ``[B, W]``, ``LOW [n_low, W]`` and gens
     ``[B]`` int32 (the test reads ``LOW[gens[b]]``; a gens entry outside
     ``[0, n_low)`` drops its candidate).  ``filter_step.launches`` counts
@@ -355,6 +380,7 @@ def filter_step(
         raise ValueError(f"unsupported device {lc.device}")
     if lc.numel() >= 2**31:
         raise ValueError("operands exceed the kernel's 32-bit index range")
+    n_valid, nv_ptr = _count_operand(scalars[0], lc.device)
     if lc.device.type == "cpu":
         return filter_step_plain(lc, ls, scalars, parent=parent, LOW=LOW, gens=gens,
                                  iceberg=iceberg, cbo=cbo)
@@ -368,8 +394,8 @@ def filter_step(
     with torch.cuda.device(lc.device):
         rc = _lib().filter_launch(
             lc.data_ptr(), *map(_ptr, [ls, *cbo_ops]), None if K == 1 else gc.data_ptr(),
-            _ptr(out_s),
-            keep.data_ptr(), K, B, W, LOW.shape[0] if cbo else 0, *scalars,
+            _ptr(out_s), keep.data_ptr(), nv_ptr, K, B, W, LOW.shape[0] if cbo else 0,
+            n_valid, *scalars[1:],
             int(iceberg), int(cbo), torch.cuda.current_stream(lc.device).cuda_stream,
         )
     if rc != 0:

@@ -1,12 +1,11 @@
-"""Public wrapper around K1 with the padding and correction discipline.
+"""Public wrapper around K1 with the correction discipline.
 
     closures, supports = batched_closure(rows, cands, n_attrs,
                                          n_valid_rows=N_real)
 
-  * rows may carry pre-existing all-ones padding (``n_valid_rows`` real)
-    and are padded with all-ones rows up to a multiple of ``block_n``;
-  * candidates of any batch size are padded with all-ones rows up to a
-    multiple of ``block_b``, and their outputs dropped;
+  * rows may carry pre-existing all-ones padding (``n_valid_rows`` real);
+    K1 takes any ``N >= 0`` and ``B >= 0`` as they are, so nothing is
+    padded here;
   * closures come back masked to ``n_attrs`` bits;
   * supports count only real rows (``supports -= pad rows``).
 
@@ -27,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitset
-from repro_torch.device import ALL_ONES, device_bits, pack_lanes, unpack_lanes
+from repro_torch.device import device_bits, pack_lanes, unpack_lanes
 from repro_torch.kernels import closure as kclosure
 from repro_torch.kernels import ref
 
@@ -37,24 +36,12 @@ def attr_mask_tensor(n_attrs: int, W: int, device) -> torch.Tensor:
     return device_bits(bitset.attr_mask(n_attrs, W), device)
 
 
-def _pad_rows(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
-    """Pad the row (second-to-last) axis with all-ones rows."""
-    pad = -x.shape[-2] % multiple
-    if pad:
-        fill = torch.full((*x.shape[:-2], pad, x.shape[-1]), ALL_ONES, dtype=x.dtype,
-                          device=x.device)
-        x = torch.cat([x, fill], dim=-2)
-    return x, pad
-
-
 def batched_closure(
     rows: torch.Tensor,
     cands: torch.Tensor,
     n_attrs: int,
     *,
     n_valid_rows: int,
-    block_b: int = 8,
-    block_n: int = 256,
     use_kernel: bool = True,
     mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -65,18 +52,12 @@ def batched_closure(
     it on the device; it is built from ``n_attrs`` otherwise.
     """
     N, W = rows.shape[-2:]
-    B = cands.shape[0]
     if mask is None:
         mask = attr_mask_tensor(n_attrs, W, rows.device)
-    if not use_kernel:
-        closures, supports = ref.closure_ref(rows, cands)
-        return closures & mask, supports - (N - n_valid_rows)
-    rows, n_row_pad = _pad_rows(rows, block_n)
-    cands, _ = _pad_rows(cands, block_b)
-    closures, supports = kclosure.closure(rows, cands)
-    # All-ones padding rows (pre-existing + added here) match every candidate.
-    n_pad_rows = (N - n_valid_rows) + n_row_pad
-    return closures[..., :B, :] & mask, supports[..., :B] - n_pad_rows
+    run = kclosure.closure if use_kernel else ref.closure_ref
+    closures, supports = run(rows, cands)
+    # the caller's all-ones padding rows match every candidate
+    return closures & mask, supports - (N - n_valid_rows)
 
 
 def closure_matmul(

@@ -44,8 +44,16 @@ without a CUDA device unless ``--device cpu`` is given.
 printed keys are those of the reference's ``fca`` subcommands that the
 port has; ``serve --load-qps`` (the admission queue) is not ported yet.
 
+``--rounds async`` mines with speculative rounds: round r+1 is dispatched
+against round r's survivors while their count is still on the device, and
+round r is reconciled once round r+1 is in flight; the stats then count
+``spec_rounds``, ``spec_fallbacks`` and ``spec_discarded``.
+
 Observability (every subcommand): ``--trace out.json`` records every
-mining round (with its expand / dispatch / allreduce / filter phases),
+mining round (with its expand / dispatch / allreduce / filter phases, or
+for async rounds the ``spec/dispatch`` and ``spec/reconcile`` spans on the
+round's async track; ``python -m repro_torch.obs.trace out.json
+--expect-async-overlap`` checks that a dispatch overlapped a round),
 query micro-batch and stream stage/commit as a Chrome/Perfetto timeline
 (validate with ``python -m repro_torch.obs.trace out.json``) and adds a
 per-span ``span_rollup`` and the ``trace_path`` to the printed stats;
@@ -69,7 +77,7 @@ import torch.distributed as dist
 
 from repro_torch.core import ClosureEngine, bitset
 from repro_torch.core.engine import BACKENDS
-from repro_torch.core.mr import PIPELINES
+from repro_torch.core.mr import PIPELINES, ROUNDS
 from repro_torch.data import fca_datasets
 from repro_torch.dist import ShardPlan
 from repro_torch.dist.collectives import IMPLS
@@ -105,7 +113,7 @@ def build_plan(args) -> ShardPlan:
 
 def _mine(args, ctx, plan, min_support):
     eng = ClosureEngine(ctx, plan=plan, backend=args.backend, device=args.device)
-    kw = {"pipeline": args.pipeline, "min_support": min_support}
+    kw = {"pipeline": args.pipeline, "rounds": args.rounds, "min_support": min_support}
     if args.algorithm == "mrganter+":
         kw["local_prune"] = args.local_prune
     res = ALGORITHMS[args.algorithm](
@@ -146,7 +154,7 @@ def cmd_mine(args) -> dict:
         "backend": args.backend,
         "device": str(eng.device),
         "pipeline": args.pipeline,
-        "rounds": "sync",
+        "rounds": args.rounds,
         "algorithm": res.algorithm,
         "min_support_resolved": res.min_support,
         "concepts": res.n_concepts,
@@ -158,6 +166,9 @@ def cmd_mine(args) -> dict:
         "reduce_rounds": eng.stats.reduce_rounds,
         "dispatch_s": round(eng.stats.dispatch_s, 4),
         "host_blocked_s": round(eng.stats.host_blocked_s, 4),
+        "spec_rounds": eng.stats.spec_rounds,
+        "spec_fallbacks": eng.stats.spec_fallbacks,
+        "spec_discarded": eng.stats.spec_discarded,
         "wall_time_s": round(res.wall_time_s, 3),
     }
 
@@ -344,6 +355,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the 4096 B default (on a simulated plan "
                         "this times torch ops on one device, no wire)")
     p.add_argument("--pipeline", default="device", choices=list(PIPELINES))
+    p.add_argument("--rounds", default="sync", choices=list(ROUNDS),
+                   help="sync: every round's survivor count read before the next is "
+                        "dispatched; async: speculative rounds chained on the device "
+                        "count (device pipeline only)")
     p.add_argument("--backend", default=None, choices=list(BACKENDS),
                    help="kernel (default): the hand-written CUDA kernels; torch: "
                         "their plain versions; matmul: complement-plane products")

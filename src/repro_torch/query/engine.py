@@ -77,7 +77,6 @@ class QueryStats(StatsBase):
 class QueryConfig:
     slots: int = 64  # fixed micro-batch width; every dispatch pads to this
     backend: str = "kernel"  # closure map + serving stages, as in ClosureEngine
-    block_n: int = 256
 
 
 class QueryEngine:
@@ -132,8 +131,7 @@ class QueryEngine:
             return ops.closure_matmul(rows_local, cands, self.n_attrs, n_valid_rows=n_local)
         return ops.batched_closure(
             rows_local, cands, self.n_attrs, n_valid_rows=n_local,
-            block_n=self.cfg.block_n, use_kernel=self.cfg.backend == "kernel",
-            mask=self._mask,
+            use_kernel=self.cfg.backend == "kernel", mask=self._mask,
         )
 
     def _closure_body(self, impl: str):

@@ -230,6 +230,66 @@ def cand_constants() -> dict:
     return out
 
 
+def async_constants() -> dict:
+    """The reference values of chip_smoke.py's async phase (14).
+
+    For every plan of ``ASYNC_PLANS`` and driver of ``ASYNC_DRIVERS``, the
+    ``ASYNC_SMALL_BATCH`` MRGanter+ run and the ``ASYNC_GANTER`` walk, the
+    JAX package (``backend="jnp"``, under the binding above) mines
+    full-scale mushroom at ``MAIN_MIN_SUPPORT`` with ``rounds="async"`` on
+    ``ShardPlan.simulated(k, cand_parts=c, ...)``; census-income as
+    published at ``ASYNC_CENSUS_PLAN`` and ``CENSUS_MIN_SUPPORT``.  Records
+    chip_smoke's ``async_record``: counts, modeled bytes, schedule,
+    transfer and speculation census.  Some minutes on a CPU; run it as
+    ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py async``
+    and copy the printed JSON into chip_smoke.py's ``ASYNC_EXPECTED``.
+    """
+    import sys
+    from pathlib import Path
+
+    import repro.core as ref_core
+    from repro.data import fca_datasets
+    from repro.dist.shardplan import ShardPlan
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    def run(ctx, k, c, impl, driver, min_support, max_iterations=None, **plan_kw):
+        plan = ShardPlan.simulated(k, cand_parts=c, reduce_impl=impl, **plan_kw)
+        eng = ref_core.ClosureEngine(ctx, plan=plan, backend="jnp")
+        kw = {"rounds": "async", "min_support": min_support,
+              "max_iterations": max_iterations}
+        if driver == "mrcbo":
+            res = ref_core.mrcbo(ctx, eng, **kw)
+        elif driver == "mrganter":
+            res = ref_core.mrganter(ctx, eng, **kw)
+        else:
+            res = ref_core.mrganter_plus(ctx, eng, local_prune=True, **kw)
+        return cs.async_record(res, eng)
+
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "axis_frame", lambda name: jax.lax.axis_size(name),
+                   raising=False)
+        ctx, _ = fca_datasets.load("mushroom", scale=1.0)
+        for k, c, impl in cs.ASYNC_PLANS:
+            for driver in cs.ASYNC_DRIVERS:
+                out[cs.async_key(k, c, impl, driver)] = run(ctx, k, c, impl, driver,
+                                                            cs.MAIN_MIN_SUPPORT)
+        k, c, impl, mb = cs.ASYNC_SMALL_BATCH
+        out[cs.async_key(k, c, impl, "mrganter+", mb)] = run(
+            ctx, k, c, impl, "mrganter+", cs.MAIN_MIN_SUPPORT, max_batch=mb)
+        k, c, impl, cap = cs.ASYNC_GANTER
+        out[cs.async_key(k, c, impl, "mrganter", max_iterations=cap)] = run(
+            ctx, k, c, impl, "mrganter", cs.MAIN_MIN_SUPPORT, max_iterations=cap)
+        cctx, _ = fca_datasets.load("census-income", scale=1.0)
+        k, c, impl = cs.ASYNC_CENSUS_PLAN
+        out["census " + cs.async_key(k, c, impl, "mrganter+")] = run(
+            cctx, k, c, impl, "mrganter+", cs.CENSUS_MIN_SUPPORT)
+    jax.clear_caches()
+    return out
+
+
 def lm_constants() -> dict:
     """The reference tokens of chip_smoke.py's reduced LM serve phase.
 
@@ -273,5 +333,7 @@ if __name__ == "__main__":
         print(json.dumps(lm_constants()))
     elif sys.argv[1:] == ["cand"]:
         print(json.dumps(cand_constants(), indent=1))
+    elif sys.argv[1:] == ["async"]:
+        print(json.dumps(async_constants(), indent=1))
     else:
         print(json.dumps(smoke_constants(), indent=1))

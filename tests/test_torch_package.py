@@ -148,10 +148,15 @@ def test_cli_min_support_fraction(capsys, algorithm):
 
 
 @pytest.mark.parametrize("fn", [mrganter, mrganter_plus, mrcbo])
-def test_async_rounds_raise_not_implemented(fn):
+def test_async_rounds_need_the_device_pipeline(fn):
+    """Async rounds overlap device futures; the host loop has none, so
+    ``pipeline="host"`` with ``rounds="async"`` raises the reference's
+    ValueError (as does an unknown rounds mode)."""
     ctx = paper_context()
-    with pytest.raises(NotImplementedError, match="async"):
-        fn(ctx, ClosureEngine(ctx, device="cpu"), rounds="async")
+    with pytest.raises(ValueError, match="pipeline='device'"):
+        fn(ctx, ClosureEngine(ctx, device="cpu"), rounds="async", pipeline="host")
+    with pytest.raises(ValueError, match="rounds mode"):
+        fn(ctx, ClosureEngine(ctx, device="cpu"), rounds="eager")
 
 
 def _bits(*shape, dtype=torch.int32):
@@ -218,11 +223,11 @@ def test_wide_contexts_still_go_through_the_kernel_wrapper(monkeypatch):
     rows = torch.full((300, 520), -1, dtype=torch.int32)
     cands = torch.zeros((3, 520), dtype=torch.int32)
     c, s = ops.batched_closure(rows, cands, 520 * 32, n_valid_rows=300)
-    assert calls == [torch.Size([512, 520])]
+    assert calls == [torch.Size([300, 520])]  # K1 takes the rows as they are
     assert s.tolist() == [300, 300, 300]
     rows = torch.full((3, 4000), -1, dtype=torch.int32)
     c, s = ops.batched_closure(rows, cands[:, :1].repeat(1, 4000), 4000 * 32, n_valid_rows=3)
-    assert calls[-1] == torch.Size([256, 4000]) and s.tolist() == [3, 3, 3]
+    assert calls[-1] == torch.Size([3, 4000]) and s.tolist() == [3, 3, 3]
 
 
 @pytest.mark.parametrize("backend,fused", [("kernel", True), ("torch", False)])
