@@ -136,6 +136,33 @@ checks, on the card:
      implication and partial-rule counts, basis SHA-256 and answer SHA-256,
      answers equal between the backends, K6 launched once per micro-batch
      (read as in phase 8, and one more run keeps the K6 operands);
+  15. serve under load — the admission queue (``repro_torch.serve``,
+     ``backend="kernel"``, slots 64, max_wait 2 ms, depth 512) over phase
+     8's stores (k = 1 and 8 rsag), phase 9's store and rule index and
+     phase 8's stream lattice (k = 8).  Virtual-clock runs (``run_load`` on
+     a clock that only its sleep advances): Poisson at 2,000 qps for 2 s
+     with the default mix at k = 1 and 8; burst ×4 at a mean of 2,000 qps
+     with rules in the mix; 400 qps for 0.15 s with streamed updates of 2
+     rows — counts, dispatch causes, occupancy, kinds, virtual e2e and
+     admission-wait views, the SHA-256 of every ticket's answer (and the
+     final snapshot's intents) equal the reference's (``LOAD_EXPECTED``).
+     Timed runs (``LOAD_WALL``: Poisson at 1,000 qps for 3 s at k = 1 and
+     8, burst ×4 at k = 1, 200,000 qps for 0.5 s at k = 1): every answered
+     ticket equal to a pre-formed batch's row, submitted = admitted + shed,
+     completed = admitted, one e2e and admission-wait observation per
+     completion; achieved qps, e2e and admission-wait percentiles,
+     occupancy, causes, shed rate and the collector's pauses printed; a
+     ``MetricsServer`` scraped once from another thread during the first,
+     its text parsed and holding the queue-depth, e2e and service
+     families.  The dispatcher thread (2,000 closure and top-k submissions
+     at ~2,000 qps, then ``stop(drain=True)``) and the reference's
+     concurrent-commit scenario (4 commits on a second thread while 64
+     closure tickets dispatch); then ``fca serve --load-qps`` as a
+     subprocess, its ``serve_load`` keys the reference CLI's
+     (``LOAD_KEYS``) and its ``--metrics-dump`` parsed by ``python -m
+     repro_torch.obs.export``.  K1 launched in every run, K5 in every run
+     whose mix holds top-k, K6 in every run whose mix holds rules, and
+     none where it does not;
   10. LM serve, reduced — gemma2-9b and codeqwen1.5-7b ``reduced()``
      through ``ServeEngine`` on numpy weights (``LM_SEED``), prompts
      with token ids V, V + 5, -1, -V and -V - 3 among them: the
@@ -165,8 +192,9 @@ checks, on the card:
      parent tree ran between K3 and K4 on the same chunks (the simulated
      AND-allreduce, the support sum, the LOW gather), on its costliest
      chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
-     The kernels line's ``launches`` also counts phase 12's kernel runs
-     and phase 14's warm async runs, whose chunks are not replayed here.
+     The kernels line's ``launches`` also counts phase 12's kernel runs,
+     phase 14's warm async runs and phase 15's load runs, whose chunks are
+     not replayed here.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -363,6 +391,141 @@ RULES_EXPECTED = {'concepts': 558,
  'basis_sha256': 'b78db8880c2e6ac0c180614fe0b70c1a8c1f0ef389f56b069ac2a55ef333d85d',
  'answers_sha256': {'confidence': 'dd73ad3ce10e0d8b9919324326ab3f8786337209b211226d8db27aac0dd3748b',
                     'lift': '0edeb893bf71971c33f64821562c5b139c86d6adadc3b27f011f62f5bf0460e2'}}
+# The serving tier under load (phase 15): the admission queue at
+# AdmissionConfig's defaults (max_wait 2 ms, depth 512, top-5) over phase 8's
+# stores (k = 1 and 8 rsag), phase 9's store and rule index (k = 8 rsag) and
+# the full lattice of phase 8's stream context (k = 8), slots 64.  The
+# virtual-clock runs (``virtual_load``: run_load on a clock that only its
+# sleep advances, so dispatch costs no virtual time and the schedule is
+# deterministic) hold their counts, dispatch causes, occupancy, kinds,
+# virtual e2e and admission-wait views and the SHA-256 of every ticket's
+# answer, in submission order, against ``LOAD_EXPECTED``: the reference's,
+# derived once on the CPU with the JAX package (backend="jnp", under the
+# jax-0.9 binding, its run_load livelock repaired as the port's is) by
+# ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py load``
+# through this file's virtual_load and load_record.  The stream run is cut
+# to 0.15 s (61 events, 4 commits) from 2 s: each commit of 2 rows grows the
+# lattice by ~15 % (4440 → 5114 → 5869 → 6826 → 8263 → 9507 concepts over
+# the first five), and the ~80 commits of 2 s would grow it past 40k,
+# whose snapshot rebuilds the reference does not finish on a CPU in an hour.
+# ``LOAD_KEYS`` are the reference CLI's ``serve_load`` keys.
+LOAD_SEED = 24
+LOAD_UPDATE_ROWS = 2
+LOAD_RULES_MIX = {"closure": 0.5, "topk": 0.2, "lookup": 0.1, "rules": 0.2}
+LOAD_STREAM_MIX = {"closure": 0.6, "topk": 0.2, "lookup": 0.1, "update": 0.1}
+LOAD_VIRTUAL = {
+    # run: (store, arrival process, qps, seconds, arrival kw, mix; None = make_workload's default)
+    "serve k=1": ("serve", "poisson", 2000.0, 2.0, {}, None),
+    "serve k=8": ("serve", "poisson", 2000.0, 2.0, {}, None),
+    "rules k=8": ("rules", "burst", 2000.0, 2.0, {"factor": 4.0}, LOAD_RULES_MIX),
+    "stream k=8": ("stream", "poisson", 400.0, 0.15, {}, LOAD_STREAM_MIX),
+}
+LOAD_EXPECTED = {'serve k=1': {'submitted': 4001,
+               'admitted': 4001,
+               'shed': 0,
+               'completed': 4001,
+               'dispatches': 1554,
+               'dispatch_causes': {'deadline': 1553, 'flush': 1},
+               'occupancy_mean': 0.0402,
+               'by_kind': {'closure': 2336, 'topk': 1270, 'lookup': 395},
+               'updates': 0,
+               'e2e': {'count': 4001,
+                       'mean': 0.001397,
+                       'max': 0.00201,
+                       'p50': 0.001722,
+                       'p95': 0.00201,
+                       'p99': 0.00201},
+               'admission_wait': {'count': 4001,
+                                  'mean': 0.001397,
+                                  'max': 0.00201,
+                                  'p50': 0.001722,
+                                  'p95': 0.00201,
+                                  'p99': 0.00201},
+               'answers_sha256': '6a3a3501c7639c1231ed28cd3deb3bdbc2129e2c276577b6d891921202d545b1'},
+ 'serve k=8': {'submitted': 4001,
+               'admitted': 4001,
+               'shed': 0,
+               'completed': 4001,
+               'dispatches': 1554,
+               'dispatch_causes': {'deadline': 1553, 'flush': 1},
+               'occupancy_mean': 0.0402,
+               'by_kind': {'closure': 2336, 'topk': 1270, 'lookup': 395},
+               'updates': 0,
+               'e2e': {'count': 4001,
+                       'mean': 0.001397,
+                       'max': 0.00201,
+                       'p50': 0.001722,
+                       'p95': 0.00201,
+                       'p99': 0.00201},
+               'admission_wait': {'count': 4001,
+                                  'mean': 0.001397,
+                                  'max': 0.00201,
+                                  'p50': 0.001722,
+                                  'p95': 0.00201,
+                                  'p99': 0.00201},
+               'answers_sha256': '6a3a3501c7639c1231ed28cd3deb3bdbc2129e2c276577b6d891921202d545b1'},
+ 'rules k=8': {'submitted': 3964,
+               'admitted': 3964,
+               'shed': 0,
+               'completed': 3964,
+               'dispatches': 1660,
+               'dispatch_causes': {'deadline': 1658, 'flush': 2},
+               'occupancy_mean': 0.0373,
+               'by_kind': {'closure': 1970, 'rules': 782, 'topk': 805, 'lookup': 407},
+               'updates': 0,
+               'e2e': {'count': 3964,
+                       'mean': 0.001418,
+                       'max': 0.00201,
+                       'p50': 0.001722,
+                       'p95': 0.00201,
+                       'p99': 0.00201},
+               'admission_wait': {'count': 3964,
+                                  'mean': 0.001418,
+                                  'max': 0.00201,
+                                  'p50': 0.001722,
+                                  'p95': 0.00201,
+                                  'p99': 0.00201},
+               'answers_sha256': '8b99a11dbce877e9e0c0ec486e2fc95a622290daf049240e8f0be962f7ee4795'},
+ 'stream k=8': {'submitted': 57,
+                'admitted': 57,
+                'shed': 0,
+                'completed': 57,
+                'dispatches': 43,
+                'dispatch_causes': {'deadline': 41, 'flush': 2},
+                'occupancy_mean': 0.0207,
+                'by_kind': {'closure': 40, 'lookup': 6, 'topk': 11},
+                'updates': 4,
+                'e2e': {'count': 57,
+                        'mean': 0.001635,
+                        'max': 0.00201,
+                        'p50': 0.00201,
+                        'p95': 0.00201,
+                        'p99': 0.00201},
+                'admission_wait': {'count': 57,
+                                   'mean': 0.001635,
+                                   'max': 0.00201,
+                                   'p50': 0.00201,
+                                   'p95': 0.00201,
+                                   'p99': 0.00201},
+                'answers_sha256': 'c79ac28431b0f964be1a1b2fd98f8f61e5f7793793c08fa32be631312ca04408',
+                'version': 4,
+                'intents_sha256': 'ec2e3844d2142593f243fc04b18cbdd32160601617cf175546f1a842de6a2662'}}
+LOAD_KEYS = ['achieved_qps', 'admission_wait', 'admitted', 'arrival', 'by_kind', 'completed',
+ 'dispatch_causes', 'dispatches', 'duration_s', 'e2e', 'max_lag_s', 'mix', 'occupancy_mean',
+ 'offered_qps', 'queue', 'shed', 'shed_rate', 'slo', 'submitted', 'update_latency', 'updates',
+ 'wall_s']
+# Wall-clock runs (host clock, make_workload's default mix, seed LOAD_SEED + 1):
+# (k, arrival process, qps, seconds, arrival kw).  The overload run offers
+# more than full 64-slot batches at ~1 ms each can serve; its shedding is
+# printed, not required.
+LOAD_WALL = {
+    "poisson k=1": (1, "poisson", 1000.0, 3.0, {}),
+    "poisson k=8": (8, "poisson", 1000.0, 3.0, {}),
+    "burst k=1": (1, "burst", 1000.0, 3.0, {"factor": 4.0}),
+    "overload k=1": (1, "poisson", 200_000.0, 0.5, {}),
+}
+LOAD_THREAD_QUERIES, LOAD_THREAD_QPS = 2000, 2000.0
+LOAD_KERNELS = ("closure", "contains_topk", "rules_topk")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer add/compare/bitwise results per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -2371,13 +2534,15 @@ def drive_queries(fn, device):
     return out, wall, {k.__name__: k.launches for k in kernels.KERNELS}
 
 
-def run_serve_phase(device, intents) -> tuple[dict, dict, dict]:
+def run_serve_phase(device, intents) -> tuple[dict, dict, dict, dict]:
     """Phase 8: the serving tier at phase 4's context, threshold and intents
     — a ConceptStore on one shard and on k = 8 (rsag), the reference CLI's
     seeded query batch through ``backend="kernel"`` and ``"torch"``; then
     streaming updates on the full lattice of mushroom at scale 0.01.
-    Returns the report, the K5 and K1 chunks of the kernel runs and their
-    launch counts; every K1 launch took the tensor-core body."""
+    Returns the report, the K5 and K1 chunks of the kernel runs, their
+    launch counts, and what phase 15 serves under load: the context, the
+    stores by k, and the stream phase's context and full lattice; every K1
+    launch took the tensor-core body."""
     import numpy as np
 
     from repro_torch.data import fca_datasets
@@ -2389,7 +2554,7 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, dict]:
     queries = serve_queries(ctx, SERVE_QUERIES, np.random.default_rng(0))
     n_batches = {"closure": -(-SERVE_QUERIES // SERVE_SLOTS),
                  "topk": -(-SERVE_TOPK // SERVE_SLOTS)}
-    report = {}
+    report, stores = {}, {}
     chunks = {"contains_topk": [], "closure": []}
     launches = dict.fromkeys(chunks, 0)
 
@@ -2405,6 +2570,7 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, dict]:
         build_s = time.perf_counter() - t0
         if store.snapshot.n_concepts != MAIN_EXPECTED["mrganter+"]["concepts"]:
             raise AssertionError(f"serve k={k}: {store.snapshot.n_concepts} concepts")
+        stores[k] = store
         answers = {}
         for backend in ("kernel", "torch"):
             qe = QueryEngine(store, QueryConfig(slots=SERVE_SLOTS, backend=backend))
@@ -2439,14 +2605,15 @@ def run_serve_phase(device, intents) -> tuple[dict, dict, dict]:
     emit({"phase": "serve", "dataset": spec.name, "objects": ctx.n_objects,
           "min_support": MAIN_MIN_SUPPORT, "queries": SERVE_QUERIES, "topk": SERVE_TOPK,
           "slots": SERVE_SLOTS, "runs": report})
-    report["stream"] = run_stream(device)
-    return report, chunks, launches
+    report["stream"], stream = run_stream(device)
+    return report, chunks, launches, {"ctx": ctx, "stores": stores, "stream": stream}
 
 
-def run_stream(device) -> dict:
+def run_stream(device) -> tuple[dict, tuple]:
     """The streaming update on a full-lattice store (the reference skips
     updates on iceberg stores): mushroom at scale 0.01, 8 seeded rows
-    staged and committed at k = 1 and k = 8."""
+    staged and committed at k = 1 and k = 8.  Returns the report and the
+    context with its full lattice (the intents before any update)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -2484,16 +2651,16 @@ def run_stream(device) -> dict:
         out[f"k={k}"] = dict(got, stage_commit_s=wall)
     emit({"phase": "stream", "dataset": spec.name, "objects": ctx.n_objects,
           "rows": STREAM_ROWS, "runs": out})
-    return out
+    return out, (ctx, intents)
 
 
-def run_rules_phase(device) -> tuple[dict, dict, int]:
+def run_rules_phase(device) -> tuple[dict, dict, int, tuple]:
     """Phase 9: the rules tier — full-scale mushroom mined at
     ``min_support=812`` on a k = 8 rsag plan, both bases extracted at
     ``min_conf=0.5``, the rule index, and the CLI's seeded rule-query mix
     through ``backend="kernel"`` and ``"torch"`` for both rank metrics.
-    Returns the report, the K6 chunks of the kernel runs and their launch
-    count."""
+    Returns the report, the K6 chunks of the kernel runs, their launch
+    count, and the store and rule index phase 15 serves under load."""
     import numpy as np
 
     from repro_torch.core import ClosureEngine, mrganter_plus
@@ -2552,7 +2719,384 @@ def run_rules_phase(device) -> tuple[dict, dict, int]:
           "min_support": RULES_MIN_SUPPORT, "min_conf": RULES_MIN_CONF, "n_parts": 8,
           "reduce_impl": "rsag", "concepts": res.n_concepts, **got,
           "basis_extract_s": basis_s, "queries": RULES_QUERIES, "runs": report})
-    return report, {"rules_topk": chunks}, launches
+    return report, {"rules_topk": chunks}, launches, (store, index)
+
+
+def record_tickets(queue) -> list:
+    """Wrap ``queue.submit`` so that every ticket is kept, in submission
+    order; returns the list it fills."""
+    tickets = []
+    submit = queue.submit
+
+    def record(*args, **kw):
+        ticket = submit(*args, **kw)
+        tickets.append(ticket)
+        return ticket
+
+    queue.submit = record
+    return tickets
+
+
+def result_parts(result) -> list:
+    """A ticket's answer as contiguous numpy arrays (none when shed)."""
+    import numpy as np
+
+    if result is None:
+        return []
+    return [np.ascontiguousarray(p) for p in (result if isinstance(result, tuple) else (result,))]
+
+
+def tickets_digest(tickets) -> str:
+    """SHA-256 over every ticket in turn: its kind, whether it was shed, and
+    the dtype, shape and bytes of each array of its answer."""
+    h = hashlib.sha256()
+    for t in tickets:
+        h.update(f"{t.kind} {int(t.shed)};".encode())
+        for p in result_parts(t.result):
+            h.update(f"{p.dtype}{p.shape}".encode())
+            h.update(p.tobytes())
+    return h.hexdigest()
+
+
+def virtual_load(serve_mod, ctx, engine, run: str, *, rules_index=None, updater=None,
+                 prepare=None):
+    """One virtual-clock run of phase 15 through a serve package (the
+    port's, or the reference's when LOAD_EXPECTED is derived, ``prepare``
+    then repairing its queue): ``LOAD_VIRTUAL[run]``'s seeded arrivals and
+    workload, the queue at AdmissionConfig's defaults, ``run_load`` on a
+    clock from 0 that only its sleep advances.  Returns the report and the
+    tickets in submission order."""
+    import numpy as np
+
+    _, name, qps, seconds, kw, mix = LOAD_VIRTUAL[run]
+    rng = np.random.default_rng(LOAD_SEED)
+    arrivals = serve_mod.ARRIVALS[name](qps, seconds, rng, **kw)
+    events = serve_mod.make_workload(ctx, len(arrivals), rng, mix=mix,
+                                     update_rows=LOAD_UPDATE_ROWS)
+    t = [0.0]
+
+    def clock():
+        return t[0]
+
+    def sleep(s):
+        t[0] += s
+
+    queue = serve_mod.AdmissionQueue(engine, serve_mod.AdmissionConfig(),
+                                     rules_index=rules_index, clock=clock)
+    if prepare is not None:
+        prepare(queue)
+    tickets = record_tickets(queue)
+    rep = serve_mod.run_load(queue, arrivals, events, updater=updater, clock=clock, sleep=sleep)
+    return rep, tickets
+
+
+def load_record(rep, tickets) -> dict:
+    """What a virtual-clock run holds against the reference."""
+    return {"submitted": rep.submitted, "admitted": rep.admitted, "shed": rep.shed,
+            "completed": rep.completed, "dispatches": rep.dispatches,
+            "dispatch_causes": dict(rep.dispatch_causes), "occupancy_mean": rep.occupancy_mean,
+            "by_kind": dict(rep.by_kind), "updates": rep.updates,
+            "e2e": dict(rep.e2e), "admission_wait": dict(rep.admission_wait),
+            "answers_sha256": tickets_digest(tickets)}
+
+
+def check_load_accounting(name: str, rep, queue) -> None:
+    """submitted == admitted + shed, completed == admitted, and one e2e and
+    one admission-wait observation per completion."""
+    st = queue.stats
+    counts = {kind: st.registry.histogram("latency_s", kind=kind).count
+              for kind in ("e2e", "admission_wait")}
+    if (rep.submitted != rep.admitted + rep.shed or rep.completed != rep.admitted
+            or counts != {"e2e": rep.completed, "admission_wait": rep.completed}
+            or (rep.completed and rep.e2e["count"] != rep.completed)):
+        raise AssertionError(f"load {name}: submitted {rep.submitted}, admitted "
+                             f"{rep.admitted}, shed {rep.shed}, completed {rep.completed}, "
+                             f"histogram counts {counts}")
+
+
+def check_preformed(name: str, qe, tickets, cfg, rules_index=None) -> int:
+    """Every answered ticket equals the row of a pre-formed ``*_batch`` call
+    on the same queries against the same snapshot; every admitted ticket
+    was answered.  Returns the number of tickets checked."""
+    import numpy as np
+
+    done = [t for t in tickets if not t.shed]
+    if any(t.result is None for t in done):
+        raise AssertionError(f"load {name}: an admitted ticket was never answered")
+    for kind in ("closure", "topk", "lookup", "rules"):
+        ts = [t for t in done if t.kind == kind]
+        if not ts:
+            continue
+        arr = np.stack([t.payload for t in ts])
+        if kind == "closure":
+            want = list(zip(*qe.closure_batch(arr)))
+        elif kind == "topk":
+            want = list(zip(*qe.topk_batch(arr, k=cfg.topk_k)))
+        elif kind == "lookup":
+            want = list(qe.lookup_batch(arr))
+        else:
+            want = list(zip(*qe.rules_batch(rules_index, arr, k=cfg.rules_k,
+                                            min_conf=cfg.rules_min_conf,
+                                            rank_by=cfg.rules_rank_by)))
+        for t, w in zip(ts, want):
+            if not same_arrays(result_parts(t.result), result_parts(w)):
+                raise AssertionError(f"load {name}: a {kind} ticket differs from its "
+                                     "pre-formed batch")
+    return len(done)
+
+
+def load_view(rep) -> dict:
+    """The numbers a timed load run prints."""
+    return {"offered_qps": rep.offered_qps, "achieved_qps": rep.achieved_qps,
+            "wall_s": rep.wall_s, "submitted": rep.submitted, "admitted": rep.admitted,
+            "shed": rep.shed, "shed_rate": rep.shed_rate, "completed": rep.completed,
+            "dispatches": rep.dispatches, "dispatch_causes": dict(rep.dispatch_causes),
+            "occupancy_mean": rep.occupancy_mean, "e2e": dict(rep.e2e),
+            "admission_wait": dict(rep.admission_wait), "max_lag_s": rep.max_lag_s,
+            "slo": dict(rep.slo)}
+
+
+def run_load_phase(device, served: dict, rules_served: tuple) -> tuple[dict, dict]:
+    """Phase 15: the serving tier under load, ``backend="kernel"``, slots 64.
+    The virtual-clock runs against LOAD_EXPECTED; the timed runs of
+    ``LOAD_WALL`` (every ticket equal to its pre-formed batch, the
+    accounting held, a ``MetricsServer`` scraped once from another thread
+    during the first); the dispatcher thread; the reference's
+    concurrent-commit scenario; the ``fca serve --load-qps`` CLI.  Every
+    run's launch counts are set to 0 just before it and read just after:
+    K1 launched in every run, K5 in every run whose mix holds top-k, K6 in
+    every run whose mix holds rules, and none where the mix does not.
+    Returns the report and the summed K1/K5/K6 launches of the runs."""
+    import os
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels, serve
+    from repro_torch.core import bitset
+    from repro_torch.dist import ShardPlan
+    from repro_torch.launch.fca import serve_queries
+    from repro_torch.obs import SLO, MetricsServer, parse_openmetrics
+    from repro_torch.query import ConceptStore, QueryConfig, QueryEngine, StreamUpdater
+
+    ctx, stores = served["ctx"], served["stores"]
+    sctx, sintents = served["stream"]
+    rules_store, rules_index = rules_served
+    launches = dict.fromkeys(LOAD_KERNELS, 0)
+    report = {"virtual": {}, "wall": {}}
+
+    def engine(store, slots=SERVE_SLOTS):
+        return QueryEngine(store, QueryConfig(slots=slots, backend="kernel"))
+
+    def engine_s(qe) -> float:
+        """Seconds the engine spent in its micro-batches (host clock from
+        the batch's entry to its outputs on the host): the sum of its
+        ``service_s`` histograms."""
+        return sum(h.sum for name, _, series in qe.stats.registry.families()
+                   if name == "service_s" for _, h in series)
+
+    def counted(name: str, kinds, fn):
+        """``fn()`` with every launch count at 0 before it, read after it
+        and held against the kinds the run serves."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        check_tensor_body(ctx.W)
+        need = {"closure": bool(kinds & {"closure", "topk"}),
+                "contains_topk": "topk" in kinds, "rules_topk": "rules" in kinds}
+        wrong = {k: n for k, n in counts.items() if bool(n) != need.get(k, False)}
+        if wrong:
+            raise AssertionError(f"load {name}: launches {counts} for the kinds {sorted(kinds)}")
+        for k in launches:
+            launches[k] += counts[k]
+        return out, wall, {k: counts[k] for k in LOAD_KERNELS}
+
+    # -- the virtual-clock runs against the reference ------------------------
+    for run, (source, *_, mix) in LOAD_VIRTUAL.items():
+        kinds = set(mix or serve.DEFAULT_MIX) - {"update"}
+        run_ctx, index, updater = ctx, None, None
+        if source == "serve":
+            store = stores[int(run.split("k=")[1])]
+        elif source == "rules":
+            store, index = rules_store, rules_index
+        else:
+            run_ctx = sctx
+            store = ConceptStore.build(sctx, sintents, plan=ShardPlan.simulated(8),
+                                       device=device)
+            updater = StreamUpdater(store)
+        qe = engine(store)
+        (rep, tickets), wall, counts = counted(run, kinds, lambda: virtual_load(
+            serve, run_ctx, qe, run, rules_index=index, updater=updater))
+        got = load_record(rep, tickets)
+        if updater is not None:
+            got.update(version=store.snapshot.version,
+                       intents_sha256=digest(store.snapshot.intents_np))
+        want = LOAD_EXPECTED[run]
+        if got != want:
+            diff = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                    if got.get(k) != want.get(k)}
+            raise AssertionError(f"load {run}: differs from the reference: {diff}")
+        report["virtual"][run] = {"host_wall_s": wall, "engine_s": engine_s(qe),
+                                  "launches": counts, "dispatches": rep.dispatches,
+                                  "updates": rep.updates}
+
+    # -- wall-clock runs -----------------------------------------------------
+    cfg = serve.AdmissionConfig()
+    kinds = set(serve.DEFAULT_MIX)
+    for run, (k, name, qps, seconds, kw) in LOAD_WALL.items():
+        qe = engine(stores[k])
+        rng = np.random.default_rng(LOAD_SEED + 1)
+        arrivals = serve.ARRIVALS[name](qps, seconds, rng, **kw)
+        events = serve.make_workload(ctx, len(arrivals), rng)
+        queue = serve.AdmissionQueue(qe, cfg)
+        tickets = record_tickets(queue)
+        server, scraped, scraper = None, [], None
+        if run == "poisson k=1":
+            server = MetricsServer(lambda: queue.registry, port=0)
+
+            def scrape():
+                time.sleep(seconds / 3)
+                with urllib.request.urlopen(server.url, timeout=30) as resp:
+                    scraped.append(resp.read().decode())
+
+            scraper = threading.Thread(target=scrape, name="chip-smoke-scrape")
+            scraper.start()
+        try:
+            with gc_pauses() as paused:
+                rep, wall, counts = counted(run, kinds, lambda: serve.run_load(
+                    queue, arrivals, events, slo=SLO()))
+        finally:
+            if scraper is not None:
+                scraper.join(timeout=60)
+            if server is not None:
+                server.close()
+        busy = engine_s(qe)
+        check_load_accounting(run, rep, queue)
+        checked = check_preformed(run, qe, tickets, cfg)
+        rec = {"launches": counts, "gc_ms": paused, "checked": checked, "engine_s": busy,
+               **load_view(rep)}
+        if server is not None:
+            if not scraped:
+                raise AssertionError(f"load {run}: the /metrics scrape returned nothing")
+            fams = parse_openmetrics(scraped[0])
+            missing = {"serve_queue_depth", "serve_e2e_seconds", "service_seconds"} - set(fams)
+            if missing:
+                raise AssertionError(f"load {run}: the scrape lacks {sorted(missing)}")
+            rec["scrape"] = {"families": len(fams), "bytes": len(scraped[0])}
+        report["wall"][run] = rec
+        emit({"phase": "load_run", "run": run, "n_parts": k, "arrival": name, **rec})
+
+    # -- the dispatcher thread -----------------------------------------------
+    qe = engine(stores[1])
+    queue = serve.AdmissionQueue(qe, cfg)
+    events = serve.make_workload(ctx, LOAD_THREAD_QUERIES, np.random.default_rng(LOAD_SEED + 2),
+                                 mix={"closure": 0.5, "topk": 0.5})
+
+    def threaded():
+        tickets = []
+        queue.start()
+        t0 = time.perf_counter()
+        try:
+            for i, (kind, payload) in enumerate(events):
+                delay = t0 + i / LOAD_THREAD_QPS - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                tickets.append(queue.submit(kind, payload))
+        finally:
+            queue.stop(drain=True)
+        return tickets
+
+    tickets, wall, counts = counted("thread", {"closure", "topk"}, threaded)
+    if not all(t.done and not t.shed for t in tickets) or queue.stats.completed != len(events):
+        raise AssertionError(f"load thread: {queue.stats.completed} of {len(events)} completed")
+    check_preformed("thread", qe, tickets, cfg)
+    report["thread"] = {"submissions": len(events), "wall_s": wall, "launches": counts,
+                        "dispatch_causes": dict(queue.stats.dispatch_causes),
+                        "occupancy_mean": round(queue.stats.occupancy_mean, 4)}
+
+    # -- the reference's concurrent-commit scenario --------------------------
+    store = ConceptStore.build(sctx, sintents, plan=ShardPlan.simulated(8), device=device)
+    qe = engine(store, slots=4)
+    queue = serve.AdmissionQueue(qe, serve.AdmissionConfig(max_wait_s=0.0005))
+    updater = StreamUpdater(store)
+    v0, n_commits, n = store.snapshot.version, 4, 64
+    errs = []
+
+    def churn():
+        rng = np.random.default_rng(13)
+        try:
+            for _ in range(n_commits):
+                updater.apply(bitset.pack_bool(rng.random((2, sctx.n_attrs)) < 0.3, sctx.W))
+        except Exception as e:  # noqa: BLE001 - raised again below
+            errs.append(e)
+
+    def racing():
+        th = threading.Thread(target=churn, name="chip-smoke-churn")
+        th.start()
+        tickets = [queue.submit("closure", q)
+                   for q in serve_queries(sctx, n, np.random.default_rng(14))]
+        while queue.pending():
+            queue.poll()
+        queue.flush()
+        th.join(timeout=120)
+        if th.is_alive() or errs:
+            raise AssertionError(f"load commits: the commit thread {errs or 'hung'}")
+        return tickets
+
+    tickets, wall, counts = counted("commits", {"closure"}, racing)
+    st = queue.stats
+    hists = (st.registry.histogram("latency_s", kind="e2e").count,
+             st.registry.histogram("latency_s", kind="admission_wait").count,
+             queue.registry.histogram("serve_e2e_s", kind="closure").count)
+    if (st.admitted, st.completed, st.shed, hists) != (n, n, 0, (n, n, n)) or not all(
+            t.done and t.result is not None for t in tickets):
+        raise AssertionError(f"load commits: admitted {st.admitted}, completed "
+                             f"{st.completed}, histogram counts {hists} for {n} tickets")
+    if store.snapshot.version != v0 + n_commits:
+        raise AssertionError(f"load commits: version {store.snapshot.version}")
+    after = serve_queries(sctx, 4, np.random.default_rng(15))
+    post = [queue.submit("closure", q) for q in after]
+    queue.flush()
+    check_preformed("commits", qe, post, queue.cfg)
+    report["commits"] = {"tickets": n, "commits": n_commits, "wall_s": wall,
+                         "version": store.snapshot.version,
+                         "concepts": store.snapshot.n_concepts, "launches": counts}
+
+    # -- the CLI -------------------------------------------------------------
+    dump = ROOT / "build" / "load_metrics.txt"
+    dump.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.fca", "serve", "--dataset", "mushroom",
+           "--scale", "1.0", "--min-support", str(MAIN_MIN_SUPPORT), "--parts", "8",
+           "--load-qps", "1000", "--load-seconds", "2", "--metrics-dump", str(dump)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"fca serve --load-qps exited {out.returncode}: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout)["serve_load"]
+    if sorted(got) != LOAD_KEYS or got["completed"] != got["admitted"]:
+        raise AssertionError(f"fca serve --load-qps: keys {sorted(got)}, completed "
+                             f"{got['completed']} of {got['admitted']} admitted")
+    check = subprocess.run([sys.executable, "-m", "repro_torch.obs.export", str(dump)],
+                           capture_output=True, text=True, timeout=120, env=env, cwd=ROOT)
+    dump.unlink()
+    if check.returncode:
+        raise AssertionError(f"the --metrics-dump exposition does not parse: {check.stderr}")
+    report["cli"] = {"seconds": cli_s, "exposition": json.loads(check.stdout),
+                     **{k: got[k] for k in ("achieved_qps", "completed", "shed_rate",
+                                            "dispatch_causes", "occupancy_mean", "e2e")}}
+    emit({"phase": "load", "dataset": "mushroom", "slots": SERVE_SLOTS,
+          "max_wait_s": cfg.max_wait_s, "depth": cfg.depth, "virtual": report["virtual"],
+          "thread": report["thread"], "commits": report["commits"], "cli": report["cli"],
+          "launches": launches})
+    return report, launches
 
 
 def lm_reduced_prompts(vocab: int) -> list:
@@ -3322,7 +3866,7 @@ def main() -> int:
     run_full_lattices(device)
     emit({"phase": "full_lattice_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    _, serve_chunks, serve_launches = run_serve_phase(device, main_intents)
+    _, serve_chunks, serve_launches, served = run_serve_phase(device, main_intents)
     emit({"phase": "serve_seconds", "seconds": time.perf_counter() - t0})
     add_runs(launches, chunks, serve_launches, serve_chunks)
     t0 = time.perf_counter()
@@ -3335,9 +3879,15 @@ def main() -> int:
     emit({"phase": "async_path_seconds", "seconds": time.perf_counter() - t0,
           "launches": async_launches})
     t0 = time.perf_counter()
-    _, rules_chunks, launches["rules_topk"] = run_rules_phase(device)
+    _, rules_chunks, launches["rules_topk"], rules_served = run_rules_phase(device)
     emit({"phase": "rules_seconds", "seconds": time.perf_counter() - t0})
     chunks.update(rules_chunks)
+    t0 = time.perf_counter()
+    _, load_launches = run_load_phase(device, served, rules_served)
+    for name, n in load_launches.items():  # the load runs' launches, their chunks untimed
+        launches[name] = launches.get(name, 0) + n
+    emit({"phase": "load_seconds", "seconds": time.perf_counter() - t0,
+          "launches": load_launches})
     t0 = time.perf_counter()
     run_lm_reduced(device)
     emit({"phase": "lm_reduced_seconds", "seconds": time.perf_counter() - t0})

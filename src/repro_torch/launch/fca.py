@@ -10,6 +10,15 @@
     python -m repro_torch.launch.fca serve --dataset mushroom --scale 0.02 \
         --parts 4 --reduce auto --queries 256 --topk 32 --updates 8
 
+    # serve under sustained load: open-loop Poisson arrivals through the
+    # continuous admission queue, live /metrics endpoint, saved
+    # OpenMetrics exposition (repro_torch.serve)
+    python -m repro_torch.launch.fca serve --dataset mushroom --scale 1.0 \
+        --min-support 406 --parts 8 --load-qps 1000 --load-seconds 3 \
+        --arrival burst --max-wait-ms 2 --queue-depth 512 \
+        --mix closure=0.5,topk=0.3,lookup=0.1,rules=0.1 \
+        --metrics-port 0 --metrics-dump metrics.txt
+
     # iceberg-mine → extract the DG/Luxenburger bases → answer a
     # rule-query batch (repro_torch.rules)
     python -m repro_torch.launch.fca rules --dataset census-income \
@@ -41,8 +50,28 @@ every closure (``--no-kernel`` is the reference's deprecated spelling of
 without a CUDA device unless ``--device cpu`` is given.
 ``--min-support`` takes an absolute object count (≥ 1) or a fraction of
 |O| (in (0, 1)); the resolved count is echoed in the JSON stats.  The
-printed keys are those of the reference's ``fca`` subcommands that the
-port has; ``serve --load-qps`` (the admission queue) is not ported yet.
+printed keys are those of the reference's ``fca`` subcommands.
+
+``serve --load-qps N`` adds a sustained-load phase after the one-shot
+batch: ``--load-seconds`` of open-loop ``--arrival poisson`` or ``burst``
+arrivals (``--burst-factor``: the peak over the trough rate, the mean held
+at N) of the weighted ``--mix`` (kind=weight over closure, topk, lookup,
+rules and update; ``rules`` builds a rule index at ``--min-conf``,
+``update`` streams objects through the store and is dropped, with a note
+on stderr, under ``--min-support``) through the admission queue
+(:mod:`repro_torch.serve`): a partial micro-batch dispatches once its
+oldest request has waited ``--max-wait-ms``, a full one at once, and a
+kind already holding ``--queue-depth`` requests sheds new arrivals.  Each
+kind's step is warmed once before the timed window.  The phase's report
+lands under ``serve_load`` (achieved qps, e2e and admission-wait
+percentiles, occupancy, dispatch causes, shed rate, an SLO verdict);
+``--metrics-port P`` serves the live registry as OpenMetrics text on
+``http://127.0.0.1:P/metrics`` (0: an ephemeral port, echoed to stderr)
+and ``--metrics-dump PATH`` writes the end-of-run exposition (validate it
+with ``python -m repro_torch.obs.export PATH``).  Under a
+``torch.distributed`` group of more than one rank ``--load-qps`` is
+refused: each rank's queue decides its deadlines on its own clock, so the
+ranks' micro-batches, and with them their collectives, would not line up.
 
 ``--rounds async`` mines with speculative rounds: round r+1 is dispatched
 against round r's survivors while their count is still on the device, and
@@ -84,13 +113,15 @@ from repro_torch.dist.collectives import IMPLS
 from repro_torch.dist.shardplan import GROUP_BACKENDS
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.obs import (
-    Tracer, span_rollup, start_device_trace, stop_device_trace, use_tracer,
+    SLO, MetricsServer, Tracer, span_rollup, start_device_trace, stop_device_trace,
+    to_openmetrics, use_tracer,
 )
 from repro_torch.obs.trace import DEVICE_TRACE_FILE
 from repro_torch.query import ConceptStore, QueryConfig, QueryEngine, StreamUpdater
 from repro_torch.rules import (
     ALGORITHMS, RuleIndex, extract_bases, resolve_min_support, rule_query_mix,
 )
+from repro_torch.serve import ARRIVALS, AdmissionConfig, AdmissionQueue, make_workload, run_load
 
 
 def build_plan(args) -> ShardPlan:
@@ -183,7 +214,15 @@ def serve_queries(ctx, n: int, rng) -> np.ndarray:
 
 
 def cmd_serve(args) -> dict:
-    """mine → build store → serve one mixed query/update batch."""
+    """mine → build store → serve one mixed query/update batch (and, with
+    ``--load-qps``, a sustained-load phase through the admission queue)."""
+    if args.load_qps and dist.is_initialized() and dist.get_world_size() > 1:
+        raise SystemExit(
+            f"serve --load-qps: refused under a torch.distributed group of "
+            f"{dist.get_world_size()} ranks: each rank's admission queue decides its "
+            "deadlines on its own clock, so the ranks' micro-batches, and with them "
+            "their collectives, would not line up (lock-step dispatch across ranks "
+            "is not built)")
     ctx, spec, plan = _load(args)
     eng, res = _mine(args, ctx, plan, _resolved_min_support(args, ctx))
 
@@ -225,7 +264,7 @@ def cmd_serve(args) -> dict:
         )
 
     n_q = args.queries + min(args.queries, args.topk)
-    return {
+    out = {
         "dataset": spec.name,
         "plan": plan.describe(),
         "backend": args.backend,
@@ -251,6 +290,85 @@ def cmd_serve(args) -> dict:
         ),
         "query_stats": qe.describe()["stats"],
     }
+    if args.load_qps:
+        out["serve_load"] = _serve_load_phase(args, ctx, spec, res, store, qe)
+    return out
+
+
+def _parse_mix(s: str) -> dict[str, float]:
+    """``"closure=0.6,topk=0.3,update=0.1"`` → weighted workload mix."""
+    mix = {}
+    for part in s.split(","):
+        kind, eq, w = part.partition("=")
+        if not eq:
+            raise SystemExit(f"--mix: expected kind=weight, got {part!r}")
+        try:
+            mix[kind.strip()] = float(w)
+        except ValueError:
+            raise SystemExit(f"--mix: non-numeric weight in {part!r}")
+    return mix
+
+
+def _serve_load_phase(args, ctx, spec, res, store, qe) -> dict:
+    """``fca serve --load-qps N``: sustained open-loop load through the
+    continuous admission queue, with an optional live ``/metrics``
+    endpoint (``--metrics-port``) and a saved exposition
+    (``--metrics-dump``)."""
+    mix = _parse_mix(args.mix)
+    if "update" in mix and res.min_support is not None:
+        # as in the one-shot update phase: Godin insertion maintains the
+        # full intent family, never an iceberg's
+        print("serve --min-support: dropping 'update' from the load mix", file=sys.stderr)
+        mix.pop("update")
+    rules_index = None
+    if "rules" in mix:
+        rules_index = RuleIndex.build(extract_bases(store, min_conf=args.min_conf),
+                                      plan=store.plan, device=store.device)
+    cfg = AdmissionConfig(
+        max_wait_s=args.max_wait_ms / 1000.0,
+        depth=args.queue_depth,
+        rules_k=args.topk_rules,
+        rules_min_conf=args.min_conf,
+        rules_rank_by=args.rank_by,
+    )
+    queue = AdmissionQueue(qe, cfg, rules_index=rules_index)
+    updater = StreamUpdater(store) if "update" in mix else None
+
+    rng = np.random.default_rng(args.seed + 1)
+    # warm each kind's step once: the measured window should show steady
+    # state, not first-call costs
+    warm = ctx.rows[rng.integers(0, ctx.n_objects, size=qe.cfg.slots)]
+    for kind in sorted(set(mix) - {"update"}):
+        if kind == "closure":
+            qe.closure_batch(warm)
+        elif kind == "topk":
+            qe.topk_batch(warm, k=cfg.topk_k)
+        elif kind == "lookup":
+            qe.lookup_batch(warm)
+        elif kind == "rules":
+            qe.rules_batch(rules_index, warm, k=cfg.rules_k, min_conf=cfg.rules_min_conf,
+                           rank_by=cfg.rules_rank_by)
+
+    kwargs = {"factor": args.burst_factor} if args.arrival == "burst" else {}
+    arrivals = ARRIVALS[args.arrival](args.load_qps, args.load_seconds, rng, **kwargs)
+    events = make_workload(ctx, len(arrivals), rng, mix=mix, density=spec.density)
+    server = None
+    if args.metrics_port is not None:
+        server = MetricsServer(lambda: queue.registry, port=args.metrics_port)
+        print(f"serving metrics at {server.url}", file=sys.stderr)
+    try:
+        rep = run_load(queue, arrivals, events, updater=updater, slo=SLO())
+    finally:
+        if args.metrics_dump:
+            with open(args.metrics_dump, "w") as fh:
+                fh.write(to_openmetrics(queue.registry))
+        if server is not None:
+            server.close()
+    out = rep.describe()
+    out["arrival"] = args.arrival
+    out["mix"] = mix
+    out["queue"] = queue.describe()
+    return out
 
 
 def cmd_rules(args) -> dict:
@@ -378,6 +496,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slots", type=int, default=64,
                    help="serve/rules: fixed micro-batch slot width")
     p.add_argument("--seed", type=int, default=0)
+    # serve: sustained-load phase (continuous admission queue)
+    p.add_argument("--load-qps", type=float, default=None,
+                   help="serve: also run an open-loop sustained-load phase at this "
+                        "offered QPS through the continuous admission queue "
+                        "(deadline-or-full micro-batch dispatch); results land under "
+                        "'serve_load' with p50/p95/p99 e2e latency, shed rate, and an "
+                        "SLO verdict")
+    p.add_argument("--load-seconds", type=float, default=3.0,
+                   help="serve: duration of the --load-qps phase")
+    p.add_argument("--arrival", default="poisson", choices=list(ARRIVALS),
+                   help="serve: arrival process for --load-qps (burst = "
+                        "square-wave-modulated Poisson, mean held at the target rate)")
+    p.add_argument("--burst-factor", type=float, default=4.0,
+                   help="serve: peak/trough rate ratio for --arrival burst")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   help="serve: admission deadline — a partial micro-batch dispatches "
+                        "once its oldest request has waited this long (full batches "
+                        "dispatch immediately)")
+    p.add_argument("--queue-depth", type=int, default=512,
+                   help="serve: per-kind admission bound; arrivals beyond it are shed "
+                        "(counted, never queued)")
+    p.add_argument("--mix", default="closure=0.6,topk=0.3,lookup=0.1",
+                   help="serve: weighted workload mix for --load-qps, kind=weight CSV "
+                        "over closure/topk/lookup/rules/update (update streams objects "
+                        "through the store — snapshot swaps between micro-batches)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve: expose the live registry as OpenMetrics text on "
+                        "http://127.0.0.1:PORT/metrics during the load phase "
+                        "(0 = ephemeral port, echoed to stderr)")
+    p.add_argument("--metrics-dump", metavar="PATH", default=None,
+                   help="serve: write the end-of-run OpenMetrics exposition to PATH "
+                        "(validate with `python -m repro_torch.obs.export PATH`)")
     # rules-only knobs
     p.add_argument("--min-conf", type=float, default=0.5,
                    help="rules: Luxenburger basis + query confidence floor")

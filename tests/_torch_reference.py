@@ -98,6 +98,28 @@ def pad_ones(x: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
     return np.concatenate([x, fill]), pad
 
 
+def repair_livelock(queue):
+    """The reference's ``AdmissionQueue`` with ``run_load``'s virtual-clock
+    livelock repaired as the port repairs it (ROADMAP C3).  The reference's
+    ``run_load`` sleeps only when ``min(next arrival, next_deadline_in)`` is
+    positive, and ``next_deadline_in`` can return 0 or less for a deadline
+    that ``poll`` does not find due (the two round differently), so an
+    injected clock never advances.  The port sleeps its floor there
+    (``min(max(wait, 1e-5), 0.002)`` = 1e-5); here ``next_deadline_in``
+    returns the smallest positive float instead of 0 or less, which makes
+    the reference sleep the very same 1e-5.  Nothing else changes: on a
+    virtual clock the reference reaches that branch only when it would
+    livelock."""
+    next_deadline_in = queue.next_deadline_in
+
+    def repaired(now=None):
+        wait = next_deadline_in(now)
+        return wait if wait > 0 else 5e-324
+
+    queue.next_deadline_in = repaired
+    return queue
+
+
 def smoke_constants() -> dict:
     """The reference values of chip_smoke.py's serve and rules phases.
 
@@ -290,6 +312,89 @@ def async_constants() -> dict:
     return out
 
 
+def load_constants() -> dict:
+    """The reference values of chip_smoke.py's serve-under-load phase (15).
+
+    For every run of ``LOAD_VIRTUAL``, the JAX package (``backend="jnp"``,
+    under the binding above) serves chip_smoke's seeded arrivals and
+    workload through its ``AdmissionQueue`` and ``run_load`` on a virtual
+    clock (chip_smoke's ``virtual_load``, the queue repaired by
+    ``repair_livelock``) over the stores those runs use: mushroom at
+    ``MAIN_MIN_SUPPORT`` on k = 1 and 8 rsag; mushroom mined at
+    ``RULES_MIN_SUPPORT`` on k = 8 rsag with its rule index at
+    ``RULES_MIN_CONF``; the full lattice of mushroom at scale 0.01 on k = 8
+    with streamed updates.  Records chip_smoke's ``load_record`` (with the
+    final snapshot's version and intents for the stream run) and the
+    ``serve_load`` keys the reference CLI prints.  Minutes on a CPU; run it
+    as ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py load``
+    and copy the printed JSON into chip_smoke.py's ``LOAD_EXPECTED`` and
+    ``LOAD_KEYS``.
+    """
+    import contextlib
+    import io
+    import json
+    import sys
+    from pathlib import Path
+
+    import repro.core as ref_core
+    import repro.serve as ref_serve
+    from repro.data import fca_datasets
+    from repro.dist.shardplan import ShardPlan
+    from repro.launch import fca as ref_fca
+    from repro.query import ConceptStore, QueryEngine, StreamUpdater
+    from repro.query.engine import QueryConfig
+    from repro.rules import RuleIndex, extract_bases
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    expected = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "axis_frame", lambda name: jax.lax.axis_size(name),
+                   raising=False)
+        ctx, _ = fca_datasets.load("mushroom", scale=1.0)
+        intents = ref_core.mrcbo(ctx, ref_core.ClosureEngine(ctx, backend="jnp"),
+                                 min_support=cs.MAIN_MIN_SUPPORT).intents
+        plan = ShardPlan.simulated(8, reduce_impl="rsag")
+        res = ref_core.mrganter_plus(ctx, ref_core.ClosureEngine(ctx, plan=plan, backend="jnp"),
+                                     local_prune=True, min_support=cs.RULES_MIN_SUPPORT)
+        rules_store = ConceptStore.build(ctx, res.intents, plan=plan)
+        index = RuleIndex.build(extract_bases(rules_store, min_conf=cs.RULES_MIN_CONF),
+                                plan=plan)
+        sctx, _ = fca_datasets.load("mushroom", scale=0.01)
+        sintents = ref_core.mrcbo(sctx, ref_core.ClosureEngine(sctx, backend="jnp")).intents
+        for run, (source, *_) in cs.LOAD_VIRTUAL.items():
+            run_ctx, rules_index, updater = ctx, None, None
+            if source == "serve":
+                k = int(run.split("k=")[1])
+                store = ConceptStore.build(ctx, intents,
+                                           plan=ShardPlan.simulated(k, reduce_impl="rsag"))
+            elif source == "rules":
+                store, rules_index = rules_store, index
+            else:
+                run_ctx = sctx
+                store = ConceptStore.build(sctx, sintents, plan=ShardPlan.simulated(8))
+                updater = StreamUpdater(store)
+            qe = QueryEngine(store, QueryConfig(slots=cs.SERVE_SLOTS, backend="jnp"))
+            rep, tickets = cs.virtual_load(ref_serve, run_ctx, qe, run,
+                                           rules_index=rules_index, updater=updater,
+                                           prepare=repair_livelock)
+            rec = cs.load_record(rep, tickets)
+            if updater is not None:
+                rec.update(version=store.snapshot.version,
+                           intents_sha256=cs.digest(store.snapshot.intents_np))
+            expected[run] = rec
+            print(run, json.dumps(rec), file=sys.stderr, flush=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ref_fca.main(["serve", "--dataset", "mushroom", "--scale", "0.01", "--parts", "2",
+                          "--min-support", "0.3", "--backend", "jnp", "--queries", "16",
+                          "--topk", "8", "--load-qps", "50", "--load-seconds", "0.2"])
+        keys = sorted(json.loads(buf.getvalue())["serve_load"])
+    jax.clear_caches()
+    return {"expected": expected, "keys": keys}
+
+
 def lm_constants() -> dict:
     """The reference tokens of chip_smoke.py's reduced LM serve phase.
 
@@ -335,5 +440,7 @@ if __name__ == "__main__":
         print(json.dumps(cand_constants(), indent=1))
     elif sys.argv[1:] == ["async"]:
         print(json.dumps(async_constants(), indent=1))
+    elif sys.argv[1:] == ["load"]:
+        print(json.dumps(load_constants(), indent=1))
     else:
         print(json.dumps(smoke_constants(), indent=1))
