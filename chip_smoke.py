@@ -163,6 +163,22 @@ checks, on the card:
      repro_torch.obs.export``.  K1 launched in every run, K5 in every run
      whose mix holds top-k, K6 in every run whose mix holds rules, and
      none where it does not;
+  16. analysis — the static checks (``repro_torch.analysis``): ``python -m
+     repro_torch.analysis --strict --json`` as a subprocess, exit 0 and no
+     findings; then the SPMD audit's sweep on the card, in process: the
+     hygiene self-test (a host read inside a recorded step must raise under
+     ``set_sync_debug_mode("error")``), every cached frontier step of both
+     backends on the 1 x 1, 4 x 1 and 2 x 4 plans under rsag and allgather
+     (K2 launched only on 1 x 1, K3 and K4 only on k > 1), the query steps
+     at k = 1 and 4 (K1, K5, K6) and the basis passes, each step call under
+     the guard, its recorded wire bytes equal to the plan's model; then the
+     recorder over whole mining runs (``ANALYSIS_RECORDED``): MRGanter+ and
+     MRCbo on phase 5's k = 8 rsag plan and census-income at 2 x 4 rsag,
+     ``backend="kernel"``, the recorded closure-word bytes equal to the
+     engine's charged census and the reference's (``MULTI_BYTES``,
+     ``CAND_EXPECTED``), one recorded reduce per charged round; the walls
+     with and without the recorder, in turns after a warm-up run (off, on,
+     on, off);
   10. LM serve, reduced — gemma2-9b and codeqwen1.5-7b ``reduced()``
      through ``ServeEngine`` on numpy weights (``LM_SEED``), prompts
      with token ids V, V + 5, -1, -V and -V - 3 among them: the
@@ -193,8 +209,8 @@ checks, on the card:
      AND-allreduce, the support sum, the LOW gather), on its costliest
      chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
      The kernels line's ``launches`` also counts phase 12's kernel runs,
-     phase 14's warm async runs and phase 15's load runs, whose chunks are
-     not replayed here.
+     phase 14's warm async runs, phase 15's load runs and phase 16's sweep
+     and recorded runs, whose chunks are not replayed here.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -526,6 +542,19 @@ LOAD_WALL = {
 }
 LOAD_THREAD_QUERIES, LOAD_THREAD_QPS = 2000, 2000.0
 LOAD_KERNELS = ("closure", "contains_topk", "rules_topk")
+# The static checks (phase 16): the recorder over whole mining runs
+# (dataset, k, c, schedule, driver, the reference's modeled bytes and
+# charged reduce rounds) — phase 5's k = 8 rsag plan and phase 12's
+# census-income 2 x 4 rsag plan, backend="kernel".
+ANALYSIS_RECORDED = (
+    ("mushroom", 8, 1, "rsag", "mrganter+", MULTI_BYTES[(8, "rsag")]["mrganter+"], None),
+    ("mushroom", 8, 1, "rsag", "mrcbo", MULTI_BYTES[(8, "rsag")]["mrcbo"], None),
+    ("census-income", 2, 4, "rsag", "mrganter+",
+     CAND_EXPECTED["census 2x4 rsag mrganter+"]["bytes"],
+     CAND_EXPECTED["census 2x4 rsag mrganter+"]["reduce_rounds"]),
+)
+ANALYSIS_KERNELS = ("closure", "fused_step", "map_closure", "filter_step", "contains_topk",
+                    "rules_topk")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # 32-bit integer add/compare/bitwise results per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
@@ -2176,6 +2205,162 @@ def check_rules_split(device) -> list[dict]:
                                         "fire": fire, "k": k, "min_conf": min_conf,
                                         "hits": hits})
     return records
+
+
+# ---------------------------------------------------------------------------
+# the static checks (phase 16)
+# ---------------------------------------------------------------------------
+
+
+def analysis_gate() -> dict:
+    """``python -m repro_torch.analysis --strict --json`` as a subprocess:
+    exit 0 and no findings; returns its checked counts and seconds."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--strict", "--json"],
+                         capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"analysis --strict exited {out.returncode}: "
+                             f"{out.stdout[-3000:]} {out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    if not doc["ok"] or doc["findings"]:
+        raise AssertionError(f"analysis --strict: findings {doc['findings'][:5]}")
+    return {"seconds": seconds, "checked": doc["checked"]}
+
+
+def analysis_sweep(device) -> tuple[dict, dict]:
+    """The SPMD audit's sweep on the card, in this process: the hygiene
+    self-test, then each geometry's frontier steps, the query steps and the
+    basis passes, every step call under the sync guard.  Returns the
+    report (checked counts, launches by geometry) and the summed launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.analysis import Report, spmd_audit
+
+    report = Report()
+    blind = spmd_audit.self_test(device)
+    if blind:
+        raise AssertionError(f"analysis self-test: {[f.format() for f in blind]}")
+    launches = {name: 0 for name in ANALYSIS_KERNELS}
+    by_geometry = {}
+    walls = {}
+
+    def counted(label, run):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        found = run()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        if found:
+            raise AssertionError(f"analysis sweep {label}: "
+                                 f"{[f.format() for f in found[:8]]}")
+        counts = {k.__name__: k.launches for k in kernels.KERNELS}
+        for name in ANALYSIS_KERNELS:
+            launches[name] += counts[name]
+        return {name: counts[name] for name in ANALYSIS_KERNELS}
+
+    for k, c in spmd_audit.GEOMETRIES:
+        got = counted(f"{k}x{c}", lambda: spmd_audit.audit_frontier_steps(
+            report, geometries=((k, c),), device=device))
+        if k == 1:
+            bad = not got["fused_step"] or got["map_closure"] or got["filter_step"]
+        else:
+            bad = got["fused_step"] or not got["map_closure"] or not got["filter_step"]
+        if bad or not got["closure"]:
+            raise AssertionError(f"analysis sweep {k}x{c}: launches {got}")
+        by_geometry[f"{k}x{c}"] = got
+    got = counted("query", lambda: spmd_audit.audit_query_steps(report, device=device))
+    if not (got["closure"] and got["contains_topk"] and got["rules_topk"]):
+        raise AssertionError(f"analysis sweep query steps: launches {got}")
+    by_geometry["query"] = got
+    counted("basis", lambda: spmd_audit.audit_basis_passes(report, device=device))
+    return {"checked": report.checked, "launches": by_geometry, "walls_s": walls}, launches
+
+
+def analysis_recorded(device) -> tuple[dict, dict]:
+    """The recorder over whole mining runs at full width: per configuration
+    of ANALYSIS_RECORDED, fresh engines run once to warm up, then off, on,
+    on, off (``on``: inside ``spmd_audit.recording``); each recorded run's closure-word bytes must
+    equal the engine's charged census and the reference's, with one
+    recorded AND-allreduce per charged reduce round."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.analysis import spmd_audit
+    from repro_torch.core import ClosureEngine, mrcbo, mrganter_plus
+    from repro_torch.data import fca_datasets
+
+    contexts = {}
+    launches = {name: 0 for name in ANALYSIS_KERNELS}
+    report = {}
+    for dataset, k, c, impl, algorithm, want_bytes, want_rounds in ANALYSIS_RECORDED:
+        if dataset not in contexts:
+            contexts[dataset] = fca_datasets.load(dataset, scale=1.0)[0]
+        ctx = contexts[dataset]
+        ms = MAIN_MIN_SUPPORT if dataset == "mushroom" else CENSUS_MIN_SUPPORT
+        key = f"{dataset} {k}x{c} {impl} {algorithm}"
+        walls = {"warm-up": [], "off": [], "on": []}
+        for mode in ("warm-up", "off", "on", "on", "off"):
+            plan = cand_plan(k, c, impl)
+            eng = ClosureEngine(ctx, plan=plan, backend="kernel", device=device)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            with (spmd_audit.recording(plan, ctx.W, two_d=c > 1, hygiene=False)
+                  if mode == "on" else contextlib.nullcontext()) as rec:
+                t0 = time.perf_counter()
+                if algorithm == "mrcbo":
+                    res = mrcbo(ctx, eng, min_support=ms)
+                else:
+                    res = mrganter_plus(ctx, eng, local_prune=True, min_support=ms)
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+            counts = {kk.__name__: kk.launches for kk in kernels.KERNELS}
+            check_multi_shard_counts(f"recorded {key}", counts)
+            for name in ANALYSIS_KERNELS:
+                launches[name] += counts[name]
+            census = eng.stats.modeled_comm_bytes
+            if census != want_bytes or res.modeled_comm_bytes != want_bytes:
+                raise AssertionError(f"recorded {key}: census {census} against the "
+                                     f"reference's {want_bytes}")
+            if want_rounds is not None and dict(eng.stats.reduce_rounds) != want_rounds:
+                raise AssertionError(f"recorded {key}: reduce rounds {eng.stats.reduce_rounds}")
+            if mode != "on":
+                continue
+            recorded = rec.modeled_bytes()
+            reduces = [r for r in rec.records if r.op == "and_allreduce"]
+            rounds = sum(eng.stats.reduce_rounds.values())
+            if recorded != census or len(reduces) != rounds:
+                raise AssertionError(f"recorded {key}: {recorded} B in {len(reduces)} reduces "
+                                     f"against the census's {census} B in {rounds} rounds")
+            report[key] = {"recorded_bytes": recorded, "census_bytes": census,
+                           "reference_bytes": want_bytes, "reduces": len(reduces),
+                           "folded": sum(r.folded for r in reduces),
+                           "gathers": sum(r.op == "all_gather_blocks" for r in rec.records),
+                           "records": len(rec.records)}
+        report[key]["wall_ms"] = {m: [w * 1e3 for w in v] for m, v in walls.items()}
+        report[key]["recorder_overhead_ms"] = (statistics.mean(walls["on"])
+                                               - statistics.mean(walls["off"])) * 1e3
+    return report, launches
+
+
+def run_analysis_phase(device) -> tuple[dict, dict]:
+    """Phase 16: the strict gate, the SPMD sweep on the card and the
+    full-width recorder runs.  Returns the report and the phase's kernel
+    launches (the sweep's and the recorded runs')."""
+    t0 = time.perf_counter()
+    gate = analysis_gate()
+    sweep, launches = analysis_sweep(device)
+    recorded, more = analysis_recorded(device)
+    for name, n in more.items():
+        launches[name] += n
+    report = {"gate": gate, "sweep": sweep, "recorded": recorded, "launches": launches,
+              "seconds": time.perf_counter() - t0}
+    emit({"phase": "analysis", **report})
+    return report, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3888,6 +4073,12 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     emit({"phase": "load_seconds", "seconds": time.perf_counter() - t0,
           "launches": load_launches})
+    t0 = time.perf_counter()
+    _, analysis_launches = run_analysis_phase(device)
+    for name, n in analysis_launches.items():  # the sweep's and the recorded runs' launches
+        launches[name] = launches.get(name, 0) + n
+    emit({"phase": "analysis_seconds", "seconds": time.perf_counter() - t0,
+          "launches": analysis_launches})
     t0 = time.perf_counter()
     run_lm_reduced(device)
     emit({"phase": "lm_reduced_seconds", "seconds": time.perf_counter() - t0})

@@ -33,6 +33,7 @@ candidate, so ``supports -= n_pad`` after the sum.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -133,6 +134,10 @@ class ClosureEngine:
         self.N_padded = rows.shape[0]
         self.mask = device_bits(ctx.attr_mask(), self.device)  # [W]
         self.rows = plan.place_rows(rows, self.device)
+        # Guards the frontier's step cache (``DeviceFrontier``): frontiers are
+        # built from the main thread and the admission dispatcher thread, and
+        # two first-misses of one step would otherwise both build it.
+        self._frontier_lock = threading.Lock()
 
         self._step = self.spmd_step(with_supports=True)
 
@@ -261,9 +266,10 @@ class ClosureEngine:
     #     On a simulated plan K4 takes K3's [K, B, W] / [K, B] partials and
     #     does the AND over the shards and the support sum itself: on one
     #     card that fold is the AND-allreduce, bit for bit under every
-    #     schedule (the census stays analytic, ``charge_round``).  On a
-    #     process group each rank runs the plan's collectives between K3
-    #     and K4, which then takes the reduced operands at K = 1.
+    #     schedule (the census stays analytic, ``charge_round``, and
+    #     ``collectives.folded_allreduce`` tells an audit's recorder of the
+    #     fold).  On a process group each rank runs the plan's collectives
+    #     between K3 and K4, which then takes the reduced operands at K = 1.
     #
     # Survivor compaction stays in torch and consumes only the keep mask:
     # identical masks in, identical order out, which is what makes the
@@ -301,14 +307,20 @@ class ClosureEngine:
 
             return wrap(run)
 
-        if plan.is_simulated:  # K4 folds the shards' partials
-            return k3_k4(lambda lc, ls: (lc, ls))
         axes = plan.reduce_axes
 
         def make(impl):
-            def reduce(lc, ls):
-                gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=ctx.n_attrs)
-                return gc.contiguous(), collectives.sum_allreduce(ls, axes) if iceberg else None
+            if plan.is_simulated:  # K4 folds the shards' partials
+
+                def reduce(lc, ls):
+                    return collectives.folded_allreduce(lc, ls if iceberg else None, axes,
+                                                        impl=impl, n_attrs=ctx.n_attrs)
+
+            else:
+
+                def reduce(lc, ls):
+                    gc = collectives.and_allreduce(lc, axes, impl=impl, n_attrs=ctx.n_attrs)
+                    return gc.contiguous(), collectives.sum_allreduce(ls, axes) if iceberg else None
 
             return k3_k4(reduce)
 

@@ -398,10 +398,13 @@ class DeviceFrontier:
         self._tags = engine.plan.trace_tags()
         # Tables and built steps are memoized on the ENGINE: a driver builds
         # a fresh DeviceFrontier per run, and every frontier of an engine
-        # shares them.  Steps are built lazily (``_step_fn``).
-        cache = getattr(engine, "_frontier_cache", None)
-        if cache is None:
-            cache = engine._frontier_cache = self._build_cache(engine)
+        # shares them.  Steps are built lazily (``_step_fn``).  The cache is
+        # built under the engine's ``_frontier_lock``, so that two threads
+        # constructing a frontier at once build it once.
+        with engine._frontier_lock:
+            cache = getattr(engine, "_frontier_cache", None)
+            if cache is None:
+                cache = engine._frontier_cache = self._build_cache(engine)
         self._cache = cache
         self.LOW = cache["LOW"]
         self.BIT = cache["BIT"]
@@ -543,11 +546,19 @@ class DeviceFrontier:
         return {"LOW": LOW, "BIT": BIT, "steps": {}, "builders": builders}
 
     def _step_fn(self, name: str):
-        """Step ``name``, built on first use and memoized on the engine."""
+        """Step ``name``, built on first use and memoized on the engine.
+
+        Double-checked under the engine's ``_frontier_lock``: the steps dict
+        is shared by every frontier of the engine, the admission dispatcher
+        thread's included, and a concurrent first-miss must not build the
+        same step twice."""
         steps = self._cache["steps"]
         fn = steps.get(name)
         if fn is None:
-            fn = steps[name] = self._cache["builders"][name]()
+            with self.engine._frontier_lock:
+                fn = steps.get(name)
+                if fn is None:
+                    fn = steps[name] = self._cache["builders"][name]()
         return fn
 
     # -- frontier state ----------------------------------------------------
@@ -619,7 +630,7 @@ class DeviceFrontier:
         plus the wall time the host spent waiting on it."""
         st = self.engine.stats
         t0 = time.perf_counter()
-        v = int(x_dev)
+        v = int(x_dev.item())
         st.host_blocked_s += time.perf_counter() - t0
         st.d2h_transfers += 1
         st.d2h_bytes += 4

@@ -15,7 +15,15 @@ reference's three interchangeable schedules, plus its wire-cost model.
 The object-axis reduces take a ``torch.distributed`` subgroup as well as
 the world group, so a 2-D plan reduces over its object subgroup; the
 candidate axis of a 2-D plan gathers its survivor blocks with
-:func:`all_gather_blocks` over the candidate subgroup.
+:func:`all_gather_blocks` over the candidate subgroup (on a simulated plan
+the blocks are already stacked and the gather hands them back).
+
+These entry points are the port's one collective seam: every round's
+reduce and gather goes through them, and so does K4's fold of a simulated
+plan's partials (:func:`folded_allreduce`, where no collective runs).  The
+SPMD audit (``repro_torch.analysis.spmd_audit``) installs a recorder here
+(:func:`set_recorder`) that each entry point reports its operand to; with
+none installed an entry point pays one ``None`` test.
 
 The reduce axis is one of two things:
 
@@ -47,6 +55,23 @@ IMPLS = ("allgather", "rsag", "pmin")
 
 # The simulated object partition's axis: the leading dimension of ``x``.
 SIM_AXIS = "objpart"
+# The simulated candidate partition's axis, as the reference names it
+# (``describe()["cand_axes"]``): the leading dimension of a 2-D round's
+# stacked survivor blocks.  A process-group plan names its candidate axis
+# after the mesh it was built from.
+SIM_CAND_AXIS = "candpart"
+
+# The recorder the entry points report to (None: no audit is recording).
+_RECORDER = None
+
+
+def set_recorder(recorder):
+    """Install ``recorder`` (None removes it) and return the one it
+    replaces.  Each entry point calls ``recorder.collective(op, x, axis,
+    **kw)`` with its operand before it runs."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, recorder
+    return prev
 
 
 def _is_simulated(axis) -> bool:
@@ -107,6 +132,8 @@ def and_allreduce(x: torch.Tensor, axis, *, impl: str = "rsag",
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown reduce impl {impl!r}; choose {IMPLS}")
+    if _RECORDER is not None:
+        _RECORDER.collective("and_allreduce", x, axis, impl=impl, n_attrs=n_attrs)
     sim = _is_simulated(axis)
     k = axis_size(axis, x)
     if k == 1:
@@ -144,11 +171,29 @@ def and_allreduce(x: torch.Tensor, axis, *, impl: str = "rsag",
     return out.expand(k, B, W) if sim else out
 
 
+def folded_allreduce(lc: torch.Tensor, ls: torch.Tensor | None, axis, *, impl: str,
+                     n_attrs: int | None = None):
+    """The reduce K4 performs itself on a simulated plan: it folds K3's
+    ``[k, B, W]`` closure partials (and ``[k, B]`` supports, when ``ls`` is
+    given) over the shards in its own body, so nothing runs here and the
+    partials pass through unchanged.  A recorder is told of the fold as the
+    round's AND-allreduce and support sum, as :func:`and_allreduce` and
+    :func:`sum_allreduce` would have told it."""
+    if _RECORDER is not None:
+        _RECORDER.collective("and_allreduce", lc, axis, impl=impl, n_attrs=n_attrs,
+                             folded=True)
+        if ls is not None:
+            _RECORDER.collective("sum_allreduce", ls, axis, folded=True)
+    return lc, ls
+
+
 def all_gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
     """Every shard's ``[n, ...]`` block stacked in shard order, ``[k·n,
     ...]`` (the reference's tiled ``lax.all_gather`` along axis 0).  On the
     simulated axis ``x`` is ``[k, n, ...]`` and the result carries the
     shard dimension, ``[k, k·n, ...]`` (an expanded view)."""
+    if _RECORDER is not None:
+        _RECORDER.collective("all_gather_rows", x, axis)
     if _is_simulated(axis):
         k = x.shape[0]
         flat = x.reshape(k * x.shape[1], *x.shape[2:])
@@ -158,18 +203,29 @@ def all_gather_rows(x: torch.Tensor, axis) -> torch.Tensor:
     return _all_gather(x, axis)
 
 
-def all_gather_blocks(x: torch.Tensor, cand_group) -> torch.Tensor:
+def all_gather_blocks(x: torch.Tensor, cand_axis) -> torch.Tensor:
     """The candidate-axis survivor gather of a 2-D round: this rank's
     block stack ``[1, ...]`` (front-packed survivors, or their ``[1]``
-    count) gathered over ``cand_group`` into ``[cand_parts, ...]`` in
-    block order — the candidate group's rank order."""
-    if dist.get_world_size(cand_group) == 1:
+    count) gathered over the candidate group ``cand_axis`` into
+    ``[cand_parts, ...]`` in block order — the candidate group's rank
+    order.  On :data:`SIM_CAND_AXIS` ``x`` already stacks every block,
+    ``[cand_parts, ...]``, and is returned as it is."""
+    if _RECORDER is not None:
+        _RECORDER.collective("all_gather_blocks", x, cand_axis)
+    if isinstance(cand_axis, str):
+        if cand_axis != SIM_CAND_AXIS:
+            raise ValueError(f"unknown candidate axis {cand_axis!r}; use {SIM_CAND_AXIS!r} "
+                             "or a ProcessGroup")
         return x
-    return _all_gather(x, cand_group)
+    if dist.get_world_size(cand_axis) == 1:
+        return x
+    return _all_gather(x, cand_axis)
 
 
 def sum_allreduce(x: torch.Tensor, axis) -> torch.Tensor:
     """Sum of the shards' supports ``[B]`` (the reference's ``psum``)."""
+    if _RECORDER is not None:
+        _RECORDER.collective("sum_allreduce", x, axis)
     if _is_simulated(axis):
         return x.sum(0, dtype=x.dtype).expand(x.shape)
     if dist.get_world_size(axis) == 1:

@@ -61,12 +61,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives
-from repro_torch.dist.collectives import SIM_AXIS
-
-# The simulated candidate partition's axis name, as the reference names it
-# (``describe()["cand_axes"]``); a process-group plan names its candidate
-# axis after the mesh it was built from.
-SIM_CAND_AXIS = "candpart"
+from repro_torch.dist.collectives import SIM_AXIS, SIM_CAND_AXIS
 
 # Schedules the autotuner arbitrates between.  ``pmin`` is excluded: its
 # unpacked-lane volume is strictly dominated for every batch size.
@@ -465,8 +460,8 @@ class ShardPlan:
             if post is not None:
                 idx = torch.arange(nb, device=outs[0].device) + ci
                 outs = _tup(post(idx, *outs, *ops[split:split_post]))
-            if not simulated and cp > 1:
-                outs = tuple(collectives.all_gather_blocks(o, self.cand_group) for o in outs)
+            if cp > 1:  # free on a simulated plan, whose blocks are already stacked
+                outs = tuple(collectives.all_gather_blocks(o, self.cand_axes) for o in outs)
             if merge is None:
                 return outs
             return merge(*outs, *ops[split_post:])

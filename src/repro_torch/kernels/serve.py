@@ -182,7 +182,9 @@ def rules_topk_plain(prem, added, conf, metric, rid, n_rules: int, queries,
     out_u = torch.zeros((S, W), dtype=torch.int32, device=queries.device)
     if R == 0:
         return out_i, out_v, out_u
-    min_conf = torch.tensor(np.float32(min_conf), device=queries.device)
+    # the threshold as the float32 the reference compares with, kept a host
+    # scalar: a tensor made from it here would be a synchronising copy
+    min_conf = float(np.float32(min_conf))
     live = (torch.arange(R, device=queries.device) < n_rules) & (conf >= min_conf)
     step = max(1, PLAIN_CHUNK_ELEMS // R)
     for lo in range(0, S, step):

@@ -109,7 +109,7 @@ class QueryEngine:
         self._closure_steps: dict = {}  # (impl, probe) -> step
         self._topk_steps: dict = {}  # (impl, k) -> step
         self._rules_steps: dict = {}  # k -> step (the metric is an operand)
-        self._extent_step = None
+        self._extent_steps: dict = {}  # None -> the one extents step
 
     def _cached(self, cache: dict, key, make):
         step = cache.get(key)  # racy fast path, re-checked under the lock
@@ -190,11 +190,7 @@ class QueryEngine:
 
             return self.plan.spmd(body, n_rep=1, post=post)
 
-        if self._extent_step is None:
-            with self._steps_lock:
-                if self._extent_step is None:
-                    self._extent_step = make()
-        return self._extent_step
+        return self._cached(self._extent_steps, None, make)
 
     def _rules_step(self, k: int):
         # keyed by k alone: the rank metric arrives as a run-time operand,
