@@ -179,11 +179,15 @@ checks, on the card:
      ``CAND_EXPECTED``), one recorded reduce per charged round; the walls
      with and without the recorder, in turns after a warm-up run (off, on,
      on, off);
-  10. LM serve, reduced — gemma2-9b and codeqwen1.5-7b ``reduced()``
+  10. LM serve, reduced — the eight archs of ``LM_REDUCED_ARCHS``
+     (attention-only gemma2-9b and codeqwen1.5-7b, qwen2-vl-72b with
+     M-RoPE, recurrentgemma-2b's Griffin layers, mamba2-370m's SSD layers,
+     arctic's and llama4-scout's MoE FFNs, musicgen-large) ``reduced()``
      through ``ServeEngine`` on numpy weights (``LM_SEED``), prompts
-     with token ids V, V + 5, -1, -V and -V - 3 among them: the
-     reference's greedy tokens (``LM_REDUCED_EXPECTED``) exactly, K7
-     launched once per layer of the prefill;
+     with token ids V, V + 5, -1, -V and -V - 3 among them (mamba2's long
+     prompt 64 tokens, two of its chunks): the reference's greedy tokens
+     (``LM_REDUCED_EXPECTED``) exactly, K7 launched once per attention
+     layer of the prefill;
   11. LM serve, full width — gemma2-9b at its published width and depth
      (bf16, seeded torch.Generator weights on the card), four prompts of
      7, 1024, 4097 and 5000 tokens, 16 greedy tokens: K7 launched 42 times
@@ -195,6 +199,20 @@ checks, on the card:
      chunk, the costliest beside its plain version, its bound and
      scaled_dot_product_attention on the cap-free chunk, with K7's share
      of its bound on both and its time over SDPA's;
+  17. LM families, full width — ``LM_FAMILIES``: recurrentgemma-2b (26
+     layers, prompts 7, 1024, 2049, 3000), mamba2-370m (48 layers, 7,
+     300, 1000, 1024), musicgen-large (48 layers, 7, 256, 1024, 1500) and
+     llama4-scout (depth cut to 12 layers, 7, 512, 2048, 4096), bf16
+     seeded weights, 4 slots, 16 greedy tokens: K7 launched 8 / 0 / 48 /
+     12 times per prefill; where K7 runs, the same run through the plain
+     attention, prefill logits within ``LM_FAMILY_TOL_FRAC`` of their std
+     and tokens equal up to the first close plain margin, and K7's
+     costliest chunk beside its plain version, its bound and (musicgen,
+     llama4) SDPA on the pad-free chunk; the state caches against the
+     chunked forms (recurrentgemma, mamba2; ``LM_STATE_SPLIT``, held in
+     float32, reported in bf16); musicgen's
+     embeds path bit-equal to its ids path; llama4's MoE drops (> 0 in
+     the prefill, none in decode); prefill and decode times, peak memory;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
      work alone; median of 25 after warm-up): the sum over the run, by the
@@ -210,7 +228,8 @@ checks, on the card:
      chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
      The kernels line's ``launches`` also counts phase 12's kernel runs,
      phase 14's warm async runs, phase 15's load runs and phase 16's sweep
-     and recorded runs, whose chunks are not replayed here.
+     and recorded runs, whose chunks are not replayed here; K7's counts
+     phase 10's prefills and phase 11's and phase 17's kernel runs.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -572,29 +591,85 @@ SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's SM clock: longer than any wrapper
 # ids outside [0, vocab), 16 greedy tokens in the CLI's ServeConfig.  The expected tokens are the JAX package's
 # ServeEngine on those very weights, derived once on the CPU by
 # ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py lm``.
-LM_REDUCED_ARCHS = ("gemma2-9b", "codeqwen1.5-7b")
+LM_REDUCED_ARCHS = ("gemma2-9b", "codeqwen1.5-7b", "qwen2-vl-72b", "recurrentgemma-2b",
+                    "arctic-480b", "llama4-scout-17b-a16e", "musicgen-large", "mamba2-370m")
+LM_REDUCED_LONG = {"mamba2-370m": 64}  # its reduced chunk of 32 refuses a 40-token prefill
 LM_SEED = 20241016
 LM_REDUCED_MAX_LEN = 512  # the reference CLI's --max-len default
 LM_MAX_NEW = 16
 LM_REDUCED_EXPECTED = {
-    "gemma2-9b": [[56, 178, 49, 158, 6, 6, 6, 6, 6, 6, 6, 6, 6, 50, 50, 50],
-                  [193, 106, 84, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
-                  [29, 198, 198, 198, 198, 204, 177, 248, 248, 133, 248, 178, 43, 158, 94, 1],
-                  [224, 224, 224, 84, 91, 224, 37, 114, 180, 137, 79, 79, 79, 137, 79, 79],
-                  [163, 185, 6, 234, 194, 194, 30, 46, 7, 224, 234, 176, 224, 224, 224, 224],
-                  [246, 225, 225, 108, 97, 97, 97, 208, 208, 225, 225, 225, 232, 193, 193, 160],
-                  [127, 52, 52, 225, 225, 225, 225, 225, 225, 225, 180, 169, 169, 114, 214, 214]],
-    "codeqwen1.5-7b": [[74, 124, 63, 223, 63, 223, 63, 223, 166, 98, 42, 200, 193, 98, 49, 24],
-                       [126, 147, 24, 236, 97, 207, 180, 207, 154, 236, 97, 97, 31, 223, 22,
-                        166],
-                       [223, 154, 223, 74, 134, 154, 74, 134, 182, 154, 74, 31, 31, 31, 31,
-                        31],
-                       [70, 203, 30, 74, 143, 47, 94, 143, 124, 223, 70, 76, 74, 58, 205, 106],
-                       [134, 154, 134, 74, 170, 170, 170, 170, 170, 154, 154, 177, 154, 108,
-                        108, 108],
-                       [65, 137, 137, 137, 137, 137, 137, 137, 192, 155, 155, 155, 166, 155, 212,
-                        170],
-                       [100, 33, 185, 63, 216, 168, 22, 77, 49, 13, 13, 13, 70, 13, 33, 154]],
+    "gemma2-9b": [
+        [56, 178, 49, 158, 6, 6, 6, 6, 6, 6, 6, 6, 6, 50, 50, 50],
+        [193, 106, 84, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        [29, 198, 198, 198, 198, 204, 177, 248, 248, 133, 248, 178, 43, 158, 94, 1],
+        [224, 224, 224, 84, 91, 224, 37, 114, 180, 137, 79, 79, 79, 137, 79, 79],
+        [163, 185, 6, 234, 194, 194, 30, 46, 7, 224, 234, 176, 224, 224, 224, 224],
+        [246, 225, 225, 108, 97, 97, 97, 208, 208, 225, 225, 225, 232, 193, 193, 160],
+        [127, 52, 52, 225, 225, 225, 225, 225, 225, 225, 180, 169, 169, 114, 214, 214],
+    ],
+    "codeqwen1.5-7b": [
+        [74, 124, 63, 223, 63, 223, 63, 223, 166, 98, 42, 200, 193, 98, 49, 24],
+        [126, 147, 24, 236, 97, 207, 180, 207, 154, 236, 97, 97, 31, 223, 22, 166],
+        [223, 154, 223, 74, 134, 154, 74, 134, 182, 154, 74, 31, 31, 31, 31, 31],
+        [70, 203, 30, 74, 143, 47, 94, 143, 124, 223, 70, 76, 74, 58, 205, 106],
+        [134, 154, 134, 74, 170, 170, 170, 170, 170, 154, 154, 177, 154, 108, 108, 108],
+        [65, 137, 137, 137, 137, 137, 137, 137, 192, 155, 155, 155, 166, 155, 212, 170],
+        [100, 33, 185, 63, 216, 168, 22, 77, 49, 13, 13, 13, 70, 13, 33, 154],
+    ],
+    "qwen2-vl-72b": [
+        [74, 124, 63, 223, 63, 223, 63, 223, 166, 98, 42, 200, 193, 98, 49, 24],
+        [126, 147, 24, 236, 97, 207, 180, 207, 154, 236, 97, 97, 31, 223, 22, 166],
+        [223, 154, 223, 74, 134, 154, 74, 134, 182, 154, 74, 31, 31, 31, 31, 31],
+        [70, 203, 30, 74, 143, 47, 94, 143, 124, 223, 70, 76, 74, 58, 205, 106],
+        [134, 154, 134, 74, 170, 170, 170, 170, 170, 154, 154, 177, 154, 108, 108, 108],
+        [65, 137, 137, 137, 137, 137, 137, 137, 192, 155, 155, 155, 166, 155, 212, 170],
+        [100, 33, 185, 63, 216, 168, 22, 77, 49, 13, 13, 13, 70, 13, 33, 154],
+    ],
+    "recurrentgemma-2b": [
+        [46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46],
+        [163, 242, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46],
+        [243, 217, 104, 251, 205, 156, 53, 58, 191, 205, 220, 164, 231, 1, 169, 7],
+        [21, 146, 195, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46],
+        [46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 246],
+        [126, 182, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46],
+        [193, 244, 1, 62, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46, 46],
+    ],
+    "arctic-480b": [
+        [43, 93, 253, 15, 201, 119, 250, 60, 78, 250, 202, 91, 240, 134, 189, 202],
+        [83, 175, 228, 104, 214, 236, 251, 195, 236, 81, 81, 114, 202, 170, 52, 251],
+        [163, 22, 214, 26, 116, 53, 199, 181, 235, 201, 214, 33, 74, 62, 251, 24],
+        [22, 22, 180, 180, 166, 208, 247, 9, 235, 235, 235, 235, 199, 179, 12, 179],
+        [170, 33, 170, 72, 13, 71, 223, 185, 9, 71, 114, 170, 196, 84, 71, 223],
+        [97, 97, 97, 97, 24, 24, 24, 43, 142, 24, 33, 53, 140, 214, 71, 24],
+        [84, 170, 46, 251, 200, 46, 251, 154, 151, 170, 46, 33, 154, 217, 84, 154],
+    ],
+    "llama4-scout-17b-a16e": [
+        [164, 96, 27, 96, 164, 84, 116, 155, 100, 185, 200, 92, 155, 32, 105, 185],
+        [196, 98, 255, 7, 71, 123, 135, 164, 105, 196, 98, 196, 219, 76, 234, 109],
+        [74, 0, 202, 206, 114, 53, 69, 74, 63, 134, 234, 209, 247, 63, 63, 63],
+        [243, 214, 24, 27, 13, 155, 238, 114, 82, 13, 13, 13, 70, 25, 164, 155],
+        [31, 31, 31, 31, 114, 185, 31, 114, 114, 114, 114, 49, 205, 105, 49, 205],
+        [137, 137, 137, 137, 150, 71, 137, 137, 208, 185, 50, 240, 150, 114, 240, 150],
+        [84, 7, 168, 196, 7, 182, 7, 112, 211, 170, 40, 214, 91, 59, 137, 37],
+    ],
+    "musicgen-large": [
+        [53, 84, 84, 84, 84, 84, 84, 84, 105, 105, 105, 105, 105, 105, 105, 105],
+        [140, 25, 140, 140, 140, 140, 140, 140, 224, 224, 224, 224, 224, 224, 224, 224],
+        [13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 250],
+        [97, 72, 214, 50, 94, 201, 214, 145, 94, 94, 94, 201, 214, 145, 94, 94],
+        [216, 94, 145, 94, 185, 97, 185, 97, 185, 94, 185, 223, 216, 216, 216, 216],
+        [137, 137, 137, 137, 137, 137, 137, 137, 92, 118, 137, 92, 118, 92, 238, 92],
+        [84, 84, 84, 84, 84, 84, 84, 84, 84, 84, 84, 84, 84, 84, 84, 84],
+    ],
+    "mamba2-370m": [
+        [221, 152, 178, 221, 158, 12, 117, 41, 252, 179, 126, 69, 153, 140, 117, 30],
+        [153, 221, 236, 67, 1, 84, 241, 86, 57, 109, 0, 53, 133, 179, 250, 89],
+        [213, 69, 49, 28, 76, 86, 17, 237, 65, 153, 95, 91, 38, 27, 146, 79],
+        [84, 243, 143, 1, 68, 210, 85, 8, 221, 1, 222, 104, 235, 45, 19, 132],
+        [221, 167, 223, 68, 233, 169, 137, 205, 8, 14, 210, 117, 22, 109, 86, 21],
+        [198, 31, 40, 104, 221, 110, 5, 225, 137, 207, 191, 151, 210, 164, 64, 69],
+        [16, 172, 64, 112, 219, 75, 39, 100, 126, 174, 211, 59, 56, 55, 18, 143],
+    ],
 }
 # Full width (phase 11): gemma2-9b at its published shape, bf16 weights from
 # a seeded torch.Generator on the card, four seeded prompts in four slots.
@@ -611,6 +686,48 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (NVIDIA data sheet
 # of the logits' std: their largest gap must stay under it, and a greedy
 # token may flip only where the plain run's top-2 margin is under it.
 LM_LOGIT_TOL = 0.25
+# The other LM families at full width (phase 17): published widths, bf16
+# weights from a seeded torch.Generator on the card, four seeded prompts in
+# four slots, 16 greedy tokens.  (arch, depth, prompt lengths, max_len, K7
+# launches per prefill = attention layers).  recurrentgemma-2b: all 26
+# layers (8 local-attention layers, window 2048), a prompt one past the
+# window and one 952 past it; mamba2-370m: all 48 SSD layers (no
+# attention), the padded length 1024 = 4 chunks of 256; musicgen-large: all
+# 48 MHA layers (hd 64, no RoPE); llama4-scout: its depth cut from 48 to 12
+# layers (4.40 GB of bf16 weights a layer, 4.14 GB of untied embeddings:
+# 57.0 GB at 12 layers against 216 GB at 48), 16 experts top-1 plus the
+# shared expert at capacity round(16,384 / 16 · 1.25) = 1280 in the prefill.
+LM_FAMILIES = (
+    ("recurrentgemma-2b", None, (7, 1024, 2049, 3000), 3072, 8),
+    ("mamba2-370m", None, (7, 300, 1000, 1024), 1040, 0),
+    ("musicgen-large", None, (7, 256, 1024, 1500), 1520, 48),
+    ("llama4-scout-17b-a16e", 12, (7, 512, 2048, 4096), 4112, 12),
+)
+# Tolerances of phase 17, as LM_LOGIT_TOL's: a fraction of the spread (std)
+# of the last-position logits the plain run gives.  Kernel and plain runs
+# differ only in the attention's sum order and p's bf16 rounding (about one
+# bf16 step of some attention outputs a layer), carried through 12-48 bf16
+# layers; the logits (fp32; std ~1: unit-RMS hidden states times N(0, 1/d)
+# unembedding columns, or recurrentgemma's and mamba2's tied N(0, 0.02^2)
+# embeddings over 2560 / 1024 dims: std 1.0 / 0.64) then move by some
+# percent of their std, the largest of the 4 x V by a few times that.  So a
+# fifth of the std (phase 11's 0.25 against gemma2's 1.2): the largest gap
+# must stay under it, and a greedy token may flip only where the plain
+# run's top-2 margin is under it.  The state caches against the chunked
+# forms (a 768-token prefill and 256 decode steps against one 1024-token
+# prefill, batch 1) are held on a float32 copy of the config (the same
+# widths and depth, its own seeded weights): there the two differ only in
+# the association of float32 sums (a step-by-step state against chunked or
+# scanned sums, K7's float32 body against the decode's softmax), ~1e-5 of
+# the logits a layer, while a wrong state, conv window or position moves
+# them by their std; so a hundredth of the std of the prefill's logits.  In
+# bf16 the two forms also round the activations at other places (the decode
+# conv's float32 sums against the prefill's bf16 shifted adds, each a bf16
+# step) through 26-48 layers: that difference is reported beside it
+# (``state_split_bf16``), not held.
+LM_FAMILY_TOL_FRAC = 0.2
+LM_STATE_TOL_FRAC = 0.01
+LM_STATE_SPLIT = (768, 1024)
 
 
 def emit(record: dict) -> None:
@@ -3284,17 +3401,30 @@ def run_load_phase(device, served: dict, rules_served: tuple) -> tuple[dict, dic
     return report, launches
 
 
-def lm_reduced_prompts(vocab: int) -> list:
+def lm_reduced_prompts(vocab: int, n_long: int = 40) -> list:
     """The reference CLI's default prompts ("1,2,3;4,5,6,7", as its parser
-    reads them), one seeded prompt of 40 tokens, past the reduced window,
-    and four holding ids outside [0, vocab) (V, V + 5, -1, -V, -V - 3),
-    which the reference's embedding gather maps into the table."""
+    reads them), one seeded prompt of ``n_long`` tokens, past the reduced
+    window, and four holding ids outside [0, vocab) (V, V + 5, -1, -V, -V -
+    3), which the reference's embedding gather maps into the table."""
     import numpy as np
 
     cli = [[t % vocab for t in chunk] for chunk in ((1, 2, 3), (4, 5, 6, 7))]
-    long = np.random.default_rng(LM_SEED + 1).integers(0, vocab, size=40).tolist()
+    long = np.random.default_rng(LM_SEED + 1).integers(0, vocab, size=n_long).tolist()
     V = vocab
     return cli + [long, [V, 1], [V + 5, -1, 3], [-V, 7], [-V - 3, 9, 2]]
+
+
+def lm_prompts_for(arch: str, vocab: int) -> list:
+    """Phase 10's prompts for one arch: mamba2's long prompt is 64 tokens,
+    two of its reduced chunks of 32 (the reference refuses a 40-token
+    prefill there: ``L=40 must be divisible by chunk=32``)."""
+    return lm_reduced_prompts(vocab, LM_REDUCED_LONG.get(arch, 40))
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers of a config: K7's launches per prefill."""
+    kinds = cfg.layer_pattern * cfg.n_periods + cfg.tail_pattern
+    return sum(k.startswith("attn") for k in kinds)
 
 
 def k7_launches() -> int:
@@ -3303,10 +3433,11 @@ def k7_launches() -> int:
     return fa.flash_attention.launches + fa.blockwise_attention.launches
 
 
-def run_lm_reduced(device) -> dict:
+def run_lm_reduced(device) -> tuple[dict, int]:
     """Phase 10: the reduced LM configs through the port's ServeEngine on the
-    card (K7 on every prefill layer), on the numpy weights the reference was
-    given: the reference's greedy tokens exactly."""
+    card (K7 on every attention layer of the prefill), on the numpy weights
+    the reference was given: the reference's greedy tokens exactly.
+    Returns the report and K7's launches over the phase."""
     import torch
 
     from repro_torch import kernels
@@ -3316,27 +3447,29 @@ def run_lm_reduced(device) -> dict:
     from repro_torch.serve import ServeConfig, ServeEngine
 
     report = {}
+    total = 0
     for arch in LM_REDUCED_ARCHS:
         cfg = get_config(arch).reduced()
         model = Decoder(cfg, device=device, seed=None)
         model.load_state_dict(params_from_jax(numpy_params(cfg, LM_SEED), cfg))
-        prompts = lm_reduced_prompts(cfg.vocab_size)
+        prompts = lm_prompts_for(arch, cfg.vocab_size)
         eng = ServeEngine(cfg, model, ServeConfig(max_len=LM_REDUCED_MAX_LEN,
                                                   batch_slots=max(4, len(prompts))))
         kernels.reset_launches()
         got = eng.generate(prompts, LM_MAX_NEW)
         torch.cuda.synchronize()
         launches = k7_launches()
+        total += launches
         if got != LM_REDUCED_EXPECTED[arch]:
             raise AssertionError(f"{arch} reduced: tokens {got} != the reference's "
                                  f"{LM_REDUCED_EXPECTED[arch]}")
-        if launches != cfg.n_layers:
+        if launches != attention_layers(cfg):
             raise AssertionError(f"{arch} reduced: K7 launched {launches} times in one "
-                                 f"prefill of {cfg.n_layers} layers")
+                                 f"prefill of {attention_layers(cfg)} attention layers")
         report[arch] = {"tokens_equal_reference": True, "k7_launches": launches,
                         "layers": cfg.n_layers, "prompt_lens": [len(p) for p in prompts]}
     emit({"phase": "lm_reduced", "runs": report})
-    return report
+    return report, total
 
 
 def attention_pairs(S: int, valid_from, window) -> int:
@@ -3391,15 +3524,13 @@ def time_attention_groupings(B: int, S: int) -> list:
     return out
 
 
-def time_attention(chunks: list, launches: int) -> dict:
-    """K7 on the chunks the full-width prefill gave it: each replayed alone,
-    the costliest beside its plain version and its bound; ``library_ms``
-    is scaled_dot_product_attention on the costliest chunk without a
-    window (a global layer) with the cap removed and no pads, beside K7 on
-    that same cap-free chunk, so both compute one function; ``groupings``
-    the same comparison at the G = 1 and odd-G head shapes of
-    ``K7_GROUPINGS``, at the costliest chunk's B and S."""
-    import torch
+def k7_chunk_report(chunks: list, library: bool = True) -> dict:
+    """K7 on the chunks one full-width prefill gave it: each replayed alone,
+    the costliest beside its plain version and its bound.  With
+    ``library``, ``library_ms`` is scaled_dot_product_attention on the
+    costliest chunk without a window (a global layer) with the cap removed
+    and no pads, beside K7 on that same cap-free chunk, so both compute one
+    function (``library_chunk``); else ``library_ms`` is None."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3425,6 +3556,16 @@ def time_attention(chunks: list, launches: int) -> dict:
     pairs = H * attention_pairs(S, vf, kw["window"])
     t_ops = 4 * hd * pairs / BF16_FLOPS_PER_S * 1e3
     t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    out = {"max_abs_err": err["max_abs_err"], "row_rel_err": err["row_rel_err"], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+           "bound_share": bound_ms / ms,
+           "chunk": {"layer": n, "B": B, "S": S, "H": H, "KV": k.shape[2], "hd": hd,
+                     "valid_from": vf, **plain_kw, "pairs": pairs},
+           "run_launches": len(chunks), "run_ms": ms_all}
+    if not library:
+        return out
     # the cap-free, pad-free global chunk: K7 and SDPA on one function
     g = next(i for _, i in sorted(timed, reverse=True) if chunks[i][1]["window"] is None)
     (gq, gk, gv), _ = chunks[g]
@@ -3436,26 +3577,28 @@ def time_attention(chunks: list, launches: int) -> dict:
     library_ms = cuda_time_ms(lib, reps=10)
     k7_free_ms = cuda_time_ms(k7, reps=10)
     free_pairs = qt.shape[0] * qt.shape[1] * attention_pairs(S, [0], None)
-    bound_ms = max(t_ops, t_bytes)
     free_bound_ms = max(4 * hd * free_pairs / BF16_FLOPS_PER_S * 1e3, t_bytes)
-    return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:109",
-        "launches": launches, "max_abs_err": err["max_abs_err"],
-        "row_rel_err": err["row_rel_err"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms, "bound_share": bound_ms / ms,
-        "chunk": {"layer": n, "B": B, "S": S, "H": H, "KV": k.shape[2], "hd": hd,
-                  "valid_from": vf, **plain_kw, "pairs": pairs},
-        "run_launches": len(chunks), "run_ms": ms_all,
-        "library_chunk": {"layer": g, "cap": None, "valid_from": [0] * qt.shape[0],
-                          "k7_ms": k7_free_ms, "pairs": free_pairs, "bound_ms": free_bound_ms,
-                          "bound_share": free_bound_ms / k7_free_ms,
-                          "k7_over_library": k7_free_ms / library_ms,
-                          "k7_vs_sdpa_max_abs_err": lib_err},
-        "groupings": time_attention_groupings(B, S),
-    }
+    out["library_ms"] = library_ms
+    out["library_chunk"] = {"layer": g, "cap": None, "valid_from": [0] * qt.shape[0],
+                            "k7_ms": k7_free_ms, "pairs": free_pairs,
+                            "bound_ms": free_bound_ms, "bound_share": free_bound_ms / k7_free_ms,
+                            "k7_over_library": k7_free_ms / library_ms,
+                            "k7_vs_sdpa_max_abs_err": lib_err}
+    return out
+
+
+def time_attention(chunks: list, launches: int) -> dict:
+    """K7's record of the kernels line from the chunks phase 11's prefill
+    gave it (``k7_chunk_report``), with ``groupings``: the same comparison
+    with SDPA at the G = 1 and odd-G head shapes of ``K7_GROUPINGS``, at the
+    costliest chunk's B and S."""
+    report = k7_chunk_report(chunks)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:109", "launches": launches,
+            **report,
+            "groupings": time_attention_groupings(report["chunk"]["B"],
+                                                  report["chunk"]["S"])}
 
 
 @contextlib.contextmanager
@@ -3511,6 +3654,40 @@ def decode_profile(model, prompts, steps: int = 3) -> dict:
             "kernel_launches_per_step": sum(e.count for e in kernels) / steps}
 
 
+def family_run(eng, prompts, *, plain: bool = False) -> dict:
+    """One ServeEngine.generate of phases 11 and 17 (K7, or its plain version when
+    ``plain``), counted from 0: tokens, K7 launches, host-clock prefill and
+    decode times, peak memory, the prefill logits and each step's top-2."""
+    import torch
+
+    from repro_torch import kernels
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_attention() if plain else contextlib.nullcontext():
+        out = eng.generate(prompts, LM_MAX_NEW)
+    torch.cuda.synchronize()
+    st = eng.stats
+    return {"tokens": out, "launches": k7_launches(), "prefill_ms": st.prefill_s * 1e3,
+            "decode_ms": [x * 1e3 for x in st.decode_s],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "logits": st.prefill_logits, "top2": [t.float().cpu() for t in st.top2]}
+
+
+def agree_until(kernel: dict, plain: dict, tol: float, name: str) -> list:
+    """Per slot, the first step whose plain top-2 margin is under ``tol``;
+    the kernel run's tokens must equal the plain run's before it."""
+    out = []
+    for slot in range(len(kernel["tokens"])):
+        margins = [float(t[slot, 0] - t[slot, 1]) for t in plain["top2"]]
+        close = next((i for i, m in enumerate(margins[:LM_MAX_NEW]) if m < tol), LM_MAX_NEW)
+        if kernel["tokens"][slot][:close] != plain["tokens"][slot][:close]:
+            raise AssertionError(f"{name} slot {slot}: kernel tokens {kernel['tokens'][slot]} "
+                                 f"and plain {plain['tokens'][slot]} differ before step {close}")
+        out.append(close)
+    return out
+
+
 def run_lm_full(device) -> tuple[dict, dict]:
     """Phase 11: gemma2-9b at full width and depth through the port's
     ServeEngine on the card: bf16 weights from a seeded torch.Generator,
@@ -3525,7 +3702,6 @@ def run_lm_full(device) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
-    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import Decoder
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -3541,30 +3717,15 @@ def run_lm_full(device) -> tuple[dict, dict]:
     eng = ServeEngine(cfg, model, ServeConfig(max_len=LM_FULL_MAX_LEN,
                                               batch_slots=len(prompts)))
 
-    def run(backend: str):
-        kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        if backend == "kernel":
-            out = eng.generate(prompts, LM_MAX_NEW)
-        else:  # the same path with K7's wrapper swapped for its plain version
-            with plain_attention():
-                out = eng.generate(prompts, LM_MAX_NEW)
-        torch.cuda.synchronize()
-        st = eng.stats
-        return {"tokens": out, "launches": k7_launches(), "prefill_ms": st.prefill_s * 1e3,
-                "decode_ms": [x * 1e3 for x in st.decode_s],
-                "peak_bytes": torch.cuda.max_memory_allocated(),
-                "logits": st.prefill_logits, "top2": [t.float().cpu() for t in st.top2]}
-
-    cold = run("kernel")
+    cold = family_run(eng, prompts)
     decode = decode_profile(model, prompts)
     if cold["launches"] != cfg.n_layers:
         raise AssertionError(f"gemma2-9b: K7 launched {cold['launches']} times in one "
                              f"prefill of {cfg.n_layers} layers")
-    plain = run("torch")
+    plain = family_run(eng, prompts, plain=True)
     if plain["launches"] != 0:
         raise AssertionError("the plain run launched K7")
-    warm = run("kernel")
+    warm = family_run(eng, prompts)
     _, captured = capture_launches(("blockwise_attention",),
                                    lambda: eng.generate(prompts, LM_MAX_NEW))
     check_captured("gemma2-9b prefill", captured, {"blockwise_attention": cfg.n_layers})
@@ -3577,16 +3738,7 @@ def run_lm_full(device) -> tuple[dict, dict]:
         raise AssertionError("gemma2-9b: two kernel runs gave different tokens")
     # per slot: tokens equal up to the first step whose plain top-2 margin is
     # under the tolerance (there a difference in the last bits may flip it)
-    agree_until = []
-    for slot in range(len(prompts)):
-        margins = [float(t[slot, 0] - t[slot, 1]) for t in plain["top2"]]
-        close = next((i for i, m in enumerate(margins[:LM_MAX_NEW]) if m < LM_LOGIT_TOL),
-                     LM_MAX_NEW)
-        if cold["tokens"][slot][:close] != plain["tokens"][slot][:close]:
-            raise AssertionError(f"gemma2-9b slot {slot}: kernel tokens "
-                                 f"{cold['tokens'][slot]} and plain {plain['tokens'][slot]} "
-                                 f"differ before step {close}")
-        agree_until.append(close)
+    until = agree_until(cold, plain, LM_LOGIT_TOL, LM_FULL_ARCH)
     for r in (cold, plain, warm):
         if not all(len(t) == LM_MAX_NEW for t in r["tokens"]):
             raise AssertionError("gemma2-9b: a slot stopped early")
@@ -3609,8 +3761,8 @@ def run_lm_full(device) -> tuple[dict, dict]:
         / statistics.median(warm["decode_ms"]),
         "peak_bytes": {"kernel": cold["peak_bytes"], "plain": plain["peak_bytes"]},
         "prefill_logits_max_abs_diff": logit_err, "logit_tol": LM_LOGIT_TOL,
-        "tokens_agree_until_step": agree_until,
-        "first_close_step": min(agree_until),
+        "tokens_agree_until_step": until,
+        "first_close_step": min(until),
         "tokens_equal": cold["tokens"] == plain["tokens"],
         "plain_min_margin": min(float((t[:, 0] - t[:, 1]).min()) for t in plain["top2"]),
         "tokens": cold["tokens"],
@@ -3619,6 +3771,224 @@ def run_lm_full(device) -> tuple[dict, dict]:
     del model, eng
     torch.cuda.empty_cache()
     return report, k7
+
+
+def state_split(model, prompt: list, max_len: int) -> dict:
+    """The state caches against the chunked forms, batch 1: a prefill over
+    the first LM_STATE_SPLIT[0] tokens of ``prompt`` and then a decode step
+    per token up to LM_STATE_SPLIT[1], against one prefill over all
+    LM_STATE_SPLIT[1]; the two last-position logits' largest gap and the
+    prefill logits' std."""
+    import torch
+
+    a, b = LM_STATE_SPLIT
+    if len(prompt) < b:
+        raise ValueError(f"a prompt of {len(prompt)} tokens is shorter than {b}")
+    toks = torch.tensor([prompt[:b]], dtype=torch.int32, device=model.device)
+    with torch.inference_mode():
+        whole, _ = model.prefill(toks, model.init_caches(1, max_len))
+        logits, caches = model.prefill(toks[:, :a], model.init_caches(1, max_len))
+        for t in range(a, b):
+            logits, caches = model.decode_step(toks[:, t:t + 1], t, caches)
+    whole, stepped = whole[0, -1].float(), logits[0, -1].float()
+    std = float(whole.std())
+    return {"dtype": str(model.dtype).replace("torch.", ""), "prefill_tokens": a,
+            "decode_steps": b - a, "max_abs_diff": float((whole - stepped).abs().max()),
+            "logit_std": std, "argmax_equal": int(whole.argmax()) == int(stepped.argmax())}
+
+
+def embeds_equal(model, prompts) -> dict:
+    """musicgen's embeds path: the left-padded batch prefilled from
+    ``embed[ids]`` as a [B, S, d] input and from the ids; the reference
+    applies no emb_scale there, so the logits must be equal bit for bit."""
+    import torch
+
+    from repro_torch.serve.engine import left_pad
+
+    toks, vf = left_pad(prompts, len(prompts))
+    toks = torch.from_numpy(toks).to(model.device)
+    vf = torch.from_numpy(vf).to(model.device)
+    with torch.inference_mode():
+        by_ids, _ = model.prefill(toks, model.init_caches(len(prompts), toks.shape[1]), vf)
+        x = model.embed[toks]
+        by_embeds, _ = model.prefill(x, model.init_caches(len(prompts), toks.shape[1]), vf)
+    return {"input_shape": list(x.shape), "bit_equal": bool(torch.equal(by_ids, by_embeds)),
+            "max_abs_diff": float((by_ids - by_embeds).abs().max())}
+
+
+def moe_drops(model, prompts, steps: int = 4) -> dict:
+    """Dropped assignments over every MoE layer in the left-padded prefill
+    (capacity factor; pads take capacity) and in ``steps`` decode steps
+    after it (exact capacity: none)."""
+    import torch
+
+    from repro_torch.serve.engine import left_pad
+
+    toks, vf = left_pad(prompts, len(prompts))
+    plen = toks.shape[1]
+    layers = model.moe_layers()
+
+    def dropped():
+        return int(sum(m.dropped for m in layers))
+
+    with torch.inference_mode():
+        for m in layers:
+            m.reset_dropped()
+        logits, caches = model.prefill(torch.from_numpy(toks).to(model.device),
+                                       model.init_caches(len(prompts), plen + steps),
+                                       torch.from_numpy(vf).to(model.device))
+        prefill = dropped()
+        for m in layers:
+            m.reset_dropped()
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        for step in range(steps):
+            logits, caches = model.decode_step(tok, plen + step, caches)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        decode = dropped()
+    n_tokens = len(prompts) * plen
+    return {"prefill_dropped": prefill, "decode_dropped": decode, "decode_steps": steps,
+            "prefill_assignments": n_tokens * model.cfg.moe.top_k * len(layers),
+            "prefill_capacity": max(1, int(round(n_tokens * model.cfg.moe.top_k
+                                                 / model.cfg.moe.n_experts
+                                                 * model.cfg.moe.capacity_factor))),
+            "moe_layers": len(layers)}
+
+
+def run_lm_family(device, arch: str, depth, prompt_lens, max_len: int, k7_per_prefill: int):
+    """One arch of phase 17 (see LM_FAMILIES): a kernel run (K7 launched
+    once per attention layer of the prefill), the same through the plain
+    attention where K7 runs, a warm kernel run and a run that keeps K7's
+    operands; then the state, embeds and MoE checks.  Every number goes
+    into the report before any check raises.  Returns the report and the
+    cold run's K7 launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device=device, seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
+    eng = ServeEngine(cfg, model, ServeConfig(max_len=max_len, batch_slots=len(prompts)),
+                      device=device)
+
+    cold = family_run(eng, prompts)
+    plain = family_run(eng, prompts, plain=True) if k7_per_prefill else None
+    warm = family_run(eng, prompts)
+    std = float((plain or cold)["logits"].float().std())
+    tol = LM_FAMILY_TOL_FRAC * std
+    report = {
+        "arch": arch, "layers": cfg.n_layers, "published_layers": get_config(arch).n_layers,
+        "d_model": cfg.d_model, "params": cfg.param_count(),
+        "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+        "init_s": init_s, "prompt_lens": list(prompt_lens), "slots": len(prompts),
+        "max_len": max_len, "new_tokens": LM_MAX_NEW,
+        "k7_launches_per_prefill": cold["launches"],
+        "prefill_ms": {"cold": cold["prefill_ms"], "warm": warm["prefill_ms"]},
+        "decode_ms_per_token": {"cold_first": cold["decode_ms"][0],
+                                "cold_median": statistics.median(cold["decode_ms"]),
+                                "warm_median": statistics.median(warm["decode_ms"])},
+        "peak_bytes": {"kernel": cold["peak_bytes"]},
+        "logit_std": std, "logit_tol": tol, "tokens": cold["tokens"],
+        "finite": bool(torch.isfinite(cold["logits"]).all()),
+    }
+    failures = []
+    if cold["launches"] != k7_per_prefill:
+        failures.append(f"K7 launched {cold['launches']} times in one prefill, not "
+                        f"{k7_per_prefill}")
+    if warm["tokens"] != cold["tokens"]:
+        failures.append("two kernel runs gave different tokens")
+    if not report["finite"]:
+        failures.append("non-finite prefill logits")
+    if not all(len(t) == LM_MAX_NEW for t in cold["tokens"]):
+        failures.append("a slot stopped early")
+    if plain is not None:
+        logit_err = float((cold["logits"] - plain["logits"]).abs().max())
+        report.update({
+            "prefill_logits_max_abs_diff": logit_err,
+            "plain_min_margin": min(float((t[:, 0] - t[:, 1]).min()) for t in plain["top2"]),
+            "tokens_equal": cold["tokens"] == plain["tokens"]})
+        report["prefill_ms"]["plain"] = plain["prefill_ms"]
+        report["decode_ms_per_token"]["plain_median"] = statistics.median(plain["decode_ms"])
+        report["peak_bytes"]["plain"] = plain["peak_bytes"]
+        if plain["launches"] != 0:
+            failures.append("the plain run launched K7")
+        if not logit_err <= tol:
+            failures.append(f"prefill logits of K7 and the plain attention differ by "
+                            f"{logit_err} > {tol}")
+        try:
+            report["tokens_agree_until_step"] = agree_until(cold, plain, tol, arch)
+        except AssertionError as e:
+            failures.append(str(e))
+        _, captured = capture_launches(("blockwise_attention",),
+                                       lambda: eng.generate(prompts, LM_MAX_NEW))
+        try:
+            check_captured(f"{arch} prefill", captured, {"blockwise_attention": k7_per_prefill})
+            report["k7"] = k7_chunk_report(captured["blockwise_attention"],
+                                           library=arch in ("musicgen-large",
+                                                            "llama4-scout-17b-a16e"))
+        except AssertionError as e:
+            failures.append(str(e))
+        del captured
+    del plain
+    recurrent = cfg.griffin is not None or cfg.ssm is not None
+    if recurrent:  # reported, not held (see LM_STATE_TOL_FRAC)
+        report["state_split_bf16"] = state_split(model, prompts[-1], max_len)
+    if cfg.input_mode == "embeds":
+        report["embeds"] = emb = embeds_equal(model, prompts)
+        if not emb["bit_equal"]:
+            failures.append(f"embeds path differs from the ids path by {emb['max_abs_diff']}")
+    if cfg.moe is not None:
+        report["moe"] = drops = moe_drops(model, prompts)
+        if not drops["prefill_dropped"] > 0 or drops["decode_dropped"] != 0:
+            failures.append(f"MoE drops {drops}: want > 0 in the prefill and none in decode")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if recurrent:
+        model = Decoder(dataclasses.replace(cfg, dtype="float32"), device=device, seed=LM_SEED)
+        report["state_split"] = st = state_split(model, prompts[-1], max_len)
+        st["tol"] = LM_STATE_TOL_FRAC * st["logit_std"]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not st["max_abs_diff"] <= st["tol"]:
+            failures.append(f"float32 state caches against the chunked forms: "
+                            f"{st['max_abs_diff']} > {st['tol']}")
+    report["seconds"] = time.perf_counter() - t_arch
+    report["failures"] = failures
+    emit({"phase": "lm_family", **report})
+    if failures:
+        raise AssertionError(f"{arch}: {'; '.join(failures)}")
+    return report, cold["launches"]
+
+
+def run_lm_families(device) -> tuple[dict, int]:
+    """Phase 17: LM_FAMILIES through the port's ServeEngine at full width
+    on the card.  Returns the reports and K7's launches over the phase's
+    kernel runs."""
+    reports, launches = {}, 0
+    for arch, depth, prompt_lens, max_len, k7 in LM_FAMILIES:
+        reports[arch], n = run_lm_family(device, arch, depth, prompt_lens, max_len, k7)
+        launches += n
+    emit({"phase": "lm_families", "k7_launches": launches,
+          "archs": {a: {"prefill_ms_warm": r["prefill_ms"]["warm"],
+                        "decode_ms_warm": r["decode_ms_per_token"]["warm_median"],
+                        "peak_bytes": r["peak_bytes"]["kernel"],
+                        "k7_launches_per_prefill": r["k7_launches_per_prefill"],
+                        "seconds": r["seconds"]} for a, r in reports.items()}})
+    return reports, launches
 
 
 def int32_ops_per_s(device) -> float:
@@ -4080,11 +4450,17 @@ def main() -> int:
     emit({"phase": "analysis_seconds", "seconds": time.perf_counter() - t0,
           "launches": analysis_launches})
     t0 = time.perf_counter()
-    run_lm_reduced(device)
+    _, reduced_k7 = run_lm_reduced(device)
     emit({"phase": "lm_reduced_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     _, k7 = run_lm_full(device)
     emit({"phase": "lm_full_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, families_k7 = run_lm_families(device)
+    emit({"phase": "lm_families_seconds", "seconds": time.perf_counter() - t0})
+    # K7's launches: phase 10's prefills, phase 11's and phase 17's kernel runs
+    k7["launches_by_phase"] = {"10": reduced_k7, "11": k7["launches"], "17": families_k7}
+    k7["launches"] = reduced_k7 + k7["launches"] + families_k7
     emit({"kernels": time_kernels(device, launches, chunks) + [k7]})
 
     print(nvidia_smi("name,power.limit"), flush=True)

@@ -3,9 +3,8 @@
 ``get_config(name)`` returns the full-size ModelConfig; ``--arch`` ids use
 the assignment spelling (dots/dashes), module names use underscores.
 ``ArchPlan`` carries the reference's per-arch deployment choices (FSDP,
-optimizer), kept as data; no module of the port reads them yet.  Every
-arch is returned, but the port's decoder runs only attention-only,
-non-MoE, token-input configs (``repro_torch.models.transformer``).
+optimizer), kept as data; no module of the port reads them yet.  The
+port's decoder (``repro_torch.models.transformer``) runs every arch.
 """
 
 from __future__ import annotations

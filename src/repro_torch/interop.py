@@ -144,10 +144,14 @@ def params_from_jax(values, cfg) -> dict:
 def numpy_params(cfg, seed: int) -> dict:
     """A parity tree in the reference's layout, float32, from
     ``np.random.default_rng(seed)``: dense leaves ``N(0, 1/fan_in)``,
-    embeddings ``N(0, 0.02²)`` (``ParamBuilder``'s scales), and — unlike
-    the reference's init, so that every parameter is exercised — norm
-    scales ``N(0, 0.1²)`` and biases ``N(0, 0.02²)`` in place of zeros.
-    The JAX package and the port both take it (``params_from_jax``)."""
+    embeddings ``N(0, 0.02²)`` and the MoE router ``N(0, 0.02²)``
+    (``ParamBuilder``'s scales), and — unlike the reference's init, so that
+    every parameter is exercised — norm scales ``N(0, 0.1²)`` and biases
+    ``N(0, 0.02²)`` in place of zeros, and the value leaves at the
+    reference's formulas (Griffin's ``lam``, SSD's ``A_log`` and
+    ``dt_bias``) or ones (``D``) plus ``N(0, 0.1²)``.  Every kind of layer
+    and FFN of the ten configs; the JAX package and the port both take it
+    (``params_from_jax``)."""
     rng = np.random.default_rng(seed)
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
@@ -157,21 +161,72 @@ def numpy_params(cfg, seed: int) -> dict:
     def dense(shape, fan_in=None):
         return normal(shape, 1.0 / np.sqrt(max(1, fan_in or shape[0])))
 
-    def one_block(lead=()):
+    def value(lead, v, noise=0.0):
+        v = np.broadcast_to(np.asarray(v, np.float32), lead + np.shape(v))
+        return (v + normal(v.shape, noise)) if noise else np.array(v)
+
+    def mlp_tree(lead, f, kind):
+        mlp = {"up": dense(lead + (d, f), d), "down": dense(lead + (f, d), f)}
+        if kind in ("swiglu", "geglu"):
+            mlp["gate"] = dense(lead + (d, f), d)
+        return mlp
+
+    def attn_core(lead):
         core = {"wq": dense(lead + (d, H, hd), d), "wk": dense(lead + (d, KV, hd), d),
                 "wv": dense(lead + (d, KV, hd), d), "wo": dense(lead + (H, hd, d), H * hd)}
         if cfg.qkv_bias:
             core.update(bq=normal(lead + (H, hd), 0.02), bk=normal(lead + (KV, hd), 0.02),
                         bv=normal(lead + (KV, hd), 0.02))
-        mlp = {"up": dense(lead + (d, cfg.d_ff), d), "down": dense(lead + (cfg.d_ff, d),
-                                                                   cfg.d_ff)}
-        if cfg.mlp_kind in ("swiglu", "geglu"):
-            mlp["gate"] = dense(lead + (d, cfg.d_ff), d)
-        p = {"pre_norm": {"scale": normal(lead + (d,), 0.1)}, "core": core,
-             "pre_mlp_norm": {"scale": normal(lead + (d,), 0.1)}, "mlp": mlp}
+        return core
+
+    def rec_core(lead):
+        w, K = cfg.griffin.lru_width or d, cfg.griffin.conv_width
+        lam = np.log(np.expm1(-np.log(np.linspace(0.9, 0.999, w)) / 8.0))
+        return {"proj_rec": dense(lead + (d, w), d), "proj_gate": dense(lead + (d, w), d),
+                "conv_w": dense(lead + (K, w), K), "conv_b": normal(lead + (w,), 0.02),
+                "w_a": dense(lead + (w, w), w), "b_a": normal(lead + (w,), 0.02),
+                "w_x": dense(lead + (w, w), w), "b_x": normal(lead + (w,), 0.02),
+                "lam": value(lead, lam, 0.1), "proj_out": dense(lead + (w, d), w)}
+
+    def ssd_core(lead):
+        s = cfg.ssm
+        d_in = s.expand * d
+        nh = d_in // s.head_dim
+        conv_dim = d_in + 2 * s.n_groups * s.state_size
+        return {"in_proj": dense(lead + (d, 2 * d_in + 2 * s.n_groups * s.state_size + nh), d),
+                "conv_w": dense(lead + (s.conv_width, conv_dim), s.conv_width),
+                "conv_b": normal(lead + (conv_dim,), 0.02),
+                "A_log": value(lead, np.log(np.linspace(1.0, 16.0, nh)), 0.1),
+                "D": value(lead, np.ones(nh), 0.1),
+                "dt_bias": value(lead, np.log(np.expm1(np.full(nh, 0.01))), 0.1),
+                "norm": normal(lead + (d_in,), 0.1),
+                "out_proj": dense(lead + (d_in, d), d_in)}
+
+    def moe_tree(lead):
+        e = cfg.moe
+        E, f = e.n_experts, e.d_ff_expert
+        tree = {"router": normal(lead + (d, E), 0.02), "w_gate": dense(lead + (E, d, f), d),
+                "w_up": dense(lead + (E, d, f), d), "w_down": dense(lead + (E, f, d), f)}
+        if e.shared_expert:
+            tree["shared"] = mlp_tree(lead, f, "swiglu")
+        return tree
+
+    def one_block(kind, lead=()):
+        core = (rec_core if kind == "rec" else ssd_core if kind == "ssd" else attn_core)(lead)
+        ffn = {}
+        if kind != "ssd":
+            if cfg.moe is not None:
+                ffn["moe"] = moe_tree(lead)
+            if cfg.moe is None or cfg.moe.dense_residual:
+                ffn["mlp"] = mlp_tree(lead, cfg.d_ff, cfg.mlp_kind)
+        p = {"pre_norm": {"scale": normal(lead + (d,), 0.1)}, "core": core}
+        if kind != "ssd":
+            p["pre_mlp_norm"] = {"scale": normal(lead + (d,), 0.1)}
+        p.update(ffn)
         if cfg.post_norm:
             p["post_norm"] = {"scale": normal(lead + (d,), 0.1)}
-            p["post_mlp_norm"] = {"scale": normal(lead + (d,), 0.1)}
+            if kind != "ssd":
+                p["post_mlp_norm"] = {"scale": normal(lead + (d,), 0.1)}
         return p
 
     tree = {"embed": normal((cfg.vocab_size, d), 0.02),
@@ -179,8 +234,8 @@ def numpy_params(cfg, seed: int) -> dict:
     if not cfg.tie_embeddings:
         tree["unembed"] = dense((d, cfg.vocab_size))
     if cfg.n_periods > 0:
-        tree["layers"] = {f"block{i}": one_block((cfg.n_periods,))
-                          for i in range(len(cfg.layer_pattern))}
+        tree["layers"] = {f"block{i}": one_block(kind, (cfg.n_periods,))
+                          for i, kind in enumerate(cfg.layer_pattern)}
     if cfg.tail_pattern:
-        tree["tail"] = [one_block() for _ in cfg.tail_pattern]
+        tree["tail"] = [one_block(kind) for kind in cfg.tail_pattern]
     return tree

@@ -10,9 +10,12 @@ on the device (the numbers differ from the reference's ``jax.random``
 init), or loaded with ``--weights`` from an ``.npz`` of a reference
 parameter tree (``repro_torch.interop.flatten_tree`` keys), which gives the
 reference's tokens.  ``--device`` defaults to ``cuda`` and the run fails
-without a CUDA device unless ``--device cpu`` is given.  The decoder runs
-attention-only archs (codeqwen1.5-7b, starcoder2-7b, gemma2-9b,
-deepseek-coder-33b); the others raise ``NotImplementedError``.
+without a CUDA device unless ``--device cpu`` is given.  Every arch of
+``repro_torch.configs`` serves (attention, Griffin, Mamba-2 and MoE
+layers; the embeds archs take token ids here, as in the reference).  A
+mamba2 prefill runs in chunks of ``min(chunk_size, L)`` and refuses a
+padded prompt length that is longer than one chunk and not a multiple of
+it (``ValueError``, as the reference).
 """
 
 from __future__ import annotations

@@ -1,1 +1,1 @@
-"""The port's decoder stack (attention-only, dense, token-input archs)."""
+"""The port's decoder stack: attention, Griffin, Mamba-2 and MoE layers."""

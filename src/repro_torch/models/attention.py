@@ -123,18 +123,37 @@ def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
     )
 
 
+def pad_rows(v: torch.Tensor, H: int) -> torch.Tensor:
+    """What the reference's prefill attention returns on a left-pad row,
+    [B, H, hd] float32.  Such a row sees no valid key, so its blockwise scan
+    (``kv_block = min(1024, S)``, keys zero-padded to whole blocks) keeps
+    the running max at its −2³⁰ start and weighs every key by exp(0) = 1:
+    the sum of V over the S keys over the padded key count.  K7 writes 0
+    there.  Attention layers alone never read such a row, but a recurrence
+    (``rec``, ``ssd``) runs through it and MoE routing counts it, so the
+    port keeps the reference's value."""
+    B, S, KV, hd = v.shape
+    block = min(1024, S)
+    keys = -(-S // block) * block
+    return (v.float().sum(1) / keys).repeat_interleave(H // KV, dim=1)
+
+
 def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
                  cache: KVCache, valid_from=None):
     """Full-sequence forward that also fills the cache (its last L positions).
 
     ``valid_from`` [B] marks the first real token per slot (left-padded
-    serving batches); earlier slots get pos = -1 and are never attended.
+    serving batches); earlier slots get pos = -1 and are never attended,
+    and their rows take the reference's value (:func:`pad_rows`).
     """
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, rope_positions)
     pos = fa.positions_of(valid_from, B, S, x.device)
     out = fa.blockwise_attention(q, k, v, window=_window_for(cfg, kind),
                                  logit_cap=cfg.attn_logit_softcap, valid_from=valid_from)
+    if valid_from is not None:
+        fill = pad_rows(v, q.shape[2]).to(out.dtype)
+        out = torch.where((pos < 0)[:, :, None, None], fill[:, None], out)
     L = cache.k.shape[1]
     if L >= S:
         cache.k[:, :S] = k

@@ -1,9 +1,13 @@
-"""The decoder stack: train / prefill / decode for attention-only archs.
+"""The decoder stack: train / prefill / decode for every assigned arch.
 
-The port of the reference's ``repro.models.transformer`` for dense
-(non-MoE) configs whose every layer is attention (``attn``,
-``attn_local``, ``attn_global``) and whose inputs are token ids.  Layers
-are a flat ``ModuleList`` in ``layer_pattern`` order (period after
+The port of the reference's ``repro.models.transformer``: attention layers
+(``attn``, ``attn_local``, ``attn_global``), Griffin recurrent layers
+(``rec``, ``repro_torch.models.griffin``), Mamba-2 SSD layers (``ssd``,
+``repro_torch.models.ssm``), dense or mixture-of-experts FFNs
+(``repro_torch.models.moe``), token ids or precomputed embeddings
+(``input_mode == "embeds"``: a ``[B, S, d]`` input is cast to the model's
+dtype, with no gather and no ``emb_scale``; ids ``[B, S]`` still gather).
+Layers are a flat ``ModuleList`` in ``layer_pattern`` order (period after
 period, then ``tail_pattern``), not the reference's scanned super-blocks;
 ``repro_torch.interop.params_from_jax`` maps the reference's stacked tree
 onto it.
@@ -12,12 +16,17 @@ Modes of :meth:`Decoder.forward_hidden`:
   * train   — full sequence, no caches (the tests' full-forward oracle;
     training itself is not ported);
   * prefill — full sequence, fills the per-layer caches;
-  * decode  — one token against the caches at absolute position ``t``.
+  * decode  — one token against the caches at absolute position ``t``
+    (MoE at exact capacity: no drops).
 
 The full-sequence attention runs through K7
 (``repro_torch.kernels.flash_attention``; its plain version for CPU
-tensors).  Parameters are created on ``device`` (CUDA unless the caller
-says ``"cpu"``) and filled from ``seed`` with ``ParamBuilder``'s scales.
+tensors); the recurrences, the SSD chunks and the expert products are
+plain torch, as the reference computes them outside any Pallas kernel.
+Parameters are created on ``device`` (CUDA unless the caller says
+``"cpu"``) and filled from ``seed`` with ``ParamBuilder``'s scales and the
+reference's formulas for its value leaves (Griffin's ``lam``, SSD's
+``A_log``, ``D``, ``dt_bias``).
 """
 
 from __future__ import annotations
@@ -26,64 +35,86 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, griffin, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 MODES = ("train", "prefill", "decode")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
-    kinds = set(cfg.layer_pattern)
-    missing = []
-    if kinds & {"rec", "ssd"}:
-        missing.append(f"{sorted(kinds & {'rec', 'ssd'})} layers (griffin / SSM blocks)")
-    if cfg.moe is not None:
-        missing.append("mixture-of-experts layers")
-    if cfg.input_mode != "tokens":
-        missing.append(f"input_mode={cfg.input_mode!r} (precomputed embeddings)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's decoder runs attention-only, dense, token-input "
-            f"configs; not yet {', '.join(missing)} — ROADMAP A7 (the rest of the LM stack)"
-        )
-
-
 class Block(nn.Module):
-    """One layer: ``pre_norm``, ``core`` (attention), ``post_norm``,
-    ``pre_mlp_norm``, ``mlp``, ``post_mlp_norm`` (the post-norms with
-    ``cfg.post_norm``), as in the reference's ``_init_block``."""
+    """One layer, as the reference's ``_init_block``: ``pre_norm``, ``core``
+    (attention, a Griffin :class:`~repro_torch.models.griffin.Recurrent`
+    for ``rec`` or a Mamba-2 :class:`~repro_torch.models.ssm.SSD` for
+    ``ssd``), ``post_norm``; then, except in an ``ssd`` block,
+    ``pre_mlp_norm``, the FFN (``moe``, plus ``mlp`` with
+    ``dense_residual``, when ``cfg.moe``; else ``mlp``) and
+    ``post_mlp_norm`` (the post-norms with ``cfg.post_norm``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device=None):
         super().__init__()
         self.kind = kind
         d = cfg.d_model
         self.pre_norm = layers.RMSNorm(d, device)
-        self.core = attention.Attention(cfg, dtype, device)
+        if kind.startswith("attn"):
+            self.core = attention.Attention(cfg, dtype, device)
+        elif kind == "rec":
+            self.core = griffin.Recurrent(cfg, dtype, device)
+        elif kind == "ssd":
+            self.core = ssm.SSD(cfg, dtype, device)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
         if cfg.post_norm:
             self.post_norm = layers.RMSNorm(d, device)
-        self.pre_mlp_norm = layers.RMSNorm(d, device)
-        self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_kind, dtype, device)
-        if cfg.post_norm:
-            self.post_mlp_norm = layers.RMSNorm(d, device)
+        if kind != "ssd":  # mamba2 blocks have no FFN sub-layer
+            self.pre_mlp_norm = layers.RMSNorm(d, device)
+            if cfg.moe is not None:
+                self.moe = moe.MoE(cfg, dtype, device)
+            if cfg.moe is None or cfg.moe.dense_residual:
+                self.mlp = layers.MLP(d, cfg.d_ff, cfg.mlp_kind, dtype, device)
+            if cfg.post_norm:
+                self.post_mlp_norm = layers.RMSNorm(d, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for mod in self.children():
+            mod.reset_parameters(gen)
+
+    def _core(self, h, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from):
+        if self.kind.startswith("attn"):
+            if mode == "train":
+                return attention.attn_full(self.core, h, cfg, self.kind, rope_pos), None
+            if mode == "prefill":
+                return attention.attn_prefill(self.core, h, cfg, self.kind, rope_pos, cache,
+                                              valid_from)
+            return attention.attn_decode(self.core, h, cfg, self.kind, rope_pos, cache, t)
+        full, decode = ((griffin.rec_block_full, griffin.rec_block_decode)
+                        if self.kind == "rec" else (ssm.ssd_block_full, ssm.ssd_block_decode))
+        if mode == "decode":
+            return decode(self.core, h, cfg, cache)
+        y, cache = full(self.core, h, cfg)
+        return y, (cache if mode == "prefill" else None)
 
     def forward(self, x, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from):
-        h = self.pre_norm(x)
-        if mode == "train":
-            y = attention.attn_full(self.core, h, cfg, self.kind, rope_pos)
-        elif mode == "prefill":
-            y, cache = attention.attn_prefill(self.core, h, cfg, self.kind, rope_pos, cache,
-                                              valid_from)
-        else:
-            y, cache = attention.attn_decode(self.core, h, cfg, self.kind, rope_pos, cache, t)
+        """Returns ``(x, cache, aux)``; ``aux`` is the MoE load-balance term
+        (None without MoE)."""
+        y, cache = self._core(self.pre_norm(x), cfg, rope_pos, mode, cache, t, valid_from)
         if cfg.post_norm:
             y = self.post_norm(y)
         x = x + y
-        y = self.mlp(self.pre_mlp_norm(x))
+        aux = None
+        if self.kind == "ssd":
+            return x, cache, aux
+        h = self.pre_mlp_norm(x)
+        if cfg.moe is not None:
+            # no capacity drops for single-token decode, as the reference
+            y, aux = self.moe(h, cfg, exact=mode == "decode")
+            if cfg.moe.dense_residual:
+                y = y + self.mlp(h)
+        else:
+            y = self.mlp(h)
         if cfg.post_norm:
             y = self.post_mlp_norm(y)
-        return x + y, cache
+        return x + y, cache, aux
 
 
 class Decoder(nn.Module):
@@ -92,7 +123,6 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int | None = 0):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = DTYPES[cfg.dtype]
@@ -124,24 +154,36 @@ class Decoder(nn.Module):
         if hasattr(self, "unembed"):
             layers.dense_(self.unembed, gen)
         for block in self.layers:
-            for mod in (block.pre_norm, block.core, getattr(block, "post_norm", None),
-                        block.pre_mlp_norm, block.mlp, getattr(block, "post_mlp_norm", None)):
-                if mod is not None:
-                    mod.reset_parameters(gen)
+            block.reset_parameters(gen)
+
+    def moe_layers(self) -> list:
+        """The MoE modules, layer by layer (empty without ``cfg.moe``)."""
+        return [block.moe for block in self.layers if hasattr(block, "moe")]
 
     # -- caches ---------------------------------------------------------------
 
-    def init_caches(self, batch: int, max_len: int) -> list[attention.KVCache]:
-        """One cache per layer (ring caches ``min(window, max_len)`` long on
-        ``attn_local`` layers)."""
-        return [attention.init_cache(self.cfg, kind, batch, max_len, self.dtype, self.device)
-                for kind in self.kinds]
+    def init_caches(self, batch: int, max_len: int) -> list:
+        """One cache per layer, of its kind: a ``KVCache`` (ring caches
+        ``min(window, max_len)`` long on ``attn_local`` layers), a
+        ``RecCache`` or an ``SSMCache``."""
+        out = []
+        for kind in self.kinds:
+            if kind == "rec":
+                out.append(griffin.init_rec_cache(self.cfg, batch, self.dtype, self.device))
+            elif kind == "ssd":
+                out.append(ssm.init_ssm_cache(self.cfg, batch, self.dtype, self.device))
+            else:
+                out.append(attention.init_cache(self.cfg, kind, batch, max_len, self.dtype,
+                                                self.device))
+        return out
 
     # -- forward ----------------------------------------------------------------
 
     def forward_hidden(self, inputs: torch.Tensor, *, mode: str, rope_positions=None,
                        caches=None, t: int | None = None, valid_from=None):
-        """inputs: token ids [B, S].  Returns ``(hidden [B, S, d], caches)``."""
+        """inputs: token ids [B, S], or embeddings [B, S, d] for an ``embeds``
+        config.  Returns ``(hidden [B, S, d], caches, aux)``, ``aux`` the
+        summed MoE load-balance term (float32 0-dim; 0 without MoE)."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
         if mode != "train" and caches is None:
@@ -150,11 +192,14 @@ class Decoder(nn.Module):
         # ids outside [0, V) gather as the reference's gather takes them: a
         # negative id counts from the end, and the result is clamped to the
         # table (no device-side assert on the card)
-        V = self.embed.shape[0]
-        ids = torch.where(inputs < 0, inputs + V, inputs).clamp(0, V - 1)
-        x = self.embed[ids].to(self.dtype)
-        if cfg.emb_scale:
-            x = x * self.emb_scale
+        if cfg.input_mode == "embeds" and inputs.dim() == 3:
+            x = inputs.to(self.dtype)
+        else:
+            V = self.embed.shape[0]
+            ids = torch.where(inputs < 0, inputs + V, inputs).clamp(0, V - 1)
+            x = self.embed[ids].to(self.dtype)
+            if cfg.emb_scale:
+                x = x * self.emb_scale
         B, S = x.shape[0], x.shape[1]
         if rope_positions is None:
             base = (torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -163,12 +208,15 @@ class Decoder(nn.Module):
             rope_positions = base.expand(3, B, S) if cfg.rope_kind == "mrope" else \
                 base.expand(B, S)
         new_caches = [] if caches is not None else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
-            x, cache = block(x, cfg, rope_positions, mode, cache, t, valid_from)
+            x, cache, a = block(x, cfg, rope_positions, mode, cache, t, valid_from)
+            if a is not None:
+                aux = aux + a
             if new_caches is not None:
                 new_caches.append(cache)
-        return self.final_norm(x), new_caches
+        return self.final_norm(x), new_caches, aux
 
     def logits_for(self, hidden: torch.Tensor) -> torch.Tensor:
         """fp32 logits [B, S, V] with the final softcap: products of the
@@ -185,13 +233,17 @@ class Decoder(nn.Module):
         logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
         return layers.softcap(logits, self.cfg.final_logit_softcap)
 
-    def prefill(self, inputs, caches, valid_from=None):
-        """Last-position logits [B, 1, V] and the filled caches."""
-        hidden, caches = self.forward_hidden(inputs, mode="prefill", caches=caches,
-                                             valid_from=valid_from)
+    def prefill(self, inputs, caches, valid_from=None, rope_positions=None):
+        """inputs: token ids [B, S] or embeddings [B, S, d] → last-position
+        logits [B, 1, V] and the filled caches."""
+        hidden, caches, _ = self.forward_hidden(inputs, mode="prefill", caches=caches,
+                                                valid_from=valid_from,
+                                                rope_positions=rope_positions)
         return self.logits_for(hidden[:, -1:, :]), caches
 
-    def decode_step(self, inputs, t: int, caches):
-        """inputs [B, 1] token ids at absolute position ``t`` → logits [B, 1, V]."""
-        hidden, caches = self.forward_hidden(inputs, mode="decode", caches=caches, t=t)
+    def decode_step(self, inputs, t: int, caches, rope_positions=None):
+        """inputs: token ids [B, 1] or embeddings [B, 1, d] at absolute
+        position ``t`` → logits [B, 1, V] and the caches."""
+        hidden, caches, _ = self.forward_hidden(inputs, mode="decode", caches=caches, t=t,
+                                                rope_positions=rope_positions)
         return self.logits_for(hidden), caches

@@ -3,7 +3,7 @@
 The port of the reference's ``repro.serve.engine``: requests are
 left-padded to the longest prompt in a fixed slot batch (``valid_from``
 marks each slot's first real token; pad keys are never attended),
-prefilled together in one pass (K7 on every layer), then decoded
+prefilled together in one pass (K7 on every attention layer), then decoded
 token-synchronously with per-slot EOS tracking and a ``max_len`` stop.
 Greedy argmax, or temperature sampling from a ``torch.Generator`` seeded
 by ``seed`` (its draws cannot match ``jax.random``'s; greedy tokens match

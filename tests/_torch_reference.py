@@ -423,7 +423,7 @@ def lm_constants() -> dict:
     for arch in cs.LM_REDUCED_ARCHS:
         cfg = get_config(arch).reduced()
         values = jax.tree_util.tree_map(jnp.asarray, numpy_params(cfg, cs.LM_SEED))
-        prompts = cs.lm_reduced_prompts(cfg.vocab_size)
+        prompts = cs.lm_prompts_for(arch, cfg.vocab_size)
         eng = ServeEngine(cfg, values, ServeConfig(max_len=cs.LM_REDUCED_MAX_LEN,
                                                    batch_slots=max(4, len(prompts))))
         out[arch] = eng.generate(prompts, cs.LM_MAX_NEW)

@@ -11,7 +11,8 @@ slot), and decode steps past the window (the ring caches).  Exact: the
 cache positions, and the greedy tokens of ``ServeEngine.generate``
 (including the reference's three ``tests/test_serve.py`` properties) and
 of ``launch/serve.py``, whose printed lines equal the reference CLI's.
-The unsupported configs raise ``NotImplementedError``.
+The other families (Griffin, Mamba-2, MoE, embedding inputs) are held in
+``tests/test_torch_lm_families.py`` and ``tests/test_torch_moe.py``.
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.serve.engine import left_pad
 
 ARCHS = ["gemma2-9b", "codeqwen1.5-7b", "starcoder2-7b", "deepseek-coder-33b"]
-UNSUPPORTED = ["qwen2-vl-72b", "recurrentgemma-2b", "arctic-480b", "llama4-scout-17b-a16e",
-               "musicgen-large", "mamba2-370m"]
 TOL = dict(atol=2e-5, rtol=2e-5)
 _cache: dict = {}
 
@@ -117,9 +116,9 @@ def test_full_forward_matches_the_reference(arch):
                                          jnp.asarray(toks), mode="train")
     want = ref_tf.logits_for(values, ref_get_config(arch).reduced(), hidden)
     with torch.inference_mode():
-        got_h, caches = model.forward_hidden(torch.from_numpy(toks), mode="train")
+        got_h, caches, aux = model.forward_hidden(torch.from_numpy(toks), mode="train")
         got = model.logits_for(got_h)
-    assert caches is None and got.dtype == torch.float32
+    assert caches is None and got.dtype == torch.float32 and float(aux) == 0.0
     np.testing.assert_allclose(got_h.numpy(), np.asarray(hidden), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -185,7 +184,7 @@ def test_a_tail_layer_maps_after_the_periods():
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
     want, _, _ = ref_tf.forward_hidden(values, ref_cfg, jnp.asarray(toks), mode="train")
     with torch.inference_mode():
-        got, _ = model.forward_hidden(torch.from_numpy(toks), mode="train")
+        got, _, _ = model.forward_hidden(torch.from_numpy(toks), mode="train")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -202,7 +201,7 @@ def test_numpy_params_load_into_both_packages():
     values = jax.tree_util.tree_map(jnp.asarray, tree)
     hidden, _, _ = ref_tf.forward_hidden(values, ref_cfg, jnp.asarray(toks), mode="train")
     with torch.inference_mode():
-        got, _ = model.forward_hidden(torch.from_numpy(toks), mode="train")
+        got, _, _ = model.forward_hidden(torch.from_numpy(toks), mode="train")
     np.testing.assert_allclose(got.numpy(), np.asarray(hidden), **TOL)
 
 
@@ -259,7 +258,7 @@ def test_generate_matches_manual_greedy():
     seq = list(prompt)
     with torch.inference_mode():
         for _ in range(8):
-            hidden, _ = model.forward_hidden(torch.tensor([seq]), mode="train")
+            hidden, _, _ = model.forward_hidden(torch.tensor([seq]), mode="train")
             seq.append(int(model.logits_for(hidden)[0, -1].argmax()))
     assert out == seq[len(prompt):]
 
@@ -294,12 +293,6 @@ def test_temperature_sampling_is_seeded():
     a = port.generate(prompts, max_new=6, seed=3)
     assert a == port.generate(prompts, max_new=6, seed=3)
     assert all(0 <= t < cfg.vocab_size for o in a for t in o)
-
-
-@pytest.mark.parametrize("arch", UNSUPPORTED)
-def test_unsupported_configs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Decoder(get_config(arch).reduced(), device="cpu")
 
 
 # -- the CLI ------------------------------------------------------------------------
@@ -339,8 +332,9 @@ def test_chip_smoke_reduced_tokens_are_the_references():
         cfg = get_config(arch).reduced()
         model = Decoder(cfg, device="cpu", seed=None)
         model.load_state_dict(params_from_jax(numpy_params(cfg, cs.LM_SEED), cfg))
-        prompts = cs.lm_reduced_prompts(cfg.vocab_size)
-        assert max(map(len, prompts)) > cfg.attn_window if cfg.attn_window else True
+        prompts = cs.lm_prompts_for(arch, cfg.vocab_size)
+        window = cfg.attn_window or (cfg.griffin.attn_window if cfg.griffin else None)
+        assert max(map(len, prompts)) > window if window else True
         ids = [t for p in prompts for t in p]
         assert min(ids) < -cfg.vocab_size and max(ids) > cfg.vocab_size  # C2's ids
         eng = ServeEngine(cfg, model, ServeConfig(max_len=cs.LM_REDUCED_MAX_LEN,
