@@ -213,6 +213,29 @@ checks, on the card:
      float32, reported in bf16); musicgen's
      embeds path bit-equal to its ids path; llama4's MoE drops (> 0 in
      the prefill, none in decode); prefill and decode times, peak memory;
+  18. K7b alone — the attention's backward (dq, dk, dv from K7's
+     log-sum-exp) against autograd through K7's plain version at
+     ``K7B_SHAPES`` (gemma2-9b's heads with the cap, its 4096 window
+     reached, and S 1, 7, 130; recurrentgemma-2b's G 10 and window 2048;
+     llama4-scout's G 5, hd 128; musicgen-large's G 1, hd 64; hd 24 and 8,
+     zero-padded in the bf16 body, at G 3), float32 and bfloat16, within ``K7B_TOL`` and ``K7B_MIN_COS``; every case run twice
+     on the same inputs, bit-equal (no atomics); K7's log-sum-exp against
+     torch.logsumexp;
+  19. training, reduced — the ten configs ``reduced()`` train 3 steps
+     through the Trainer with the arch plan's optimizer on the numpy weights
+     of phase 10: each step's loss within ``TRAIN_LOSS_TOL`` of the
+     reference's (``TRAIN_REDUCED_EXPECTED``), K7 launched twice per
+     attention layer and step (the forward and the backward's recompute),
+     K7b once;
+  20. training, full width — gemma2-9b at its published width, 12 of 42
+     layers, train_4k's 4096 positions at batch 1, AdamW: step 1's
+     attention gradients (wq, wk, wv, wo of every layer) through K7/K7b
+     non-zero and within ``TRAIN_GRAD_MIN_COS`` of the plain attention's;
+     the Trainer's 4 steps (0-based 0 to 3) with a checkpoint after step 1
+     (``step_00000002``) and a fault injected at the start of step 3
+     (``fault_hook``), the restore, the replayed step 2 (the third)
+     bit-identical to its first run; step walls, checkpoint save and
+     restore walls and bytes, peak memory;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
      work alone; median of 25 after warm-up): the sum over the run, by the
@@ -229,7 +252,13 @@ checks, on the card:
      The kernels line's ``launches`` also counts phase 12's kernel runs,
      phase 14's warm async runs, phase 15's load runs and phase 16's sweep
      and recorded runs, whose chunks are not replayed here; K7's counts
-     phase 10's prefills and phase 11's and phase 17's kernel runs.
+     phase 10's prefills, phase 11's and phase 17's kernel runs and phases
+     19's and 20's train steps.  K7b's record (``attention_backward``):
+     its time at gemma2-9b's full-width layer (``K7B_TIMED``, the cap)
+     beside autograd through the plain version and its bound (10 hd
+     operations per valid pair at the bf16 tensor-core rate), and SDPA's
+     backward on the cap-free shape as ``library_ms``; its launches those
+     of phases 19 and 20.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -244,6 +273,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -728,6 +758,93 @@ LM_FAMILIES = (
 LM_FAMILY_TOL_FRAC = 0.2
 LM_STATE_TOL_FRAC = 0.01
 LM_STATE_SPLIT = (768, 1024)
+# K7b, the attention's backward (phase 18), against autograd through K7's
+# plain version on seeded standard-normal q, k, v and output gradients, at
+# the head shapes of four configs the repo supports (name, H, KV, hd,
+# window, cap, sequence lengths): gemma2-9b (G 2, the cap, its 4096 window
+# reached at S 4100) with the odd lengths 1, 7 and 130; recurrentgemma-2b
+# (G 10, window 2048, reached at 2100); llama4-scout (G 5, hd 128) and
+# musicgen-large (G 1, hd 64); and two edge shapes of the bf16 tensor-core
+# body, whose head dim is zero-padded to a compiled width (hd 24 to 32,
+# hd 8 to 16), at odd G, a window that ends inside a key tile and lengths
+# beside its 32-key and 64-row tiles.  Batch 2 below 1024 positions, else 1.
+K7B_SHAPES = (
+    ("gemma2-9b", 16, 8, 256, 4096, 50.0, (1, 7, 130, 1024, 4100)),
+    ("recurrentgemma-2b", 10, 1, 256, 2048, None, (130, 2100)),
+    ("llama4-scout-17b-a16e", 40, 8, 128, None, None, (1024,)),
+    ("musicgen-large", 32, 32, 64, None, None, (1024,)),
+    ("edge hd 24", 6, 2, 24, 33, 30.0, (65, 200)),
+    ("edge hd 8", 3, 1, 8, None, None, (129,)),
+)
+# K7b and the plain version's autograd compute one function in another sum
+# order (float32: both accumulate in float32, ~1e-6 of the largest
+# gradient); in bfloat16 both take bf16 operands and float32 sums, but the
+# plain version rounds p against its own running maxima of 1024-key blocks
+# and K7b against the row's final log-sum-exp, and each gradient is
+# rounded to bf16 (one step: 2^-8 of its value).  Each of dq, dk and dv
+# must lie within K7B_TOL of the largest |gradient| of its tensor (plus the
+# same fraction of max|dout| * max|v|, the size of the terms whose
+# difference dS is, where the exact gradient is 0, as at S = 1), and its
+# cosine with the plain gradient must reach K7B_MIN_COS.
+K7B_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+K7B_MIN_COS = {"float32": 0.99999, "bfloat16": 0.9995}
+# The timed shape (the kernels line): gemma2-9b's full-width layer at
+# train_4k's sequence, batch 1, bf16, the cap (the local layers' 4096
+# window covers all 4096 positions).
+K7B_TIMED = (1, 4096, 16, 8, 256)
+# The reduced archs train (phase 19): every config ``reduced()`` (float32) on
+# the numpy weights of phase 10 (LM_SEED), launch/train's --reduced shape
+# (sequence 64, batch 8) of the step-indexed corpus (seed 0), the arch
+# plan's optimizer (AdamW, or Adafactor for qwen2-vl and arctic) with
+# warmup-cosine at peak TRAIN_LR after TRAIN_WARMUP step, 3 steps through
+# the fault-tolerant Trainer.  TRAIN_REDUCED_EXPECTED holds the reference's
+# losses, from ``PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/_torch_reference.py train`` (its jitted make_train_step on the same
+# weights and batches).
+TRAIN_REDUCED_SHAPE = (64, 8)
+TRAIN_REDUCED_STEPS = 3
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 1
+TRAIN_REDUCED_EXPECTED = {
+    "codeqwen1.5-7b": [5.976838111877441, 6.077302932739258, 6.020037651062012],
+    "starcoder2-7b": [5.967672824859619, 6.031289100646973, 5.972609519958496],
+    "gemma2-9b": [5.550268173217773, 5.558825492858887, 5.557626247406006],
+    "deepseek-coder-33b": [6.0121660232543945, 6.11760950088501, 6.100522994995117],
+    "qwen2-vl-72b": [5.993142604827881, 6.120975494384766, 6.044793128967285],
+    "recurrentgemma-2b": [5.553887367248535, 5.554987907409668, 5.551780700683594],
+    "arctic-480b": [6.101409435272217, 6.091613292694092, 6.020617485046387],
+    "llama4-scout-17b-a16e": [5.98423433303833, 6.05871057510376, 6.070639610290527],
+    "musicgen-large": [6.056584358215332, 6.083219528198242, 6.02549934387207],
+    "mamba2-370m": [5.568517684936523, 5.561522960662842, 5.548760414123535],
+}
+# The losses of step 1 differ from the reference's in float32 sum order
+# alone (~1e-6); steps 2 and 3 follow updates whose first AdamW step is
+# g / (|g| + 1e-8): elements whose gradient is near that eps move by up to
+# ~1e-3 of the learning rate between the two packages (see
+# tests/test_torch_train.py), which moves the loss by far less than this.
+TRAIN_LOSS_TOL = 1e-4
+# gemma2-9b trains at full width (phase 20): d 3584, 16/8 heads of 256, V
+# 256,000, its depth cut 42 -> 12 layers (AdamW's 16 bytes a parameter:
+# (917.5 M embedding + 12 x 198 M) x 16 B = 52.6 GB), train_4k's sequence
+# 4096 with its batch cut 256 -> 1, bf16 weights from a seeded
+# torch.Generator on the card, AdamW at launch/train's schedule (3e-4, 100
+# warmup steps).  Through the Trainer: 4 steps, checkpoints every 2, keep 1;
+# fault_hook raises once at the start of step 3 (0-based), the trainer
+# restores step 2's checkpoint and replays steps 2 and 3.  The card's
+# machine has ~75 GB of disk, one full-width checkpoint (46 GB) and not
+# two: the hook, on its second call at step 3, deletes the checkpoint it
+# was restored from before step 4's save.
+TRAIN_FULL_ARCH = "gemma2-9b"
+TRAIN_FULL_DEPTH = 12
+TRAIN_FULL_SHAPE = (4096, 1)
+TRAIN_FULL_STEPS = 4
+TRAIN_FULL_CKPT_EVERY = 2
+TRAIN_FULL_FAULT_STEP = 3
+# step 1's gradients of every attention leaf (wq, wk, wv, wo per layer)
+# through K7 and K7b against the plain attention's autograd: the two differ
+# in bf16 rounding inside the attention (K7_TOL, K7B_TOL) carried through
+# 12 bf16 layers' backward
+TRAIN_GRAD_MIN_COS = 0.999
 
 
 def emit(record: dict) -> None:
@@ -2736,6 +2853,9 @@ def check_attention_edges(device) -> list[dict]:
 # spills in its library's ptxas report: K7's bf16 body (one per head-dim
 # width) and K1/K2/K3's tensor-core body (per W, map or fused, ICEBERG, CBO).
 PTXAS_BODIES = {"flash_fwd_wgmma_kernel": "attention", "closure_tc_kernel": "frontier"}
+# K7b's bf16 tensor-core passes (one per head-dim width), reported beside
+# them: a first design, not yet held to the rule
+PTXAS_REPORTED = {"bwd_dkdv_tc_kernel": "attention", "bwd_dq_tc_kernel": "attention"}
 
 
 def body_ptxas(report: str, kernel: str) -> dict:
@@ -3991,6 +4111,444 @@ def run_lm_families(device) -> tuple[dict, int]:
     return reports, launches
 
 
+def k7b_require(name: str, got, want, dout, v, dtype: str) -> dict:
+    """K7b's (dq, dk, dv) against the plain version's within K7B_TOL (see
+    there) and K7B_MIN_COS; returns each gradient's error over the limit's
+    scale and its cosine."""
+    import torch
+
+    torch.cuda.synchronize()
+    floor = float(dout.float().abs().max()) * float(v.float().abs().max())
+    errs, coss = {}, {}
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {label}: {g.dtype}{tuple(g.shape)} != "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        g, w = g.float(), w.float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {label}: non-finite gradient")
+        err = float((g - w).abs().max())
+        limit = K7B_TOL[dtype] * (float(w.abs().max()) + floor)
+        if not err <= limit:
+            raise AssertionError(f"{name} {label}: max |err| {err} above {limit}")
+        wn, gn = float(w.norm()), float(g.norm())
+        cos = float((g * w).sum()) / (wn * gn) if wn > 1e-30 and gn > 1e-30 else 1.0
+        # a gradient that is 0 exactly (S = 1: dq and dk) holds by the limit alone
+        exact_zero = float(w.abs().max()) <= K7B_TOL[dtype] * floor
+        if not exact_zero and not cos >= K7B_MIN_COS[dtype]:
+            raise AssertionError(f"{name} {label}: cosine {cos} below {K7B_MIN_COS[dtype]}")
+        # the error in units of the limit's scale (its largest |gradient|
+        # plus the floor), as the limit reads it
+        errs[label], coss[label] = err / (float(w.abs().max()) + floor), cos
+    return {"rel_err": errs, "cos": coss}
+
+
+def check_attention_backward(device) -> list[dict]:
+    """Phase 18: K7b alone against autograd through the plain version at
+    K7B_SHAPES, float32 and bfloat16, each also run twice on the same
+    inputs (the outputs must be bit-equal: no atomics); K7's log-sum-exp
+    against torch.logsumexp of the float32 scores."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(20241018)
+    records = []
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for arch, H, KV, hd, window, cap, lengths in K7B_SHAPES:
+            for S in lengths:
+                B = 2 if S < 1024 else 1
+                q, k, v, dout = (torch.randn(B, S, h, hd, generator=gen, device=device).to(dt)
+                                 for h in (H, KV, KV, H))
+                out, lse = fa._blockwise_forward(q, k, v, window, cap, lse=True)
+                got = fa.attention_backward(q, k, v, out, lse, dout, window=window,
+                                            logit_cap=cap)
+                again = fa.attention_backward(q, k, v, out, lse, dout, window=window,
+                                              logit_cap=cap)
+                torch.cuda.synchronize()
+                name = f"K7b {dname} {arch} S={S}"
+                if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                           for a, b in zip(got, again)):
+                    raise AssertionError(f"{name}: two runs on the same inputs differ")
+                want = fa.attention_backward_plain(q, k, v, dout, window=window, logit_cap=cap)
+                rec = k7b_require(name, got, want, dout, v, dname)
+                # the forward's lse: log-sum-exp of the valid float32 scores
+                qf = q.float().transpose(1, 2)
+                kf = k.float().transpose(1, 2).repeat_interleave(H // KV, 1)
+                sc = qf @ kf.transpose(-1, -2) / math.sqrt(hd)
+                if cap is not None:
+                    sc = cap * torch.tanh(sc / cap)
+                i = torch.arange(S, device=device)
+                valid = i[None, :] <= i[:, None]
+                if window is not None:
+                    valid &= i[:, None] - i[None, :] < window
+                lse_err = float((lse - torch.logsumexp(sc.masked_fill(~valid, float("-inf")),
+                                                       -1)).abs().max())
+                if not lse_err <= (1e-5 if dname == "float32" else 1e-2):
+                    raise AssertionError(f"{name}: log-sum-exp off by {lse_err}")
+                records.append({"kernel": "attention_backward", "dtype": dname, "arch": arch,
+                                "B": B, "S": S, "H": H, "KV": KV, "hd": hd, "window": window,
+                                "cap": cap, "bit_equal_rerun": True, "lse_err": lse_err, **rec})
+                del q, k, v, dout, out, lse, got, again, want, qf, kf, sc
+    torch.cuda.empty_cache()
+    return records
+
+
+def k7b_bound_ms(B: int, S: int, H: int, KV: int, hd: int, window) -> tuple:
+    """K7b's least time: the backward's products, 10 hd operations per valid
+    (query, key) pair (2.5 x the forward's 4 hd), at the bf16 tensor-core
+    peak; or q, k, v, o, dout read and dq, dk, dv written once (bf16) and
+    the log-sum-exp read, at the memory rate.  Returns (ms, bound_by)."""
+    pairs = B * H * attention_pairs(S, [0], window)
+    t_ops = 10 * hd * pairs / BF16_FLOPS_PER_S * 1e3
+    t_bytes = ((4 * B * S * H * hd + 4 * B * S * KV * hd) * 2 + B * H * S * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_attention_backward(device, launches: int, check_records: list) -> dict:
+    """K7b's record of the kernels line: its time at K7B_TIMED (gemma2-9b's
+    layer at train_4k's sequence, with the cap) beside the plain version's
+    autograd on the same inputs and its bound; ``library_ms`` is the
+    backward of scaled_dot_product_attention on the same shape without the
+    cap (SDPA has none), beside K7b on that cap-free shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, H, KV, hd = K7B_TIMED
+    gen = torch.Generator(device=device).manual_seed(7)
+    q, k, v, dout = (torch.randn(B, S, h, hd, generator=gen, device=device,
+                                 dtype=torch.bfloat16) for h in (H, KV, KV, H))
+    out, lse = fa._blockwise_forward(q, k, v, None, 50.0, lse=True)
+    ms = cuda_time_ms(lambda: fa.attention_backward(q, k, v, out, lse, dout, window=None,
+                                                    logit_cap=50.0), reps=5, warmup=1)
+    got = fa.attention_backward(q, k, v, out, lse, dout, window=None, logit_cap=50.0)
+    want = fa.attention_backward_plain(q, k, v, dout, window=None, logit_cap=50.0)
+    err = k7b_require("K7b at the timed shape", got, want, dout, v, "bfloat16")
+    max_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    del got, want
+    plain_ms = cuda_time_ms(lambda: fa.attention_backward_plain(q, k, v, dout, window=None,
+                                                                logit_cap=50.0),
+                            reps=3, warmup=1)
+    bound_ms, bound_by = k7b_bound_ms(B, S, H, KV, hd, None)
+    # the cap-free shape: K7b and SDPA's backward on one function
+    out0, lse0 = fa._blockwise_forward(q, k, v, None, None, lse=True)
+    free_ms = cuda_time_ms(lambda: fa.attention_backward(q, k, v, out0, lse0, dout, window=None,
+                                                         logit_cap=None), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    gt = dout.transpose(1, 2)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), gt,
+                                                          retain_graph=True), reps=5, warmup=1)
+    lib = torch.autograd.grad(sd, (qt, kt, vt), gt)
+    mine = fa.attention_backward(q, k, v, out0, lse0, dout, window=None, logit_cap=None)
+    lib_err = k7b_require("K7b against SDPA's backward (cap-free)", mine,
+                          [x.transpose(1, 2) for x in lib], dout, v, "bfloat16")
+    del q, k, v, dout, out, lse, out0, lse0, qt, kt, vt, sd, lib, mine
+    torch.cuda.empty_cache()
+    return {"name": "attention_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/attention.cu",
+            "replaces": "src/repro/models/attention.py:73", "launches": launches,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "bound_share": bound_ms / ms,
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd, "cap": 50.0,
+                      "dtype": "bfloat16"},
+            "rel_err": err["rel_err"], "cos": err["cos"],
+            "library_shape": {"cap": None, "k7b_ms": free_ms,
+                              "k7b_over_library": free_ms / library_ms,
+                              "k7b_vs_sdpa": lib_err},
+            "phase18_cases": len(check_records),
+            "phase18_max_rel_err": {d: max(max(r["rel_err"].values()) for r in check_records
+                                           if r["dtype"] == d) for d in K7B_TOL},
+            "phase18_min_cos": {d: min(min(r["cos"].values()) for r in check_records
+                                       if r["dtype"] == d) for d in K7B_TOL}}
+
+
+def train_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+
+    return {"blockwise_attention": fa.blockwise_attention.launches,
+            "attention_backward": fa.attention_backward.launches}
+
+
+def train_reduced(arch: str, device, ckpt_dir: str) -> dict:
+    """One arch of phase 19 (see TRAIN_REDUCED_EXPECTED) through the
+    Trainer; returns each step's metrics."""
+    from repro_torch.configs import get_config, get_plan
+    from repro_torch.data.lm_data import make_batch_iterator
+    from repro_torch.interop import numpy_params, params_from_jax
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optim import get_optimizer, warmup_cosine
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    opt = get_optimizer(get_plan(arch).optimizer,
+                        warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_REDUCED_STEPS))
+    model = Decoder(cfg, device=device, seed=None)
+    weights = params_from_jax(numpy_params(cfg, LM_SEED), cfg)
+
+    def init():
+        model.load_state_dict(weights)
+        return init_state(model, opt)
+
+    shape = ShapeConfig("reduced", "train", *TRAIN_REDUCED_SHAPE)
+    trainer = Trainer(make_train_step(model, opt), init,
+                      lambda start: make_batch_iterator(cfg, shape, seed=0, start_step=start),
+                      TrainerConfig(total_steps=TRAIN_REDUCED_STEPS,
+                                    ckpt_every=TRAIN_REDUCED_STEPS, ckpt_dir=ckpt_dir, keep=1))
+    out = trainer.run()
+    trainer.ckpt.close()
+    return {"steps": out["steps"], "restarts": out["n_restarts"],
+            "losses": [h["loss"] for h in out["history"]],
+            "grad_norms": [h["grad_norm"] for h in out["history"]],
+            "optimizer": get_plan(arch).optimizer, "attention_layers": attention_layers(cfg)}
+
+
+def run_train_reduced(device) -> tuple[dict, dict]:
+    """Phase 19: every config reduced trains TRAIN_REDUCED_STEPS steps on the
+    card through the Trainer; each step's loss within TRAIN_LOSS_TOL of the
+    reference's (TRAIN_REDUCED_EXPECTED); K7 launched twice per attention
+    layer and step (the forward and the backward's recompute), K7b once.
+    Returns the report and the phase's K7 / K7b launches."""
+    import shutil
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS
+
+    report, total = {}, {"blockwise_attention": 0, "attention_backward": 0}
+    ckpt_dir = ROOT / "build" / "train_reduced_ckpt"
+    failures = []
+    for arch in ARCH_IDS:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        rec = train_reduced(arch, device, str(ckpt_dir))
+        torch.cuda.synchronize()
+        rec["launches"] = n = train_launches()
+        rec["seconds"] = time.perf_counter() - t0
+        want = TRAIN_REDUCED_EXPECTED[arch]
+        rec["max_loss_diff"] = max(abs(a - b) for a, b in zip(rec["losses"], want))
+        report[arch] = rec
+        for name in total:
+            total[name] += n[name]
+        layers = rec["attention_layers"]
+        if rec["steps"] != TRAIN_REDUCED_STEPS or rec["restarts"]:
+            failures.append(f"{arch}: {rec['steps']} steps, {rec['restarts']} restarts")
+        if len(rec["losses"]) != len(want) or not rec["max_loss_diff"] <= TRAIN_LOSS_TOL:
+            failures.append(f"{arch}: losses {rec['losses']} against the reference's {want}")
+        if n != {"blockwise_attention": 2 * TRAIN_REDUCED_STEPS * layers,
+                 "attention_backward": TRAIN_REDUCED_STEPS * layers}:
+            failures.append(f"{arch}: launches {n} over {TRAIN_REDUCED_STEPS} steps of "
+                            f"{layers} attention layers")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "train_reduced", "runs": report, "loss_tol": TRAIN_LOSS_TOL,
+          "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report, total
+
+
+def attention_grads(model, batch: dict, plain: bool) -> dict:
+    """Step 1's gradients of every attention leaf (``core.w*``) of
+    ``model`` on ``batch``, through K7 and K7b or, with ``plain``, through
+    the plain attention under autograd."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    params = model.trainable()
+    names = [n for n in params if ".core.w" in n]
+    with plain_attention() if plain else contextlib.nullcontext():
+        loss, _ = transformer.train_loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, [params[n] for n in names])
+    return dict(zip(names, grads)), float(loss.detach())
+
+
+def run_train_full(device) -> tuple[dict, dict]:
+    """Phase 20: gemma2-9b at full width (TRAIN_FULL_*).  Step 1's attention
+    gradients through K7/K7b against the plain attention's; then the
+    Trainer's 4 steps with a checkpoint at step 2 and a fault at step 3:
+    finite losses and gradient norms, the replayed steps bit-identical to
+    their first runs, K7 and K7b launched on every layer of every step;
+    step walls, checkpoint save and restore walls, peak memory.  Returns
+    the report and the phase's K7 / K7b launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import make_batch_iterator
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.train.loop import Trainer, TrainerConfig
+    from repro_torch.train.optim import get_optimizer, warmup_cosine
+    from repro_torch.train.step import batch_to, init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH), n_layers=TRAIN_FULL_DEPTH)
+    seq, bsz = TRAIN_FULL_SHAPE
+    shape = ShapeConfig("train_4k_b1", "train", seq, bsz)
+    t0 = time.perf_counter()
+    model = Decoder(cfg, device=device, seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    layers = attention_layers(cfg)
+    report = {"arch": TRAIN_FULL_ARCH, "layers": cfg.n_layers,
+              "published_layers": get_config(TRAIN_FULL_ARCH).n_layers, "d_model": cfg.d_model,
+              "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.resolved_head_dim,
+              "vocab": cfg.vocab_size, "seq": seq, "batch": bsz, "params": n_params,
+              "init_s": init_s}
+    failures = []
+
+    # step 1's attention gradients: K7/K7b against the plain attention
+    _, batch0 = next(make_batch_iterator(cfg, shape, seed=0))
+    batch0 = batch_to(batch0, device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    g_k, loss_k = attention_grads(model, batch0, plain=False)
+    torch.cuda.synchronize()
+    report["grad_check_kernel_s"] = time.perf_counter() - t0
+    n = train_launches()
+    t0 = time.perf_counter()
+    g_p, loss_p = attention_grads(model, batch0, plain=True)
+    torch.cuda.synchronize()
+    report["grad_check_plain_s"] = time.perf_counter() - t0
+    cos = {}
+    zero = []
+    for name, g in g_k.items():
+        a, b = g.float(), g_p[name].float()
+        cos[name] = float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
+        if name.split(".")[-1] in ("wq", "wk", "wv") and not bool((a != 0).any()):
+            zero.append(name)
+    report["grad_check"] = {
+        "loss_kernel": loss_k, "loss_plain": loss_p, "launches": n,
+        "min_cos": min(cos.values()), "min_cos_leaf": min(cos, key=cos.get),
+        "min_cos_by_kind": {w: min(c for k, c in cos.items() if k.endswith(w))
+                            for w in ("wq", "wk", "wv", "wo")},
+        "zero_grad_leaves": zero,
+        "grad_norm_wq_first_last": [float(g_k["layers.0.core.wq"].float().norm()),
+                                    float(g_k[f"layers.{layers - 1}.core.wq"].float().norm())]}
+    if zero:
+        failures.append(f"zero gradients on {zero}")
+    if not min(cos.values()) >= TRAIN_GRAD_MIN_COS:
+        failures.append(f"attention gradients' cosine {min(cos.values())} below "
+                        f"{TRAIN_GRAD_MIN_COS} ({min(cos, key=cos.get)})")
+    if n != {"blockwise_attention": 2 * layers, "attention_backward": layers}:
+        failures.append(f"gradient check launches {n} for {layers} layers")
+    del g_k, g_p, batch0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Trainer: a checkpoint at step 2, a fault at step 3, the replay
+    opt = get_optimizer("adamw", warmup_cosine(3e-4, 100, TRAIN_FULL_STEPS))
+    ckpt_dir = ROOT / "build" / "train_full_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    calls = {"fault": 0}
+
+    def fault_hook(step):
+        if step != TRAIN_FULL_FAULT_STEP:
+            return
+        calls["fault"] += 1
+        if calls["fault"] == 1:
+            raise RuntimeError(f"injected fault at step {step}")
+        # restored and replayed: free the disk for the next save
+        for d in ckpt_dir.glob("step_*"):
+            shutil.rmtree(d)
+
+    def init():
+        model.reset_parameters(LM_SEED)
+        return init_state(model, opt)
+
+    walls = []
+    step_fn = make_train_step(model, opt)
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    trainer = Trainer(timed_step, init,
+                      lambda start: make_batch_iterator(cfg, shape, seed=0, start_step=start),
+                      TrainerConfig(total_steps=TRAIN_FULL_STEPS,
+                                    ckpt_every=TRAIN_FULL_CKPT_EVERY, ckpt_dir=str(ckpt_dir),
+                                    keep=1),
+                      fault_hook=fault_hook)
+    io_walls = {"save": [], "restore": []}
+    for kind in io_walls:
+        real = getattr(trainer.ckpt, kind)
+
+        def wrapped(*a, _real=real, _kind=kind, **kw):
+            t = time.perf_counter()
+            out = _real(*a, **kw)
+            torch.cuda.synchronize()
+            io_walls[_kind].append(time.perf_counter() - t)
+            return out
+
+        setattr(trainer.ckpt, kind, wrapped)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = train_launches()
+    trainer.ckpt.close()
+    hist = out["history"]
+    ckpt_bytes = None
+    done = sorted(ckpt_dir.glob("step_*"))
+    if done:
+        ckpt_bytes = sum(f.stat().st_size for f in done[-1].iterdir())
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    by_step = {}
+    for h in hist:
+        by_step.setdefault(h["step"], []).append(h)
+    report["trainer"] = {
+        "steps": out["steps"], "restarts": out["n_restarts"], "history": hist,
+        "step_walls_s": walls, "save_walls_s": io_walls["save"],
+        "restore_walls_s": io_walls["restore"], "run_s": run_s,
+        "checkpoint_bytes": ckpt_bytes, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "replayed_equal": {s: all(h == hs[0] for h in hs[1:]) for s, hs in by_step.items()
+                           if len(hs) > 1}}
+    steps_run = len(walls)
+    if out["steps"] != TRAIN_FULL_STEPS or out["n_restarts"] != 1:
+        failures.append(f"trainer: {out['steps']} steps, {out['n_restarts']} restarts")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+        failures.append("non-finite loss or gradient norm")
+    replayed = report["trainer"]["replayed_equal"]
+    if sorted(replayed) != [TRAIN_FULL_CKPT_EVERY] or not all(replayed.values()):
+        failures.append(f"replayed steps {replayed}: want step {TRAIN_FULL_CKPT_EVERY} "
+                        f"replayed bit for bit")
+    if launches != {"blockwise_attention": 2 * layers * steps_run,
+                    "attention_backward": layers * steps_run}:
+        failures.append(f"launches {launches} over {steps_run} steps of {layers} layers")
+    report["seconds"] = time.perf_counter() - t_phase
+    report["failures"] = failures
+    emit({"phase": "train_full", **report})
+    del model, trainer, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    total = {k: launches[k] + n[k] for k in launches}
+    return report, total
+
+
 def int32_ops_per_s(device) -> float:
     import torch
 
@@ -4354,7 +4912,9 @@ def main() -> int:
     # spill stores or spill loads in any instantiation
     bodies = {kernel: body_ptxas(_build.ptxas_report(source), kernel)
               for kernel, source in PTXAS_BODIES.items()}
-    emit({"phase": "ptxas", **bodies})
+    emit({"phase": "ptxas", **bodies,
+          **{kernel: body_ptxas(_build.ptxas_report(source), kernel)
+             for kernel, source in PTXAS_REPORTED.items()}})
     want = {"flash_fwd_wgmma_kernel": 5, "closure_tc_kernel": 5 * TC_MAX_W}
     for kernel, body in bodies.items():
         if len(body) != want[kernel]:
@@ -4458,10 +5018,30 @@ def main() -> int:
     t0 = time.perf_counter()
     _, families_k7 = run_lm_families(device)
     emit({"phase": "lm_families_seconds", "seconds": time.perf_counter() - t0})
-    # K7's launches: phase 10's prefills, phase 11's and phase 17's kernel runs
-    k7["launches_by_phase"] = {"10": reduced_k7, "11": k7["launches"], "17": families_k7}
-    k7["launches"] = reduced_k7 + k7["launches"] + families_k7
-    emit({"kernels": time_kernels(device, launches, chunks) + [k7]})
+    t0 = time.perf_counter()
+    k7b_records = check_attention_backward(device)
+    emit({"phase": "attention_backward", "cases": len(k7b_records),
+          "seconds": time.perf_counter() - t0, "tolerance": K7B_TOL, "min_cos": K7B_MIN_COS,
+          "records": k7b_records})
+    t0 = time.perf_counter()
+    _, reduced_train = run_train_reduced(device)
+    emit({"phase": "train_reduced_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, full_train = run_train_full(device)
+    emit({"phase": "train_full_seconds", "seconds": time.perf_counter() - t0})
+    # K7's launches: phase 10's prefills, phase 11's and phase 17's kernel
+    # runs, and phases 19's and 20's train steps (the forward and the
+    # backward's recompute)
+    k7["launches_by_phase"] = {"10": reduced_k7, "11": k7["launches"], "17": families_k7,
+                               "19": reduced_train["blockwise_attention"],
+                               "20": full_train["blockwise_attention"]}
+    k7["launches"] = sum(k7["launches_by_phase"].values())
+    k7b = time_attention_backward(
+        device, reduced_train["attention_backward"] + full_train["attention_backward"],
+        k7b_records)
+    k7b["launches_by_phase"] = {"19": reduced_train["attention_backward"],
+                                "20": full_train["attention_backward"]}
+    emit({"kernels": time_kernels(device, launches, chunks) + [k7, k7b]})
 
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,7 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <mma.h>
 
 #include "hopper.cuh"
 
@@ -80,7 +81,8 @@ template <int HDMAX>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 const int* __restrict__ valid_from, int G, int S, int T_, int hd,
+                 float* __restrict__ lse, const int* __restrict__ valid_from, int G,
+                 int S, int T_, int hd,
                  long long qsb, long long qsh, long long qss,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
@@ -191,6 +193,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     if (i >= S) return;
+    if (lse != nullptr && sub == 0)
+        lse[((long long)b * gridDim.y + h) * S + i] = l > 0.f ? m + logf(l) : INFINITY;
     float* orow = ob + i * oss;
 #pragma unroll
     for (int jj = 0; jj < HDMAX / 4; ++jj) {
@@ -479,7 +483,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                       const int* __restrict__ valid_from, int G, int S, int T_, int hd,
+                       float* __restrict__ lse, const int* __restrict__ valid_from, int G,
+                       int H, int S, int T_, int hd,
                        long long osb, long long osh, long long oss, int causal, int window,
                        float cap, float scale)
 {
@@ -603,6 +608,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         }
         __nv_bfloat16* ob = o + b * osb + head * osh;
         const int i1 = i0 + 8;
+        if (lse != nullptr && (lane & 3) == 0) {
+            // m is in the exp2 domain: lse = (m + log2 l) ln 2
+            float* lrow = lse + ((long long)b * H + head) * S;
+            if (i0 < S) lrow[i0] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f : INFINITY;
+            if (i1 < S) lrow[i1] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f : INFINITY;
+        }
 #pragma unroll
         for (int n = 0; n < HDP / 8; ++n) {
             const int d = n * 8 + cq;
@@ -626,7 +637,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 // ---------------------------------------------------------------------------
 
 template <int HDP>
-static int launch_f32(const void* q, const void* k, const void* v, void* o,
+static int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                       const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
                       const long long* st, int causal, int window, float cap, float scale,
                       cudaStream_t stream)
@@ -642,8 +653,8 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o,
     }
     const dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
     kernel<<<grid, FA_THREADS, smem_bytes(hd), stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, (const int*)valid_from,
-        H / KV, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+        (const int*)valid_from, H / KV, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
         st[10], st[11], causal, window, cap, scale);
     return (int)cudaGetLastError();
 }
@@ -671,7 +682,7 @@ static int tile_map(CUtensorMap* map, const void* ptr, int B, int heads, int row
 }
 
 template <int HDP>
-static int launch_bf16(const void* q, const void* k, const void* v, void* o,
+static int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                        const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
                        const long long* st, int causal, int window, float cap, float scale,
                        cudaStream_t stream)
@@ -694,15 +705,15 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o,
     if (rc == 0) rc = tile_map<HDP>(&km, k, B, KV, T_ > 0 ? T_ : 1, hd, st[3], st[4], st[5]);
     if (rc == 0) rc = tile_map<HDP>(&vm, v, B, KV, T_ > 0 ? T_ : 1, hd, st[6], st[7], st[8]);
     if (rc != 0) return rc;
-    kernel<<<grid, TC_THREADS, C::SMEM, stream>>>(qm, km, vm, (__nv_bfloat16*)o,
-                                                  (const int*)valid_from, G, S, T_, hd, st[9],
+    kernel<<<grid, TC_THREADS, C::SMEM, stream>>>(qm, km, vm, (__nv_bfloat16*)o, lse,
+                                                  (const int*)valid_from, G, H, S, T_, hd, st[9],
                                                   st[10], st[11], causal, window, cap, scale);
     return (int)cudaGetLastError();
 }
 
 // hd rounded up to one of the five compiled widths
 template <typename T>
-static int dispatch(const void* q, const void* k, const void* v, void* o,
+static int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                     const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
                     const long long* st, int causal, int window, float cap, float scale,
                     cudaStream_t stream)
@@ -710,10 +721,10 @@ static int dispatch(const void* q, const void* k, const void* v, void* o,
 #define FA_CASE(W)                                                                          \
     if (hd <= W) {                                                                          \
         if constexpr (std::is_same<T, float>::value)                                        \
-            return launch_f32<W>(q, k, v, o, valid_from, B, H, KV, S, T_, hd, st, causal,   \
+            return launch_f32<W>(q, k, v, o, lse, valid_from, B, H, KV, S, T_, hd, st, causal,   \
                                  window, cap, scale, stream);                               \
         else                                                                                \
-            return launch_bf16<W>(q, k, v, o, valid_from, B, H, KV, S, T_, hd, st, causal,  \
+            return launch_bf16<W>(q, k, v, o, lse, valid_from, B, H, KV, S, T_, hd, st, causal,  \
                                   window, cap, scale, stream);                              \
     }
     FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(128) FA_CASE(256)
@@ -724,13 +735,16 @@ static int dispatch(const void* q, const void* k, const void* v, void* o,
 // q [B, H, S, hd] and o by strides (qsb, qsh, qss) / (osb, osh, oss); k, v
 // [B, KV, T, hd] by strides (ksb, ksh, kst) / (vsb, vsh, vst); the hd axis
 // is contiguous.  dtype 0 = float32, 1 = bfloat16 (all four tensors).
-// valid_from [B] int32 or null (all 0); window < 0 = none; cap <= 0 =
+// lse [B, H, S] float32 or null: each row's log-sum-exp of its valid
+// scores, m + log(l) in the natural domain over the sums the kernel kept
+// (+inf on a row with no valid key), for the backward (K7b); serving
+// passes null.  valid_from [B] int32 or null (all 0); window < 0 = none; cap <= 0 =
 // none.  S >= 1, H % KV == 0, hd a multiple of 8 in [8, 256]; for
 // bfloat16, TMA reads q, k and v: 16-byte aligned bases and strides in
 // multiples of 8 elements.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or the error that stopped the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const void* valid_from, int dtype, int B, int H,
+                                      void* lse, const void* valid_from, int dtype, int B, int H,
                                       int KV, int S, int T, int hd,
                                       long long qsb, long long qsh, long long qss,
                                       long long ksb, long long ksh, long long kst,
@@ -743,15 +757,757 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
         return (int)cudaErrorInvalidValue;
     const long long st[12] = {qsb, qsh, qss, ksb, ksh, kst, vsb, vsh, vst, osb, osh, oss};
     if (dtype == 0)
-        return dispatch<float>(q, k, v, o, valid_from, B, H, KV, S, T, hd, st, causal,
+        return dispatch<float>(q, k, v, o, (float*)lse, valid_from, B, H, KV, S, T, hd, st, causal,
                                window, cap, scale, (cudaStream_t)stream);
     if (dtype == 1) {
         for (int i = 0; i < 12; ++i)
             if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
         if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
             return (int)cudaErrorMisalignedAddress;
-        return dispatch<__nv_bfloat16>(q, k, v, o, valid_from, B, H, KV, S, T, hd, st,
+        return dispatch<__nv_bfloat16>(q, k, v, o, (float*)lse, valid_from, B, H, KV, S, T, hd, st,
                                        causal, window, cap, scale, (cudaStream_t)stream);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+// ===========================================================================
+// K7b — flash attention, backward, hand-written for Hopper (sm_90a).
+//
+// Replaces: no Pallas kernel.  The reference trains through its jnp
+// blockwise_attention (src/repro/models/attention.py:73) under autodiff, the
+// scan's reverse; the port trains through K7, whose output has no autograd
+// graph, so the gradient of the same function is this kernel.  For each row
+// i of query head h (KV head h / G) and key j, with the forward's scores
+//   x_ij = q_i . k_j * scale,  s_ij = softcap(x_ij)  (cap * tanh(x / cap)),
+// the row's log-sum-exp L_i (K7's lse output) and D_i = dO_i . O_i:
+//   P_ij  = exp(s_ij - L_i) over the valid keys (K7's mask), else 0
+//   dV_j  = sum_i round(P_ij) dO_i         (P rounded to V's type, as K7's P.V)
+//   dS_ij = P_ij (dO_i . v_j - D_i) * (1 - tanh^2(x_ij / cap)) * scale
+//   dQ_i  = sum_j dS_ij k_j,   dK_j = sum_i dS_ij q_i
+// summed over the G query heads of a KV head for dK and dV.
+//
+// Three launches on the caller's stream: bwd_dot_kernel, D [B, H, S]
+// float32 (one warp per row); a dK/dV pass with one CTA per (key tile, KV
+// head, b): the K and V tiles stay in shared memory while the CTA walks the
+// G query heads and every query tile that can see the keys (the causal
+// diagonal and the window cut the walk), so a KV head's dK and dV are
+// summed inside the CTA; a dQ pass with one CTA per (query tile, head, b):
+// Q and dO stay in shared memory while it walks the key tiles the rows can
+// see.  Each output element is summed by one thread (or one warp's
+// fragment) in a fixed order: no atomics, so two runs on the same inputs
+// give the same bits.  The scores and dP are recomputed in both passes
+// (14 hd operations per valid pair against the 10 hd of the function).
+//
+// What bounds it on the H100: the five products, 10 hd operations per valid
+// pair (2.5 x the forward's 4 hd), against 989 TFLOP/s of bf16 tensor
+// cores; the tensors cross device memory once each.  Two bodies:
+//   bfloat16 (training at the model's dtype) — bwd_*_tc_kernel below: the
+//   products on the tensor cores through WMMA (m16n16k16, float32 sums),
+//   every tile staged in shared memory, 8 warps; a first tensor-core design
+//   (no TMA, no wgmma, no overlap of loads and products).
+//   float32 (the reduced configs and the parity cases) — bwd_dkdv_kernel
+//   and bwd_dq_kernel: every product on the FMA pipes, 256 threads on
+//   32 x 32 tiles, each thread 4 scores in the score phase and 32 dK + 32 dV
+//   (or 32 dQ) accumulators over 8-column strides in the sum phase: about
+//   one shared-memory load per FMA.
+// ===========================================================================
+
+#define BW_BQ 32
+#define BW_BK 32
+#define BW_THREADS 256
+
+__device__ __forceinline__ float bw_load(const float* p) { return *p; }
+__device__ __forceinline__ float bw_load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+static size_t bw_smem_bytes(int hd)
+{
+    const int ld = hd + 1;
+    return sizeof(float) * ((size_t)(2 * BW_BQ + 2 * BW_BK) * ld + 2 * (size_t)BW_BQ * (BW_BK + 1) +
+                            2 * BW_BQ);
+}
+
+// D_i = dO_i . O_i, rows of q's layout (b, h, i) by strides; D [B, H, S]
+template <typename T>
+__global__ void __launch_bounds__(BW_THREADS)
+bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ dsum,
+               int H, int S, int hd, long long sb, long long sh, long long ss, long long rows)
+{
+    const long long row = (long long)blockIdx.x * (BW_THREADS / 32) + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (row >= rows) return;
+    const int i = (int)(row % S);
+    const long long bh = row / S;
+    const int h = (int)(bh % H), b = (int)(bh / H);
+    const long long off = b * sb + h * sh + i * ss;
+    float acc = 0.f;
+    for (int d = lane; d < hd; d += 32) acc = fmaf(bw_load(o + off + d), bw_load(dout + off + d), acc);
+#pragma unroll
+    for (int sh2 = 16; sh2 >= 1; sh2 >>= 1) acc += __shfl_xor_sync(FULL_MASK, acc, sh2);
+    if (lane == 0) dsum[row] = acc;
+}
+
+// rows [0, n) of a [rows][hd] tile from src (row stride rs) into dst [rows][ld]
+__device__ __forceinline__ void bw_tile(float* dst, const float* src, int r0, int n_valid, int hd,
+                                        long long rs, int rows)
+{
+    const int ld = hd + 1;
+    for (int idx = threadIdx.x; idx < rows * hd; idx += BW_THREADS) {
+        const int r = idx / hd, d = idx - r * hd;
+        dst[r * ld + d] = r0 + r < n_valid ? src[(long long)(r0 + r) * rs + d] : 0.f;
+    }
+}
+
+// The score phase shared by both kernels.  Thread (r = tid / 8, c0 = tid % 8)
+// takes row r of the query tile and keys c0 + 8n (n < 4): recomputes x, s,
+// P and dP; writes P to ps (when ps) and dS (with the scale and the cap's
+// derivative folded in) to dss, both [BW_BQ][BW_BK + 1].
+__device__ __forceinline__ void bw_scores(const float* qs, const float* dos, const float* ks,
+                                          const float* vs, const float* lse_s, const float* d_s,
+                                          float* ps, float* dss, int i0, int j0, int S, int T_,
+                                          int vf, int hd, int causal, int window, float cap,
+                                          float scale)
+{
+    const int ld = hd + 1;
+    const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
+    float sx[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* qrow = qs + r * ld;
+    const float* dorow = dos + r * ld;
+    for (int d = 0; d < hd; ++d) {
+        const float qd = qrow[d], dod = dorow[d];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+            sx[n] = fmaf(qd, ks[(c0 + 8 * n) * ld + d], sx[n]);
+            dp[n] = fmaf(dod, vs[(c0 + 8 * n) * ld + d], dp[n]);
+        }
+    }
+    const int i = i0 + r;
+    const float L = lse_s[r], Di = d_s[r];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+        const int c = c0 + 8 * n, j = j0 + c;
+        bool ok = i < S && j < T_ && j >= vf;
+        if (causal) ok = ok && j <= i;
+        if (window >= 0) ok = ok && i - j < window;
+        const float x = sx[n] * scale;
+        float s = x, dcap = 1.f;
+        if (cap > 0.f) {
+            const float t = tanhf(x / cap);
+            s = cap * t;
+            dcap = 1.f - t * t;
+        }
+        const float p = ok ? expf(s - L) : 0.f;
+        if (ps != nullptr) ps[r * (BW_BK + 1) + c] = p;
+        dss[r * (BW_BK + 1) + c] = p * (dp[n] - Di) * dcap * scale;
+    }
+}
+
+template <int HDMAX>
+__global__ void __launch_bounds__(BW_THREADS)
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                float* __restrict__ dk, float* __restrict__ dv,
+                const int* __restrict__ valid_from, int G, int S, int T_, int hd,
+                long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+                long long kst, int causal, int window, float cap, float scale)
+{
+    extern __shared__ float bw_smem[];
+    const int ld = hd + 1;
+    float* ks = bw_smem;               // [BW_BK][ld]
+    float* vs = ks + BW_BK * ld;       // [BW_BK][ld]
+    float* qs = vs + BW_BK * ld;       // [BW_BQ][ld]
+    float* dos = qs + BW_BQ * ld;      // [BW_BQ][ld]
+    float* ps = dos + BW_BQ * ld;      // [BW_BQ][BW_BK + 1]
+    float* dss = ps + BW_BQ * (BW_BK + 1);
+    float* lse_s = dss + BW_BQ * (BW_BK + 1);  // [BW_BQ]
+    float* d_s = lse_s + BW_BQ;                 // [BW_BQ]
+
+    const int kvh = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * BW_BK;
+    const int H = gridDim.y * G;
+    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
+    const float* kb = k + b * ksb + kvh * ksh;
+    const float* vb = v + b * ksb + kvh * ksh;
+    bw_tile(ks, kb, j0, T_, hd, kst, BW_BK);
+    bw_tile(vs, vb, j0, T_, hd, kst, BW_BK);
+
+    // the query rows that may see keys [j0, j0 + BW_BK): [i_lo, i_hi)
+    int i_lo = causal ? j0 : 0, i_hi = S;
+    if (window >= 0) i_hi = min(i_hi, j0 + BW_BK - 1 + window);
+    i_lo = max(i_lo, vf);
+
+    const int c = threadIdx.x >> 3, e0 = threadIdx.x & 7;  // sum phase: key c, columns e0 + 8jj
+    float adk[HDMAX / 8], adv[HDMAX / 8];
+#pragma unroll
+    for (int jj = 0; jj < HDMAX / 8; ++jj) adk[jj] = adv[jj] = 0.f;
+
+    for (int g = 0; g < G; ++g) {
+        const int h = kvh * G + g;
+        const float* qb = q + b * qsb + h * qsh;
+        const float* db = dout + b * qsb + h * qsh;
+        const float* lrow = lse + ((long long)b * H + h) * S;
+        const float* drow = dsum + ((long long)b * H + h) * S;
+        for (int i0 = (i_lo / BW_BQ) * BW_BQ; i0 < i_hi; i0 += BW_BQ) {
+            __syncthreads();  // the previous tile's readers are done
+            bw_tile(qs, qb, i0, S, hd, qss, BW_BQ);
+            bw_tile(dos, db, i0, S, hd, qss, BW_BQ);
+            if (threadIdx.x < BW_BQ) {
+                const int i = i0 + threadIdx.x;
+                lse_s[threadIdx.x] = i < S ? lrow[i] : INFINITY;
+                d_s[threadIdx.x] = i < S ? drow[i] : 0.f;
+            }
+            __syncthreads();
+            bw_scores(qs, dos, ks, vs, lse_s, d_s, ps, dss, i0, j0, S, T_, vf, hd, causal,
+                         window, cap, scale);
+            __syncthreads();
+            for (int r = 0; r < BW_BQ; ++r) {
+                const float p = ps[r * (BW_BK + 1) + c], ds = dss[r * (BW_BK + 1) + c];
+                const float* dorow = dos + r * ld + e0;
+                const float* qrow = qs + r * ld + e0;
+#pragma unroll
+                for (int jj = 0; jj < HDMAX / 8; ++jj) {
+                    if (8 * jj + e0 < hd) {
+                        adv[jj] = fmaf(p, dorow[8 * jj], adv[jj]);
+                        adk[jj] = fmaf(ds, qrow[8 * jj], adk[jj]);
+                    }
+                }
+            }
+        }
+    }
+    const int j = j0 + c;
+    if (j >= T_) return;
+    float* dkrow = dk + b * ksb + kvh * ksh + j * kst;
+    float* dvrow = dv + b * ksb + kvh * ksh + j * kst;
+#pragma unroll
+    for (int jj = 0; jj < HDMAX / 8; ++jj) {
+        const int d = 8 * jj + e0;
+        if (d < hd) {
+            dkrow[d] = adk[jj];
+            dvrow[d] = adv[jj];
+        }
+    }
+}
+
+template <int HDMAX>
+__global__ void __launch_bounds__(BW_THREADS)
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ dsum,
+              float* __restrict__ dq,
+              const int* __restrict__ valid_from, int G, int S, int T_, int hd, long long qsb,
+              long long qsh, long long qss, long long ksb, long long ksh, long long kst,
+              int causal, int window, float cap, float scale)
+{
+    extern __shared__ float bw_smem[];
+    const int ld = hd + 1;
+    float* ks = bw_smem;
+    float* vs = ks + BW_BK * ld;
+    float* qs = vs + BW_BK * ld;
+    float* dos = qs + BW_BQ * ld;
+    float* dss = dos + BW_BQ * ld;  // (no P tile here)
+    float* lse_s = dss + 2 * BW_BQ * (BW_BK + 1);
+    float* d_s = lse_s + BW_BQ;
+
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int i0 = (gridDim.x - 1 - blockIdx.x) * BW_BQ;  // the longest rows first
+    const int H = gridDim.y;
+    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
+    const float* qb = q + b * qsb + h * qsh;
+    const float* db = dout + b * qsb + h * qsh;
+    const float* kb = k + b * ksb + (h / G) * ksh;
+    const float* vb = v + b * ksb + (h / G) * ksh;
+    bw_tile(qs, qb, i0, S, hd, qss, BW_BQ);
+    bw_tile(dos, db, i0, S, hd, qss, BW_BQ);
+    if (threadIdx.x < BW_BQ) {
+        const int i = i0 + threadIdx.x;
+        lse_s[threadIdx.x] = i < S ? lse[((long long)b * H + h) * S + i] : INFINITY;
+        d_s[threadIdx.x] = i < S ? dsum[((long long)b * H + h) * S + i] : 0.f;
+    }
+
+    // the keys rows [i0, i0 + BW_BQ) may see: [j_lo, j_hi)
+    const int i_last = min(i0 + BW_BQ, S) - 1;
+    int j_lo = vf, j_hi = T_;
+    if (causal) j_hi = min(j_hi, i_last + 1);
+    if (window >= 0) j_lo = max(j_lo, i0 - window + 1);
+
+    const int r = threadIdx.x >> 3, e0 = threadIdx.x & 7;  // sum phase: row r, columns e0 + 8jj
+    float adq[HDMAX / 8];
+#pragma unroll
+    for (int jj = 0; jj < HDMAX / 8; ++jj) adq[jj] = 0.f;
+
+    for (int j0 = (max(j_lo, 0) / BW_BK) * BW_BK; j0 < j_hi; j0 += BW_BK) {
+        __syncthreads();  // the previous tile's readers are done (and Q, dO landed)
+        bw_tile(ks, kb, j0, T_, hd, kst, BW_BK);
+        bw_tile(vs, vb, j0, T_, hd, kst, BW_BK);
+        __syncthreads();
+        bw_scores(qs, dos, ks, vs, lse_s, d_s, nullptr, dss, i0, j0, S, T_, vf, hd, causal,
+                     window, cap, scale);
+        __syncthreads();
+        const float* dsrow = dss + r * (BW_BK + 1);
+        for (int cc = 0; cc < BW_BK; ++cc) {
+            const float ds = dsrow[cc];
+            const float* krow = ks + cc * ld + e0;
+#pragma unroll
+            for (int jj = 0; jj < HDMAX / 8; ++jj)
+                if (8 * jj + e0 < hd) adq[jj] = fmaf(ds, krow[8 * jj], adq[jj]);
+        }
+    }
+    const int i = i0 + r;
+    if (i >= S) return;
+    float* dqrow = dq + b * qsb + h * qsh + i * qss;
+#pragma unroll
+    for (int jj = 0; jj < HDMAX / 8; ++jj) {
+        const int d = 8 * jj + e0;
+        if (d < hd) dqrow[d] = adq[jj];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: the products on the tensor cores (WMMA, m16n16k16, float32 sums)
+//
+// The same two passes, with every tile staged in shared memory: bf16 Q, dO,
+// K and V tiles (rows of HDP = hd rounded up to 16, zero-filled past hd and
+// past S or T, padded by 8 elements against bank conflicts), float32 score
+// and dP tiles out of the products, and the elementwise step writing P and
+// dS back as bf16 tiles for the next products (P rounded to V's type, as
+// K7 rounds it; dS rounded too, the price of the tensor cores).  8 warps.
+//   bwd_dkdv_tc_kernel: 32 keys a CTA; per 64-row query tile S^T and dP^T
+//     (one 16 x 16 tile a warp), then dV += P^T dO and dK += dS^T Q, each
+//     warp holding up to 4 + 4 accumulator tiles of the 32 x HDP outputs in
+//     registers across the G heads and query tiles.
+//   bwd_dq_tc_kernel: 64 query rows a CTA; per 64-key tile S and dP (two
+//     tiles a warp), then dQ += dS K, up to 8 accumulator tiles a warp.
+// Each output element is summed by one warp in a fixed order: no atomics.
+// ---------------------------------------------------------------------------
+
+#define TB_BK 32
+#define TB_BQ 64
+#define TB_WARPS 8
+
+template <int HDP> struct Tb {
+    static constexpr int LDH = HDP + 8;    // bf16 row stride of Q, dO, K, V tiles
+    static constexpr int LDS = 64 + 4;     // float32 row stride of score tiles
+    static constexpr int LDP = 64 + 8;     // bf16 row stride of P, dS tiles
+};
+
+// rows [0, rows) of a bf16 tile of HDP columns from src (row stride rs,
+// hd valid columns, rows r0 + r < n_valid), 16 bytes at a time
+__device__ __forceinline__ void tb_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+                                        int r0, int n_valid, int hd, int hdp, long long rs,
+                                        int rows)
+{
+    const int chunks = hdp / 8;
+    for (int idx = threadIdx.x; idx < rows * chunks; idx += TB_WARPS * 32) {
+        const int r = idx / chunks, c = (idx - r * chunks) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + r < n_valid && c < hd)
+            v = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + c);
+        *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+    }
+}
+
+// the elementwise step on a [rows][64] float32 pair (S, dP) whose element
+// (a, b) is query qi(a, b), key kj(a, b): P (rounded) to pb, dS (scale and
+// the cap's derivative folded in) to dsb; lse and D by query row
+template <bool KEY_ROWS>
+__device__ __forceinline__ void tb_softmax_grad(const float* ss, const float* dps, int lds,
+                                                __nv_bfloat16* pb, __nv_bfloat16* dsb,
+                                                int ldp, int rows, const float* lse_s,
+                                                const float* d_s, int i0, int j0, int S,
+                                                int T_, int vf, int causal, int window,
+                                                float cap, float scale)
+{
+    for (int e = threadIdx.x; e < rows * 64; e += TB_WARPS * 32) {
+        const int a = e >> 6, b = e & 63;
+        const int qr = KEY_ROWS ? b : a;  // the query row within its tile
+        const int i = i0 + qr, j = j0 + (KEY_ROWS ? a : b);
+        bool ok = i < S && j < T_ && j >= vf;
+        if (causal) ok = ok && j <= i;
+        if (window >= 0) ok = ok && i - j < window;
+        const float x = ss[a * lds + b] * scale;
+        float sv = x, dcap = 1.f;
+        if (cap > 0.f) {
+            const float t = tanhf(x / cap);
+            sv = cap * t;
+            dcap = 1.f - t * t;
+        }
+        const float p = ok ? expf(sv - lse_s[qr]) : 0.f;
+        if (pb != nullptr) pb[a * ldp + b] = __float2bfloat16_rn(p);
+        dsb[a * ldp + b] = __float2bfloat16_rn(p * (dps[a * lds + b] - d_s[qr]) * dcap * scale);
+    }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(TB_WARPS * 32)
+bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ dsum,
+                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                   const int* __restrict__ valid_from, int G, int S, int T_, int hd,
+                   long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+                   long long kst, int causal, int window, float cap, float scale)
+{
+    using C = Tb<HDP>;
+    namespace w = nvcuda::wmma;
+    extern __shared__ __align__(128) unsigned char tb_smem[];
+    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tb_smem);  // [TB_BK][LDH]
+    __nv_bfloat16* vs = ks + TB_BK * C::LDH;                         // [TB_BK][LDH]
+    __nv_bfloat16* qs = vs + TB_BK * C::LDH;                         // [TB_BQ][LDH]
+    __nv_bfloat16* dos = qs + TB_BQ * C::LDH;                        // [TB_BQ][LDH]
+    float* ss = reinterpret_cast<float*>(dos + TB_BQ * C::LDH);      // [TB_BK][LDS]
+    float* dps = ss + TB_BK * C::LDS;                                // [TB_BK][LDS]
+    __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(dps + TB_BK * C::LDS);  // [TB_BK][LDP]
+    __nv_bfloat16* dsb = pb + TB_BK * C::LDP;                        // [TB_BK][LDP]
+    float* lse_s = reinterpret_cast<float*>(dsb + TB_BK * C::LDP);   // [TB_BQ]
+    float* d_s = lse_s + TB_BQ;                                      // [TB_BQ]
+
+    const int kvh = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * TB_BK;
+    const int H = gridDim.y * G;
+    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
+    const int warp = threadIdx.x >> 5;
+    tb_tile(ks, C::LDH, k + b * ksb + kvh * ksh, j0, T_, hd, HDP, kst, TB_BK);
+    tb_tile(vs, C::LDH, v + b * ksb + kvh * ksh, j0, T_, hd, HDP, kst, TB_BK);
+
+    int i_lo = causal ? j0 : 0, i_hi = S;
+    if (window >= 0) i_hi = min(i_hi, j0 + TB_BK - 1 + window);
+    i_lo = max(i_lo, vf);
+
+    // output tiles of [TB_BK][HDP]: t = warp + 8 n
+    constexpr int NT = (TB_BK / 16) * (HDP / 16);
+    constexpr int NTW = (NT + TB_WARPS - 1) / TB_WARPS;
+    w::fragment<w::accumulator, 16, 16, 16, float> adv[NTW], adk[NTW];
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+        w::fill_fragment(adv[n], 0.f);
+        w::fill_fragment(adk[n], 0.f);
+    }
+    const int skb = warp >> 2, sqb = warp & 3;  // this warp's S^T tile
+
+    for (int g = 0; g < G; ++g) {
+        const int h = kvh * G + g;
+        const __nv_bfloat16* qb = q + b * qsb + h * qsh;
+        const __nv_bfloat16* db = dout + b * qsb + h * qsh;
+        const float* lrow = lse + ((long long)b * H + h) * S;
+        const float* drow = dsum + ((long long)b * H + h) * S;
+        for (int i0 = (i_lo / TB_BQ) * TB_BQ; i0 < i_hi; i0 += TB_BQ) {
+            __syncthreads();  // the previous tile's readers are done
+            tb_tile(qs, C::LDH, qb, i0, S, hd, HDP, qss, TB_BQ);
+            tb_tile(dos, C::LDH, db, i0, S, hd, HDP, qss, TB_BQ);
+            if (threadIdx.x < TB_BQ) {
+                const int i = i0 + threadIdx.x;
+                lse_s[threadIdx.x] = i < S ? lrow[i] : INFINITY;
+                d_s[threadIdx.x] = i < S ? drow[i] : 0.f;
+            }
+            __syncthreads();
+            {   // S^T = K Q^T and dP^T = V dO^T, one 16 x 16 tile each
+                w::fragment<w::accumulator, 16, 16, 16, float> sacc, pacc;
+                w::fill_fragment(sacc, 0.f);
+                w::fill_fragment(pacc, 0.f);
+                w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
+                w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::col_major> fb;
+#pragma unroll 4
+                for (int kk = 0; kk < HDP / 16; ++kk) {
+                    w::load_matrix_sync(fa, ks + skb * 16 * C::LDH + kk * 16, C::LDH);
+                    w::load_matrix_sync(fb, qs + sqb * 16 * C::LDH + kk * 16, C::LDH);
+                    w::mma_sync(sacc, fa, fb, sacc);
+                    w::load_matrix_sync(fa, vs + skb * 16 * C::LDH + kk * 16, C::LDH);
+                    w::load_matrix_sync(fb, dos + sqb * 16 * C::LDH + kk * 16, C::LDH);
+                    w::mma_sync(pacc, fa, fb, pacc);
+                }
+                w::store_matrix_sync(ss + skb * 16 * C::LDS + sqb * 16, sacc, C::LDS,
+                                     w::mem_row_major);
+                w::store_matrix_sync(dps + skb * 16 * C::LDS + sqb * 16, pacc, C::LDS,
+                                     w::mem_row_major);
+            }
+            __syncthreads();
+            tb_softmax_grad<true>(ss, dps, C::LDS, pb, dsb, C::LDP, TB_BK, lse_s, d_s, i0, j0,
+                                  S, T_, vf, causal, window, cap, scale);
+            __syncthreads();
+            // dV += P^T dO, dK += dS^T Q over the tile's 64 query rows
+#pragma unroll
+            for (int n = 0; n < NTW; ++n) {
+                const int t = warp + TB_WARPS * n;
+                if (t >= NT) break;
+                const int kb = t / (HDP / 16), dbk = t - kb * (HDP / 16);
+                w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
+                w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major> fb;
+#pragma unroll
+                for (int qk = 0; qk < TB_BQ / 16; ++qk) {
+                    w::load_matrix_sync(fa, pb + kb * 16 * C::LDP + qk * 16, C::LDP);
+                    w::load_matrix_sync(fb, dos + qk * 16 * C::LDH + dbk * 16, C::LDH);
+                    w::mma_sync(adv[n], fa, fb, adv[n]);
+                    w::load_matrix_sync(fa, dsb + kb * 16 * C::LDP + qk * 16, C::LDP);
+                    w::load_matrix_sync(fb, qs + qk * 16 * C::LDH + dbk * 16, C::LDH);
+                    w::mma_sync(adk[n], fa, fb, adk[n]);
+                }
+            }
+        }
+    }
+    // the accumulators through shared memory (float32 [TB_BK][HDP + 4] each,
+    // over the Q and dO tiles) to dK and dV in bf16
+    __syncthreads();
+    constexpr int LDO = HDP + 4;
+    float* ok_ = reinterpret_cast<float*>(qs);
+    float* ov_ = ok_ + TB_BK * LDO;
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+        const int t = warp + TB_WARPS * n;
+        if (t >= NT) break;
+        const int kb = t / (HDP / 16), dbk = t - kb * (HDP / 16);
+        w::store_matrix_sync(ok_ + kb * 16 * LDO + dbk * 16, adk[n], LDO, w::mem_row_major);
+        w::store_matrix_sync(ov_ + kb * 16 * LDO + dbk * 16, adv[n], LDO, w::mem_row_major);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < TB_BK * hd; idx += TB_WARPS * 32) {
+        const int c = idx / hd, d = idx - c * hd, j = j0 + c;
+        if (j >= T_) continue;
+        dk[b * ksb + kvh * ksh + j * kst + d] = __float2bfloat16_rn(ok_[c * LDO + d]);
+        dv[b * ksb + kvh * ksh + j * kst + d] = __float2bfloat16_rn(ov_[c * LDO + d]);
+    }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(TB_WARPS * 32)
+bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ dsum,
+                 __nv_bfloat16* __restrict__ dq, const int* __restrict__ valid_from, int G,
+                 int S, int T_, int hd, long long qsb, long long qsh, long long qss,
+                 long long ksb, long long ksh, long long kst, int causal, int window,
+                 float cap, float scale)
+{
+    using C = Tb<HDP>;
+    namespace w = nvcuda::wmma;
+    extern __shared__ __align__(128) unsigned char tb_smem[];
+    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tb_smem);  // [TB_BQ][LDH]
+    __nv_bfloat16* dos = qs + TB_BQ * C::LDH;                        // [TB_BQ][LDH]
+    __nv_bfloat16* ks = dos + TB_BQ * C::LDH;                        // [64][LDH]
+    __nv_bfloat16* vs = ks + 64 * C::LDH;                            // [64][LDH]
+    float* ss = reinterpret_cast<float*>(vs + 64 * C::LDH);          // [TB_BQ][LDS]
+    float* dps = ss + TB_BQ * C::LDS;                                // [TB_BQ][LDS]
+    __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(dps + TB_BQ * C::LDS);  // [TB_BQ][LDP]
+    float* lse_s = reinterpret_cast<float*>(dsb + TB_BQ * C::LDP);
+    float* d_s = lse_s + TB_BQ;
+
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int i0 = (gridDim.x - 1 - blockIdx.x) * TB_BQ;  // the longest rows first
+    const int H = gridDim.y;
+    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
+    const int warp = threadIdx.x >> 5;
+    const __nv_bfloat16* kb_ = k + b * ksb + (h / G) * ksh;
+    const __nv_bfloat16* vb_ = v + b * ksb + (h / G) * ksh;
+    tb_tile(qs, C::LDH, q + b * qsb + h * qsh, i0, S, hd, HDP, qss, TB_BQ);
+    tb_tile(dos, C::LDH, dout + b * qsb + h * qsh, i0, S, hd, HDP, qss, TB_BQ);
+    if (threadIdx.x < TB_BQ) {
+        const int i = i0 + threadIdx.x;
+        lse_s[threadIdx.x] = i < S ? lse[((long long)b * H + h) * S + i] : INFINITY;
+        d_s[threadIdx.x] = i < S ? dsum[((long long)b * H + h) * S + i] : 0.f;
+    }
+    const int i_last = min(i0 + TB_BQ, S) - 1;
+    int j_lo = vf, j_hi = T_;
+    if (causal) j_hi = min(j_hi, i_last + 1);
+    if (window >= 0) j_lo = max(j_lo, i0 - window + 1);
+
+    constexpr int NT = (TB_BQ / 16) * (HDP / 16);
+    constexpr int NTW = (NT + TB_WARPS - 1) / TB_WARPS;
+    w::fragment<w::accumulator, 16, 16, 16, float> adq[NTW];
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) w::fill_fragment(adq[n], 0.f);
+
+    for (int j0 = (max(j_lo, 0) / 64) * 64; j0 < j_hi; j0 += 64) {
+        __syncthreads();  // the previous tile's readers are done (and Q, dO landed)
+        tb_tile(ks, C::LDH, kb_, j0, T_, hd, HDP, kst, 64);
+        tb_tile(vs, C::LDH, vb_, j0, T_, hd, HDP, kst, 64);
+        __syncthreads();
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {  // S = Q K^T and dP = dO V^T: tiles warp, warp + 8
+            const int t = warp + TB_WARPS * n, qb = t >> 2, kb = t & 3;
+            w::fragment<w::accumulator, 16, 16, 16, float> sacc, pacc;
+            w::fill_fragment(sacc, 0.f);
+            w::fill_fragment(pacc, 0.f);
+            w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
+            w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::col_major> fb;
+#pragma unroll 4
+            for (int kk = 0; kk < HDP / 16; ++kk) {
+                w::load_matrix_sync(fa, qs + qb * 16 * C::LDH + kk * 16, C::LDH);
+                w::load_matrix_sync(fb, ks + kb * 16 * C::LDH + kk * 16, C::LDH);
+                w::mma_sync(sacc, fa, fb, sacc);
+                w::load_matrix_sync(fa, dos + qb * 16 * C::LDH + kk * 16, C::LDH);
+                w::load_matrix_sync(fb, vs + kb * 16 * C::LDH + kk * 16, C::LDH);
+                w::mma_sync(pacc, fa, fb, pacc);
+            }
+            w::store_matrix_sync(ss + qb * 16 * C::LDS + kb * 16, sacc, C::LDS,
+                                 w::mem_row_major);
+            w::store_matrix_sync(dps + qb * 16 * C::LDS + kb * 16, pacc, C::LDS,
+                                 w::mem_row_major);
+        }
+        __syncthreads();
+        tb_softmax_grad<false>(ss, dps, C::LDS, nullptr, dsb, C::LDP, TB_BQ, lse_s, d_s, i0,
+                               j0, S, T_, vf, causal, window, cap, scale);
+        __syncthreads();
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {  // dQ += dS K
+            const int t = warp + TB_WARPS * n;
+            if (t >= NT) break;
+            const int qb = t / (HDP / 16), dbk = t - qb * (HDP / 16);
+            w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
+            w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major> fb;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                w::load_matrix_sync(fa, dsb + qb * 16 * C::LDP + kk * 16, C::LDP);
+                w::load_matrix_sync(fb, ks + kk * 16 * C::LDH + dbk * 16, C::LDH);
+                w::mma_sync(adq[n], fa, fb, adq[n]);
+            }
+        }
+    }
+    __syncthreads();
+    constexpr int LDO = HDP + 4;
+    float* oq = reinterpret_cast<float*>(ks);  // [TB_BQ][LDO] over the K and V tiles
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+        const int t = warp + TB_WARPS * n;
+        if (t >= NT) break;
+        const int qb = t / (HDP / 16), dbk = t - qb * (HDP / 16);
+        w::store_matrix_sync(oq + qb * 16 * LDO + dbk * 16, adq[n], LDO, w::mem_row_major);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < TB_BQ * hd; idx += TB_WARPS * 32) {
+        const int r = idx / hd, d = idx - r * hd, i = i0 + r;
+        if (i < S) dq[b * qsb + h * qsh + i * qss + d] = __float2bfloat16_rn(oq[r * LDO + d]);
+    }
+}
+
+template <int HDP>
+static size_t tb_dkdv_smem()
+{
+    using C = Tb<HDP>;
+    return 2 * ((size_t)2 * TB_BK * C::LDH + 2 * TB_BQ * C::LDH) +
+           4 * (size_t)2 * TB_BK * C::LDS + 2 * (size_t)2 * TB_BK * C::LDP + 4 * 2 * TB_BQ;
+}
+
+template <int HDP>
+static size_t tb_dq_smem()
+{
+    using C = Tb<HDP>;
+    return 2 * ((size_t)2 * TB_BQ * C::LDH + 2 * 64 * C::LDH) + 4 * (size_t)2 * TB_BQ * C::LDS +
+           2 * (size_t)TB_BQ * C::LDP + 4 * 2 * TB_BQ;
+}
+
+template <typename T, int HDMAX>
+static int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+                      void* dv, const void* valid_from, int B, int H, int KV, int S, int T_,
+                      int hd, const long long* st, int causal, int window, float cap,
+                      float scale, cudaStream_t stream)
+{
+    const int G = H / KV;
+    const long long rows = (long long)B * H * S;
+    bwd_dot_kernel<T><<<(unsigned)((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)), BW_THREADS,
+                        0, stream>>>((const T*)o, (const T*)dout, dsum, H, S, hd, st[0], st[1],
+                                     st[2], rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if constexpr (std::is_same<T, float>::value) {
+        const auto kdkdv = bwd_dkdv_kernel<HDMAX>;
+        const auto kdq = bwd_dq_kernel<HDMAX>;
+        const size_t smem = bw_smem_bytes(hd);
+        static bool raised = false;  // per instantiation: raise once, to the widest launch
+        if (smem > 48 * 1024 && !raised) {
+            err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)bw_smem_bytes(HDMAX));
+            if (err == cudaSuccess)
+                err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bw_smem_bytes(HDMAX));
+            if (err != cudaSuccess) return (int)err;
+            raised = true;
+        }
+        const dim3 gkv((T_ + BW_BK - 1) / BW_BK, KV, B);
+        kdkdv<<<gkv, BW_THREADS, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk, (T*)dv,
+            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
+            causal, window, cap, scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        const dim3 gq((S + BW_BQ - 1) / BW_BQ, H, B);
+        kdq<<<gq, BW_THREADS, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq,
+            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
+            causal, window, cap, scale);
+    } else {
+        // bf16: the tensor-core body at HDP = HDMAX (hd rounded up to a compiled width)
+        const auto kdkdv = bwd_dkdv_tc_kernel<HDMAX>;
+        const auto kdq = bwd_dq_tc_kernel<HDMAX>;
+        static bool raised = false;
+        if (!raised) {
+            err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)tb_dkdv_smem<HDMAX>());
+            if (err == cudaSuccess)
+                err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)tb_dq_smem<HDMAX>());
+            if (err != cudaSuccess) return (int)err;
+            raised = true;
+        }
+        const dim3 gkv((T_ + TB_BK - 1) / TB_BK, KV, B);
+        kdkdv<<<gkv, TB_WARPS * 32, tb_dkdv_smem<HDMAX>(), stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk, (T*)dv,
+            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
+            causal, window, cap, scale);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        const dim3 gq((S + TB_BQ - 1) / TB_BQ, H, B);
+        kdq<<<gq, TB_WARPS * 32, tb_dq_smem<HDMAX>(), stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq,
+            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
+            causal, window, cap, scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+                        void* dv, const void* valid_from, int B, int H, int KV, int S, int T_,
+                        int hd, const long long* st, int causal, int window, float cap,
+                        float scale, cudaStream_t stream)
+{
+#define BW_CASE(W)                                                                          \
+    if (hd <= W)                                                                            \
+        return launch_bwd<T, W>(q, k, v, o, dout, lse, dsum, dq, dk, dv, valid_from, B, H,  \
+                                KV, S, T_, hd, st, causal, window, cap, scale, stream);
+    BW_CASE(16) BW_CASE(32) BW_CASE(64) BW_CASE(128) BW_CASE(256)
+#undef BW_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+// q, o, dout and dq [B, H, S, hd] by strides (qsb, qsh, qss); k, v, dk and
+// dv [B, KV, T, hd] by strides (ksb, ksh, kst); the hd axis contiguous.
+// lse [B, H, S] float32 from K7's forward on the same q, k, v; dsum [B, H,
+// S] float32 scratch (D).  dtype 0 = float32, 1 = bfloat16 (every tensor
+// but lse and dsum).  valid_from, window, cap and scale as the forward's.
+// Launches three kernels on `stream` and returns the first error of a
+// launch (0 on success).
+extern "C" int flash_attention_backward_launch(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* dsum, void* dq, void* dk, void* dv, const void* valid_from,
+    int dtype, int B, int H, int KV, int S, int T, int hd, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kst, int causal, int window,
+    float cap, float scale, void* stream)
+{
+    if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV || hd < 8 || hd > 256 || hd % 8)
+        return (int)cudaErrorInvalidValue;
+    const long long st[6] = {qsb, qsh, qss, ksb, ksh, kst};
+    if (dtype == 0)
+        return dispatch_bwd<float>(q, k, v, o, dout, (const float*)lse, (float*)dsum, dq, dk,
+                                   dv, valid_from, B, H, KV, S, T, hd, st, causal, window, cap,
+                                   scale, (cudaStream_t)stream);
+    if (dtype == 1) {
+        // the tensor-core body reads rows 16 bytes at a time
+        for (int i = 0; i < 6; ++i)
+            if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
+        if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout) % 16)
+            return (int)cudaErrorMisalignedAddress;
+        return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, (const float*)lse, (float*)dsum,
+                                           dq, dk, dv, valid_from, B, H, KV, S, T, hd, st,
+                                           causal, window, cap, scale, (cudaStream_t)stream);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -141,6 +141,34 @@ def params_from_jax(values, cfg) -> dict:
     return out
 
 
+def opt_state_from_jax(values, cfg) -> dict:
+    """The reference's optimizer state with numpy leaves (``adamw``: ``step``,
+    ``m``, ``v``, ``master``; ``adafactor``: ``step``, ``v``) → the port's
+    (``repro_torch.train.optim``), float32 CPU tensors.  AdamW's three trees
+    map leaf for leaf as :func:`params_from_jax` maps the parameters;
+    Adafactor's statistics keep the reference's leaves: a period-stacked
+    leaf under its path (``layers/block{i}/...``, the key of
+    ``Decoder.stacks()``), the others under the port's parameter names."""
+    import torch
+
+    step = torch.from_numpy(np.array(values["step"], dtype=np.int32, copy=True))
+    if "m" in values:
+        return {"step": step, **{k: params_from_jax(values[k], cfg)
+                                 for k in ("m", "v", "master")}}
+    P = len(cfg.layer_pattern)
+    v: dict = {}
+    for path, arr in flatten_tree(values["v"]).items():
+        *leaf, stat = path.split("/")
+        if leaf[0] == "layers":
+            key = "/".join(leaf)
+        elif leaf[0] == "tail":
+            key = ".".join(["layers", str(P * cfg.n_periods + int(leaf[1])), *leaf[2:]])
+        else:
+            key = ".".join(leaf)
+        v.setdefault(key, {})[stat] = torch.from_numpy(np.array(arr, copy=True))
+    return {"step": step, "v": v}
+
+
 def numpy_params(cfg, seed: int) -> dict:
     """A parity tree in the reference's layout, float32, from
     ``np.random.default_rng(seed)``: dense leaves ``N(0, 1/fan_in)``,

@@ -12,7 +12,12 @@ its plain version (``closure_plain``, ``fused_step_plain``,
 (flash attention, forward) behind two wrappers,
 ``flash_attention.flash_attention`` (the reference kernel's layout) and
 ``flash_attention.blockwise_attention`` (the model's layout, with
-left-pad ``valid_from``), whose plain version is ``attention_plain``.
+left-pad ``valid_from``), whose plain version is ``attention_plain``;
+K7b (flash attention, backward: dq, dk and dv from K7's log-sum-exp),
+``flash_attention.attention_backward``, whose plain version is autograd
+through ``attention_plain`` (``attention_backward_plain``); a train-mode
+``blockwise_attention`` on the card runs K7 then K7b through
+``flash_attention._BlockwiseAttentionFn``.
 Each wrapper counts its launches in a plain ``launches`` attribute; K1, K2
 and K3 also count those that took their tensor-core body in ``tc_launches``.
 """
@@ -23,7 +28,8 @@ from repro_torch.kernels import frontier as _fr
 from repro_torch.kernels import serve as _sv
 
 KERNELS = (_k1.closure, _fr.fused_step, _fr.map_closure, _fr.filter_step,
-           _sv.contains_topk, _sv.rules_topk, _fa.flash_attention, _fa.blockwise_attention)
+           _sv.contains_topk, _sv.rules_topk, _fa.flash_attention, _fa.blockwise_attention,
+           _fa.attention_backward)
 
 
 def reset_launches() -> None:

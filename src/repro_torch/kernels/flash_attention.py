@@ -1,4 +1,4 @@
-"""K7 — flash attention, forward: the prefill path's attention.
+"""K7 — flash attention, forward (the prefill and train paths), and K7b, its backward.
 
 ``softmax(softcap(q·kᵀ/√hd)) · v`` over the valid keys, with GQA (query
 head ``h`` reads KV head ``h // G``, no repeated K/V), causal masking, a
@@ -29,6 +29,16 @@ For CUDA tensors each wrapper launches the kernel or raises; for CPU
 tensors it runs the plain version, :func:`attention_plain` — the
 reference's online-softmax scan over key blocks, written in torch.  Each
 wrapper counts its kernel launches in a plain ``launches`` attribute.
+
+K7b, the backward (``csrc/attention.cu``, :func:`attention_backward`):
+the gradient of :func:`blockwise_attention` without pads — dq, dk and dv
+from q, k, v, the output, the rows' log-sum-exp (K7's optional ``lse``
+output, not written when serving) and the output's gradient, with K7's
+rounding of p to V's dtype in dV.  A train-mode :func:`blockwise_attention`
+on the card goes through :class:`_BlockwiseAttentionFn` (K7 forward, K7b
+backward); its plain version is autograd through :func:`attention_plain`
+(:func:`attention_backward_plain`), which the CPU path takes.  The
+reference has no backward kernel: it differentiates its jnp scan.
 """
 
 from __future__ import annotations
@@ -142,10 +152,15 @@ def _check(q, k, v, window, logit_cap, heads_axis: int) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_backward_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    )
+    lib.flash_attention_backward_launch.restype = ctypes.c_int
     return lib
 
 
@@ -162,11 +177,12 @@ def _aligned(*xs: torch.Tensor):
 
 
 def _launch(q, k, v, out, valid_from, *, B, H, KV, S, T, q_st, kv_st, v_st, o_st,
-            causal, window, logit_cap) -> None:
+            causal, window, logit_cap, lse=None) -> None:
     hd = q.shape[3]
     with torch.cuda.device(q.device):
         rc = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             None if valid_from is None else valid_from.data_ptr(),
             DTYPES[q.dtype], B, H, KV, S, T, hd, *q_st, *kv_st, *v_st, *o_st,
             int(causal), -1 if window is None else int(window),
@@ -222,7 +238,13 @@ def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None):
     device; None: all 0) are never attended and the query rows before it
     are 0 — the reference's ``blockwise_attention`` at the positions
     :func:`positions_of` gives.  ``blockwise_attention.launches`` counts
-    kernel launches."""
+    kernel launches.
+
+    Under autograd (grad enabled and q, k or v requiring grad) the result
+    has a gradient: on the card through :class:`_BlockwiseAttentionFn` (K7
+    forward with its log-sum-exp, K7b backward), on the CPU through the
+    plain version.  Training has no left pads, so ``valid_from`` with
+    grad is refused (``ValueError``)."""
     _check(q, k, v, window, logit_cap, heads_axis=2)
     B, S, H, _ = q.shape
     KV, T = k.shape[2], k.shape[1]
@@ -232,12 +254,27 @@ def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None):
             not isinstance(valid_from, torch.Tensor) or tuple(valid_from.shape) != (B,)
             or valid_from.dtype.is_floating_point or valid_from.device != q.device):
         raise ValueError(f"valid_from must be an integer tensor [{B}] on {q.device}")
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if grad and valid_from is not None:
+        raise ValueError("blockwise_attention takes no valid_from under autograd "
+                         "(training has no left pads)")
     if q.device.type == "cpu":
         pos = positions_of(valid_from, B, S)
         return attention_plain(q, k, v, pos, pos, window=window, logit_cap=logit_cap)
+    if grad:
+        return _BlockwiseAttentionFn.apply(q, k, v, window, logit_cap)
+    return _blockwise_forward(q, k, v, window, logit_cap, valid_from)[0]
+
+
+def _blockwise_forward(q, k, v, window, logit_cap, valid_from=None, lse: bool = False):
+    """K7 on CUDA tensors in the model layout → (out, lse [B, H, S] float32
+    when ``lse``, else None)."""
+    B, S, H, _ = q.shape
+    KV, T = k.shape[2], k.shape[1]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_out = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
     if S == 0 or B == 0:
-        return out
+        return out, lse_out
     q, k, v = _aligned(q, k, v)
     if valid_from is not None:
         valid_from = valid_from.to(torch.int32).contiguous()
@@ -246,9 +283,85 @@ def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None):
             kv_st=(k.stride(0), k.stride(2), k.stride(1)),
             v_st=(v.stride(0), v.stride(2), v.stride(1)),
             o_st=(out.stride(0), out.stride(2), out.stride(1)),
-            causal=True, window=window, logit_cap=logit_cap)
+            causal=True, window=window, logit_cap=logit_cap, lse=lse_out)
     blockwise_attention.launches += 1
-    return out
+    return out, lse_out
 
 
 blockwise_attention.launches = 0
+
+
+class _BlockwiseAttentionFn(torch.autograd.Function):
+    """K7 with a gradient: the forward is K7 (one launch, with the rows'
+    log-sum-exp kept for the backward), the backward K7b
+    (:func:`attention_backward`).  Saves q, k, v, the output and the
+    log-sum-exp; nothing of size S² is kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, logit_cap):
+        out, lse = _blockwise_forward(q, k, v, window, logit_cap, lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.logit_cap = window, logit_cap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, lse, dout, window=ctx.window,
+                                        logit_cap=ctx.logit_cap)
+        return dq, dk, dv, None, None
+
+
+def attention_backward_plain(q, k, v, dout, *, window=None, logit_cap=None):
+    """The plain version of K7b: autograd through :func:`attention_plain`
+    (causal self-attention at ``arange(S)``) → (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    S = q.shape[1]
+    with torch.enable_grad():
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        pos = torch.arange(S, device=q.device)
+        out = attention_plain(q, k, v, pos, pos, window=window, logit_cap=logit_cap)
+        return torch.autograd.grad(out, (q, k, v), dout)
+
+
+def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None):
+    """K7b: the gradient of :func:`blockwise_attention` without pads, in the
+    model layout — q, dout [B, S, H, hd], k/v [B, S, KV, hd], the forward's
+    ``out`` and its log-sum-exp ``lse`` [B, H, S] float32 → (dq, dk, dv).
+    For CUDA tensors it launches the kernel (three kernels on the current
+    stream; deterministic: no atomics) or raises; for CPU tensors it runs
+    the plain version (``out`` and ``lse`` unused).
+    ``attention_backward.launches`` counts kernel launches."""
+    _check(q, k, v, window, logit_cap, heads_axis=2)
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} and out {tuple(out.shape)} must be "
+                         f"q's shape {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, dout, window=window, logit_cap=logit_cap)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if lse is None or tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{B}, {H}, {S}]")
+    q, k, v, out, dout = _aligned(*(x.contiguous() for x in (q, k, v, out, dout.to(q.dtype))))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if S == 0 or B == 0:
+        return dq, dk, dv
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _lib().flash_attention_backward_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None, DTYPES[q.dtype], B, H, KV, S, S, hd,
+            q.stride(0), q.stride(2), q.stride(1), k.stride(0), k.stride(2), k.stride(1),
+            1, -1 if window is None else int(window),
+            0.0 if logit_cap is None else float(logit_cap), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {rc}")
+    attention_backward.launches += 1
+    return dq, dk, dv
+
+
+attention_backward.launches = 0

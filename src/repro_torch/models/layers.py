@@ -78,6 +78,37 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+class _MmF32(torch.autograd.Function):
+    """``a @ b`` of two bf16 matrices on the card with a float32 output
+    (``torch.mm(..., out_dtype=float32)``, which has no derivative), and its
+    gradient: the float32 cotangent rounded to the operands' dtype, each
+    product accumulated in float32 and rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for bf16 matrices on the card, accumulated and returned in
+    float32 (jnp's ``preferred_element_type``), under autograd too."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MmF32.apply(a, b)
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 

@@ -58,9 +58,13 @@ class MoE(nn.Module):
     def reset_dropped(self) -> None:
         self.dropped.zero_()
 
-    def forward(self, x: torch.Tensor, cfg: ModelConfig, exact: bool = False):
+    def forward(self, x: torch.Tensor, cfg: ModelConfig, exact: bool = False,
+                count: bool = True):
+        """``count=False``: this run's drops are not added to ``dropped``
+        (a train step's backward recomputes the layer)."""
         y, aux, dropped = moe_fwd(self, x, cfg, exact=exact)
-        self.dropped.add_(dropped)
+        if count:
+            self.dropped.add_(dropped)
         return y, aux
 
 

@@ -13,16 +13,20 @@ period, then ``tail_pattern``), not the reference's scanned super-blocks;
 onto it.
 
 Modes of :meth:`Decoder.forward_hidden`:
-  * train   — full sequence, no caches (the tests' full-forward oracle;
-    training itself is not ported);
+  * train   — full sequence, no caches; under autograd each layer is
+    recomputed in the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``), so only the layers'
+    inputs are kept;
   * prefill — full sequence, fills the per-layer caches;
   * decode  — one token against the caches at absolute position ``t``
     (MoE at exact capacity: no drops).
 
 The full-sequence attention runs through K7
 (``repro_torch.kernels.flash_attention``; its plain version for CPU
-tensors); the recurrences, the SSD chunks and the expert products are
-plain torch, as the reference computes them outside any Pallas kernel.
+tensors), its gradient through K7b; the recurrences, the SSD chunks and
+the expert products are plain torch, as the reference computes them
+outside any Pallas kernel.  ``lm_loss`` and ``train_loss_fn`` are the
+reference's losses.
 Parameters are created on ``device`` (CUDA unless the caller says
 ``"cpu"``) and filled from ``seed`` with ``ParamBuilder``'s scales and the
 reference's formulas for its value leaves (Griffin's ``lam``, SSD's
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, griffin, layers, moe, ssm
@@ -94,9 +99,11 @@ class Block(nn.Module):
         y, cache = full(self.core, h, cfg)
         return y, (cache if mode == "prefill" else None)
 
-    def forward(self, x, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from):
+    def forward(self, x, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from,
+                count_drops: bool = True):
         """Returns ``(x, cache, aux)``; ``aux`` is the MoE load-balance term
-        (None without MoE)."""
+        (None without MoE).  ``count_drops=False`` leaves ``MoE.dropped``
+        alone (the backward's recompute of a train step)."""
         y, cache = self._core(self.pre_norm(x), cfg, rope_pos, mode, cache, t, valid_from)
         if cfg.post_norm:
             y = self.post_norm(y)
@@ -107,7 +114,7 @@ class Block(nn.Module):
         h = self.pre_mlp_norm(x)
         if cfg.moe is not None:
             # no capacity drops for single-token decode, as the reference
-            y, aux = self.moe(h, cfg, exact=mode == "decode")
+            y, aux = self.moe(h, cfg, exact=mode == "decode", count=count_drops)
             if cfg.moe.dense_residual:
                 y = y + self.mlp(h)
         else:
@@ -180,10 +187,15 @@ class Decoder(nn.Module):
     # -- forward ----------------------------------------------------------------
 
     def forward_hidden(self, inputs: torch.Tensor, *, mode: str, rope_positions=None,
-                       caches=None, t: int | None = None, valid_from=None):
+                       caches=None, t: int | None = None, valid_from=None,
+                       remat: bool = True):
         """inputs: token ids [B, S], or embeddings [B, S, d] for an ``embeds``
         config.  Returns ``(hidden [B, S, d], caches, aux)``, ``aux`` the
-        summed MoE load-balance term (float32 0-dim; 0 without MoE)."""
+        summed MoE load-balance term (float32 0-dim; 0 without MoE).  In
+        train mode under autograd, with ``remat``, each layer runs inside
+        ``torch.utils.checkpoint`` (non-reentrant): its activations are
+        recomputed in the backward, and its MoE drops are counted in the
+        first run only."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
         if mode != "train" and caches is None:
@@ -209,9 +221,14 @@ class Decoder(nn.Module):
                 base.expand(B, S)
         new_caches = [] if caches is not None else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = remat and mode == "train" and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
-            x, cache, a = block(x, cfg, rope_positions, mode, cache, t, valid_from)
+            if remat:
+                x, a = checkpoint(_train_block, block, x, cfg, rope_positions, [True],
+                                  use_reentrant=False)
+            else:
+                x, cache, a = block(x, cfg, rope_positions, mode, cache, t, valid_from)
             if a is not None:
                 aux = aux + a
             if new_caches is not None:
@@ -227,11 +244,34 @@ class Decoder(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         flat = hidden.reshape(-1, hidden.shape[-1])
         if flat.dtype != torch.float32 and flat.is_cuda:
-            logits = torch.mm(flat, w, out_dtype=torch.float32)
+            logits = layers.mm_f32(flat, w)
         else:
             logits = flat.float() @ w.float()
         logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
         return layers.softcap(logits, self.cfg.final_logit_softcap)
+
+    def stacks(self) -> dict:
+        """The reference's period-stacked leaves: ``"layers/block{b}/<path>"``
+        → the names of that parameter in layers ``b, b + P, b + 2P, ...``
+        (P = the pattern's period), over the ``n_periods`` whole periods;
+        the tail's layers and the top-level parameters are leaves of their
+        own.  The Adafactor update spans each such leaf, as the reference's."""
+        P = len(self.cfg.layer_pattern)
+        out: dict = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers" and int(parts[1]) < P * self.cfg.n_periods:
+                key = f"layers/block{int(parts[1]) % P}/" + "/".join(parts[2:])
+                out.setdefault(key, []).append(name)
+        return out
+
+    def trainable(self) -> dict:
+        """The parameters by name, each set to require grad (the train
+        state's ``params``: the module's own tensors, not copies)."""
+        params = dict(self.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        return params
 
     def prefill(self, inputs, caches, valid_from=None, rope_positions=None):
         """inputs: token ids [B, S] or embeddings [B, S, d] → last-position
@@ -247,3 +287,59 @@ class Decoder(nn.Module):
         hidden, caches, _ = self.forward_hidden(inputs, mode="decode", caches=caches, t=t,
                                                 rope_positions=rope_positions)
         return self.logits_for(hidden), caches
+
+
+def _train_block(block: Block, x, cfg: ModelConfig, rope_pos, first: list):
+    """One train-mode layer inside ``torch.utils.checkpoint``: ``first``
+    holds True for the forward's run and False once it ran, so the
+    backward's recompute does not count the layer's MoE drops again."""
+    count, first[0] = first[0], False
+    x, _, aux = block(x, cfg, rope_pos, "train", None, None, None, count_drops=count)
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(model: Decoder, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one chunk: fp32 logits (with the
+    final softcap), log-sum-exp minus the gold logit."""
+    logits = model.logits_for(hidden)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).sum()
+
+
+def lm_loss(model: Decoder, hidden: torch.Tensor, labels: torch.Tensor, *,
+            seq_chunk: int = 512) -> torch.Tensor:
+    """The reference's ``lm_loss``: cross-entropy over the sequence in
+    chunks of ``min(seq_chunk, S)`` positions, the remainder unchunked,
+    summed in float32 and divided by ``B·S``, so ``[B, S, V]`` logits are
+    never whole.  Under autograd each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``): one chunk's logits live at a time."""
+    B, S, _ = hidden.shape
+    chunk = min(seq_chunk, S)
+    bounds = [(lo, lo + chunk) for lo in range(0, S - S % chunk, chunk)]
+    if S % chunk:
+        bounds.append((S - S % chunk, S))
+    remat = torch.is_grad_enabled() and hidden.requires_grad
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo, hi in bounds:
+        h, y = hidden[:, lo:hi], labels[:, lo:hi]
+        nll = (checkpoint(_chunk_nll, model, h, y, use_reentrant=False) if remat
+               else _chunk_nll(model, h, y))
+        total = total + nll
+    return total / (B * S)
+
+
+def train_loss_fn(model: Decoder, batch: dict, aux_weight: float = 0.01):
+    """The reference's ``train_loss_fn``: the train-mode forward of
+    ``batch["inputs"]`` (token ids, or embeddings for an ``embeds`` config;
+    ``batch["positions"]`` for M-RoPE), :func:`lm_loss` against
+    ``batch["labels"]`` plus ``aux_weight`` times the summed MoE
+    load-balance term.  Returns ``(loss, {"xent", "moe_aux"})``."""
+    hidden, _, aux = model.forward_hidden(batch["inputs"], mode="train",
+                                          rope_positions=batch.get("positions"))
+    loss = lm_loss(model, hidden, batch["labels"])
+    return loss + aux_weight * aux, {"xent": loss, "moe_aux": aux}

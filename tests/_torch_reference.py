@@ -23,6 +23,13 @@ from repro_torch.interop import context_from_arrays
 
 CPU = torch.device("cpu")
 
+# One intra-op thread in the port's test processes: the suite runs six
+# pytest workers on eight cores, where torch's default of a thread per core
+# spends the shared cores in spin-waits (tests/test_torch_rule_bases.py
+# alone in one process: 478 s of CPU for 164 s of wall at eight threads,
+# 335 s for 250 s at one; under six workers the CPU time is what counts).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_reference():
@@ -430,12 +437,60 @@ def lm_constants() -> dict:
     return out
 
 
+def train_constants() -> dict:
+    """The reference losses of chip_smoke.py's reduced train phase (19).
+
+    For each arch of ``repro.configs``, ``reduced()``: the JAX package's
+    jitted ``make_train_step`` with the arch plan's optimizer at
+    ``warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_REDUCED_STEPS)`` on the
+    numpy parity tree ``numpy_params(cfg, LM_SEED)`` and the step-indexed
+    corpus at ``TRAIN_REDUCED_SHAPE`` (seed 0), each step's loss.  Needs no
+    jax binding; a minute or two on a CPU.  Run it as
+    ``PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_torch_reference.py train``
+    and copy the printed JSON into chip_smoke.py's
+    ``TRAIN_REDUCED_EXPECTED``."""
+    import sys
+    from pathlib import Path
+
+    import jax.numpy as jnp
+
+    from repro.configs import ARCH_IDS, get_config, get_plan
+    from repro.data.lm_data import make_batch_iterator
+    from repro.models.config import ShapeConfig
+    from repro.train.optim import get_optimizer, warmup_cosine
+    from repro.train.step import make_train_step
+    from repro_torch.interop import numpy_params
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    out = {}
+    shape = ShapeConfig("reduced", "train", *cs.TRAIN_REDUCED_SHAPE)
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        opt = get_optimizer(get_plan(arch).optimizer,
+                            warmup_cosine(cs.TRAIN_LR, cs.TRAIN_WARMUP, cs.TRAIN_REDUCED_STEPS))
+        params = jax.tree_util.tree_map(jnp.asarray, numpy_params(cfg, cs.LM_SEED))
+        state = {"params": params, "opt": opt.init(params), "step": jnp.zeros((), jnp.int32)}
+        step = jax.jit(make_train_step(cfg, opt, None))
+        it = make_batch_iterator(cfg, shape, seed=0)
+        losses = []
+        for _ in range(cs.TRAIN_REDUCED_STEPS):
+            _, batch = next(it)
+            state, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()})
+            losses.append(float(metrics["loss"]))
+        out[arch] = losses
+    return out
+
+
 if __name__ == "__main__":
     import json
     import sys
 
     if sys.argv[1:] == ["lm"]:
         print(json.dumps(lm_constants()))
+    elif sys.argv[1:] == ["train"]:
+        print(json.dumps(train_constants()))
     elif sys.argv[1:] == ["cand"]:
         print(json.dumps(cand_constants(), indent=1))
     elif sys.argv[1:] == ["async"]:

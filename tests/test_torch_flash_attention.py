@@ -24,6 +24,8 @@ from repro.models.attention import blockwise_attention as ref_blockwise
 from repro_torch import kernels
 from repro_torch.kernels import flash_attention as fa
 
+import _torch_reference  # noqa: F401,E402  (one torch thread per test process)
+
 REF_CASES = [  # tests/test_flash_attention.py::test_flash_matches_oracle
     (2, 4, 2, 64, 64, 16, True, None, None),
     (1, 6, 2, 100, 100, 32, True, 32, None),

@@ -47,6 +47,8 @@ from repro_torch.models.transformer import Decoder
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.serve.engine import left_pad
 
+import _torch_reference  # noqa: F401,E402  (one torch thread per test process)
+
 ARCHS = ["recurrentgemma-2b", "mamba2-370m", "arctic-480b", "llama4-scout-17b-a16e",
          "qwen2-vl-72b", "musicgen-large"]
 TOL = dict(atol=2e-5, rtol=2e-5)

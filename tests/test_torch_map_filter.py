@@ -345,7 +345,7 @@ def test_multi_shard_runs_launch_no_kernel_on_the_cpu():
     assert [k.launches for k in kernels.KERNELS] == [0] * len(kernels.KERNELS)
     assert {k.__name__ for k in kernels.KERNELS} == {
         "closure", "fused_step", "map_closure", "filter_step", "contains_topk", "rules_topk",
-        "flash_attention", "blockwise_attention"}
+        "flash_attention", "blockwise_attention", "attention_backward"}
 
 
 def _bits(*shape, dtype=torch.int32):

@@ -28,6 +28,8 @@ from repro_torch.kernels import closure as kclosure
 from repro_torch.kernels import frontier as fkern
 from repro_torch.launch import fca
 
+import _torch_reference  # noqa: F401,E402  (one torch thread per test process)
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
