@@ -10,8 +10,9 @@ checks, on the card:
   2. build   — every kernel source, one ``nvcc`` per source, in parallel;
      each library's ptxas report, kept beside it (read whether the library
      was built now or before), in which every instantiation of K7's bf16
-     body and of K1/K2/K3's tensor-core body must show no stack frame and
-     no spill stores or loads;
+     body, of K7b's two bf16 passes and of K1/K2/K3's tensor-core body
+     (``PTXAS_BODIES``) must show no stack frame and no spill stores or
+     loads;
   3. kernels — K1 (closure), K2 (fused frontier step), K3 (multi-shard
      map), K4 (multi-shard filter), K5 (contains top-k) and K6 (rules
      top-k) against their plain PyTorch versions on seeded inputs, bit for
@@ -218,8 +219,11 @@ checks, on the card:
      ``K7B_SHAPES`` (gemma2-9b's heads with the cap, its 4096 window
      reached, and S 1, 7, 130; recurrentgemma-2b's G 10 and window 2048;
      llama4-scout's G 5, hd 128; musicgen-large's G 1, hd 64; hd 24 and 8,
-     zero-padded in the bf16 body, at G 3), float32 and bfloat16, within ``K7B_TOL`` and ``K7B_MIN_COS``; every case run twice
-     on the same inputs, bit-equal (no atomics); K7's log-sum-exp against
+     zero-padded in the bf16 body, at G 3; the bf16 passes' tile edges,
+     S 31-33, 63-65 and 127-129 at hd 256 and 128 with G 1, 3 and 5 and
+     windows ending inside a key tile), float32 and bfloat16, within
+     ``K7B_TOL`` and ``K7B_MIN_COS``; every case run twice on the same
+     inputs, bit-equal (no atomics); K7's log-sum-exp against
      torch.logsumexp;
   19. training, reduced — the ten configs ``reduced()`` train 3 steps
      through the Trainer with the arch plan's optimizer on the numpy weights
@@ -256,9 +260,10 @@ checks, on the card:
      19's and 20's train steps.  K7b's record (``attention_backward``):
      its time at gemma2-9b's full-width layer (``K7B_TIMED``, the cap)
      beside autograd through the plain version and its bound (10 hd
-     operations per valid pair at the bf16 tensor-core rate), and SDPA's
-     backward on the cap-free shape as ``library_ms``; its launches those
-     of phases 19 and 20.
+     operations per valid pair at the bf16 tensor-core rate), its three
+     passes apart (``dot_ms``, ``dkdv_ms``, ``dq_ms``: CUDA events around
+     each launch), and SDPA's backward on the cap-free shape as
+     ``library_ms``; its launches those of phases 19 and 20.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -764,10 +769,15 @@ LM_STATE_SPLIT = (768, 1024)
 # window, cap, sequence lengths): gemma2-9b (G 2, the cap, its 4096 window
 # reached at S 4100) with the odd lengths 1, 7 and 130; recurrentgemma-2b
 # (G 10, window 2048, reached at 2100); llama4-scout (G 5, hd 128) and
-# musicgen-large (G 1, hd 64); and two edge shapes of the bf16 tensor-core
-# body, whose head dim is zero-padded to a compiled width (hd 24 to 32,
-# hd 8 to 16), at odd G, a window that ends inside a key tile and lengths
-# beside its 32-key and 64-row tiles.  Batch 2 below 1024 positions, else 1.
+# musicgen-large (G 1, hd 64); two edge shapes whose head dim the bf16
+# body zero-pads to a compiled width (hd 24 to 32, hd 8 to 16); and the
+# edges of the bf16 passes' tiles at hd 256 and 128, G 1, 3 and 5: S one
+# below, at and one above 32 (a warpgroup's rows of a dK/dV stage, the dQ
+# pass's key stage at hd 256), 64 (the dK/dV pass's key tile and query
+# stage, a dQ warpgroup's rows) and 128 (a G 1 dQ CTA's rows), windows of
+# 40 and 100 that end inside a 64-key tile.  Batch 2 below 1024 positions,
+# else 1.
+K7B_EDGE_LENGTHS = (31, 32, 33, 63, 64, 65, 127, 128, 129)
 K7B_SHAPES = (
     ("gemma2-9b", 16, 8, 256, 4096, 50.0, (1, 7, 130, 1024, 4100)),
     ("recurrentgemma-2b", 10, 1, 256, 2048, None, (130, 2100)),
@@ -775,6 +785,12 @@ K7B_SHAPES = (
     ("musicgen-large", 32, 32, 64, None, None, (1024,)),
     ("edge hd 24", 6, 2, 24, 33, 30.0, (65, 200)),
     ("edge hd 8", 3, 1, 8, None, None, (129,)),
+    ("edge hd 256 G 1", 2, 2, 256, 40, 50.0, K7B_EDGE_LENGTHS),
+    ("edge hd 256 G 3", 3, 1, 256, None, None, (63, 64, 65, 129)),
+    ("edge hd 256 G 5", 10, 2, 256, 100, 30.0, (33, 65, 200)),
+    ("edge hd 128 G 1", 4, 4, 128, None, 50.0, K7B_EDGE_LENGTHS),
+    ("edge hd 128 G 3", 6, 2, 128, 40, None, (65, 129)),
+    ("edge hd 128 G 5", 5, 1, 128, 100, None, (33, 64, 200)),
 )
 # K7b and the plain version's autograd compute one function in another sum
 # order (float32: both accumulate in float32, ~1e-6 of the largest
@@ -2850,12 +2866,13 @@ def check_attention_edges(device) -> list[dict]:
 
 
 # The kernel bodies whose every instantiation must show no stack and no
-# spills in its library's ptxas report: K7's bf16 body (one per head-dim
-# width) and K1/K2/K3's tensor-core body (per W, map or fused, ICEBERG, CBO).
-PTXAS_BODIES = {"flash_fwd_wgmma_kernel": "attention", "closure_tc_kernel": "frontier"}
-# K7b's bf16 tensor-core passes (one per head-dim width), reported beside
-# them: a first design, not yet held to the rule
-PTXAS_REPORTED = {"bwd_dkdv_tc_kernel": "attention", "bwd_dq_tc_kernel": "attention"}
+# spills in its library's ptxas report, with the number of instantiations:
+# K7's bf16 body and K7b's two bf16 passes (one per head-dim width) and
+# K1/K2/K3's tensor-core body (per W, map or fused, ICEBERG, CBO).
+PTXAS_BODIES = {"flash_fwd_wgmma_kernel": ("attention", 5),
+                "bwd_dkdv_wgmma_kernel": ("attention", 5),
+                "bwd_dq_wgmma_kernel": ("attention", 5),
+                "closure_tc_kernel": ("frontier", 5 * TC_MAX_W)}
 
 
 def body_ptxas(report: str, kernel: str) -> dict:
@@ -4227,6 +4244,15 @@ def time_attention_backward(device, launches: int, check_records: list) -> dict:
     out, lse = fa._blockwise_forward(q, k, v, None, 50.0, lse=True)
     ms = cuda_time_ms(lambda: fa.attention_backward(q, k, v, out, lse, dout, window=None,
                                                     logit_cap=50.0), reps=5, warmup=1)
+    # the three passes apart: events before the first launch and after each
+    passes = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        fa.attention_backward(q, k, v, out, lse, dout, window=None, logit_cap=50.0, events=ev)
+        ev[3].synchronize()
+        passes.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    pass_ms = [statistics.median(p[i] for p in passes) for i in range(3)]
     got = fa.attention_backward(q, k, v, out, lse, dout, window=None, logit_cap=50.0)
     want = fa.attention_backward_plain(q, k, v, dout, window=None, logit_cap=50.0)
     err = k7b_require("K7b at the timed shape", got, want, dout, v, "bfloat16")
@@ -4256,6 +4282,7 @@ def time_attention_backward(device, launches: int, check_records: list) -> dict:
             "replaces": "src/repro/models/attention.py:73", "launches": launches,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "bound_share": bound_ms / ms,
+            "dot_ms": pass_ms[0], "dkdv_ms": pass_ms[1], "dq_ms": pass_ms[2],
             "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd, "cap": 50.0,
                       "dtype": "bfloat16"},
             "rel_err": err["rel_err"], "cos": err["cos"],
@@ -4911,15 +4938,12 @@ def main() -> int:
     # library in use (built now or before): registers, and no stack frame,
     # spill stores or spill loads in any instantiation
     bodies = {kernel: body_ptxas(_build.ptxas_report(source), kernel)
-              for kernel, source in PTXAS_BODIES.items()}
-    emit({"phase": "ptxas", **bodies,
-          **{kernel: body_ptxas(_build.ptxas_report(source), kernel)
-             for kernel, source in PTXAS_REPORTED.items()}})
-    want = {"flash_fwd_wgmma_kernel": 5, "closure_tc_kernel": 5 * TC_MAX_W}
+              for kernel, (source, _) in PTXAS_BODIES.items()}
+    emit({"phase": "ptxas", **bodies})
     for kernel, body in bodies.items():
-        if len(body) != want[kernel]:
+        if len(body) != PTXAS_BODIES[kernel][1]:
             raise AssertionError(f"the ptxas report holds {len(body)} instantiations of "
-                                 f"{kernel}, not {want[kernel]}")
+                                 f"{kernel}, not {PTXAS_BODIES[kernel][1]}")
         spilled = [n for n, r in body.items()
                    if r["stack"] or r["spill_stores"] or r["spill_loads"]]
         if spilled:

@@ -55,7 +55,6 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "hopper.cuh"
 
@@ -371,15 +370,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// the key tiles [lo, hi) that rows [qa, qa + 64) of a query tile may see
+// the key tiles of BK keys [lo, hi) that rows [qa, qa + 64) of a query tile may see
+template <int BK = TC_BK>
 __device__ __forceinline__ void key_tiles(int qa, int S, int T_, int vf, int causal, int window,
                                           int& lo, int& hi)
 {
     int k_lo = vf, k_hi = T_;
     if (causal) k_hi = min(k_hi, min(qa + TC_BQ, S));
     if (window >= 0) k_lo = max(k_lo, qa - window + 1);
-    lo = k_lo < k_hi ? k_lo / TC_BK : 0;
-    hi = k_lo < k_hi ? (k_hi + TC_BK - 1) / TC_BK : 0;
+    lo = k_lo < k_hi ? k_lo / BK : 0;
+    hi = k_lo < k_hi ? (k_hi + BK - 1) / BK : 0;
 }
 
 // One key tile of one consumer warpgroup: this thread's rows are i0 and
@@ -661,10 +661,10 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, floa
 
 // The 4-D map (hd, rows, heads, B) of a bf16 tensor [B][heads][rows][hd]
 // with element strides (sb, sh, sr) and a contiguous hd axis; boxes of
-// Tc<HDP>::BOXC columns by 64 rows.  Returns 0, or an error code to raise.
+// Tc<HDP>::BOXC columns by box_rows rows.  Returns 0, or an error code to raise.
 template <int HDP>
 static int tile_map(CUtensorMap* map, const void* ptr, int B, int heads, int rows, int hd,
-                    long long sb, long long sh, long long sr)
+                    long long sb, long long sh, long long sr, int box_rows = TC_BK)
 {
     using C = Tc<HDP>;
     const EncodeTiled encode = encode_tiled();
@@ -672,7 +672,7 @@ static int tile_map(CUtensorMap* map, const void* ptr, int B, int heads, int row
     const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads,
                                 (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)C::BOXC, (cuuint32_t)TC_BK, 1, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)C::BOXC, (cuuint32_t)box_rows, 1, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -787,24 +787,34 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // summed over the G query heads of a KV head for dK and dV.
 //
 // Three launches on the caller's stream: bwd_dot_kernel, D [B, H, S]
-// float32 (one warp per row); a dK/dV pass with one CTA per (key tile, KV
-// head, b): the K and V tiles stay in shared memory while the CTA walks the
-// G query heads and every query tile that can see the keys (the causal
-// diagonal and the window cut the walk), so a KV head's dK and dV are
-// summed inside the CTA; a dQ pass with one CTA per (query tile, head, b):
-// Q and dO stay in shared memory while it walks the key tiles the rows can
-// see.  Each output element is summed by one thread (or one warp's
-// fragment) in a fixed order: no atomics, so two runs on the same inputs
-// give the same bits.  The scores and dP are recomputed in both passes
-// (14 hd operations per valid pair against the 10 hd of the function).
+// float32 (one warp per row); a dK/dV pass over key tiles, whose CTA keeps
+// its K and V tiles in shared memory while it walks the G query heads and
+// every query tile that can see the keys (the causal diagonal and the
+// window cut the walk), so a KV head's dK and dV are summed inside one CTA;
+// a dQ pass over query tiles, whose CTA keeps Q and dO while it walks the
+// key tiles the rows can see.  The scores and dP are computed in both
+// passes (14 hd operations per valid pair against the 10 hd of the
+// function): the price of keeping dQ out of atomics.  Determinism: each
+// output element is summed by one thread (one accumulator register) in a
+// fixed order, the heads and then the query tiles for dK and dV, the key
+// tiles for dQ; no float atomic and no order that depends on scheduling
+// enters a sum, so two runs on the same inputs give the same bits.
 //
 // What bounds it on the H100: the five products, 10 hd operations per valid
 // pair (2.5 x the forward's 4 hd), against 989 TFLOP/s of bf16 tensor
-// cores; the tensors cross device memory once each.  Two bodies:
-//   bfloat16 (training at the model's dtype) — bwd_*_tc_kernel below: the
-//   products on the tensor cores through WMMA (m16n16k16, float32 sums),
-//   every tile staged in shared memory, 8 warps; a first tensor-core design
-//   (no TMA, no wgmma, no overlap of loads and products).
+// cores; the tensors cross device memory once each, far less at any
+// training length.  Beside the products every pair takes, in each pass, an
+// exp2, with the gemma2 cap an exact tanhf, and about a dozen FMAs on the
+// FMA pipes: on the capped layers of the same order as the products, so
+// none of it may go through shared memory.  Two bodies:
+//   bfloat16 (training at the model's dtype) — bwd_dkdv_wgmma_kernel and
+//   bwd_dq_wgmma_kernel below, K7's warp-specialised CTA: every product on
+//   wgmma, its operands loaded by TMA through rings of stages that overlap
+//   the copies with the products; the elementwise step in registers on the
+//   accumulator fragments, masked only on tiles that cross a boundary; only
+//   P^T and dS^T cross shared memory, as bf16 operands of the dK/dV pass's
+//   products.  p is rounded to bf16 before dV (K7's rounding), dS before
+//   dK and dQ (the price of the tensor cores).
 //   float32 (the reduced configs and the parity cases) — bwd_dkdv_kernel
 //   and bwd_dq_kernel: every product on the FMA pipes, 256 threads on
 //   32 x 32 tiles, each thread 4 scores in the score phase and 32 dK + 32 dV
@@ -864,7 +874,7 @@ __device__ __forceinline__ void bw_tile(float* dst, const float* src, int r0, in
 __device__ __forceinline__ void bw_scores(const float* qs, const float* dos, const float* ks,
                                           const float* vs, const float* lse_s, const float* d_s,
                                           float* ps, float* dss, int i0, int j0, int S, int T_,
-                                          int vf, int hd, int causal, int window, float cap,
+                                          int hd, int causal, int window, float cap,
                                           float scale)
 {
     const int ld = hd + 1;
@@ -885,7 +895,7 @@ __device__ __forceinline__ void bw_scores(const float* qs, const float* dos, con
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
         const int c = c0 + 8 * n, j = j0 + c;
-        bool ok = i < S && j < T_ && j >= vf;
+        bool ok = i < S && j < T_;
         if (causal) ok = ok && j <= i;
         if (window >= 0) ok = ok && i - j < window;
         const float x = sx[n] * scale;
@@ -906,8 +916,7 @@ __global__ void __launch_bounds__(BW_THREADS)
 bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dsum,
-                float* __restrict__ dk, float* __restrict__ dv,
-                const int* __restrict__ valid_from, int G, int S, int T_, int hd,
+                float* __restrict__ dk, float* __restrict__ dv, int G, int S, int T_, int hd,
                 long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
                 long long kst, int causal, int window, float cap, float scale)
 {
@@ -924,16 +933,15 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     const int kvh = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * BW_BK;
     const int H = gridDim.y * G;
-    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
     const float* kb = k + b * ksb + kvh * ksh;
     const float* vb = v + b * ksb + kvh * ksh;
     bw_tile(ks, kb, j0, T_, hd, kst, BW_BK);
     bw_tile(vs, vb, j0, T_, hd, kst, BW_BK);
 
     // the query rows that may see keys [j0, j0 + BW_BK): [i_lo, i_hi)
-    int i_lo = causal ? j0 : 0, i_hi = S;
+    const int i_lo = causal ? j0 : 0;
+    int i_hi = S;
     if (window >= 0) i_hi = min(i_hi, j0 + BW_BK - 1 + window);
-    i_lo = max(i_lo, vf);
 
     const int c = threadIdx.x >> 3, e0 = threadIdx.x & 7;  // sum phase: key c, columns e0 + 8jj
     float adk[HDMAX / 8], adv[HDMAX / 8];
@@ -956,7 +964,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 d_s[threadIdx.x] = i < S ? drow[i] : 0.f;
             }
             __syncthreads();
-            bw_scores(qs, dos, ks, vs, lse_s, d_s, ps, dss, i0, j0, S, T_, vf, hd, causal,
+            bw_scores(qs, dos, ks, vs, lse_s, d_s, ps, dss, i0, j0, S, T_, hd, causal,
                          window, cap, scale);
             __syncthreads();
             for (int r = 0; r < BW_BQ; ++r) {
@@ -992,8 +1000,7 @@ __global__ void __launch_bounds__(BW_THREADS)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ dsum,
-              float* __restrict__ dq,
-              const int* __restrict__ valid_from, int G, int S, int T_, int hd, long long qsb,
+              float* __restrict__ dq, int G, int S, int T_, int hd, long long qsb,
               long long qsh, long long qss, long long ksb, long long ksh, long long kst,
               int causal, int window, float cap, float scale)
 {
@@ -1010,7 +1017,6 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int h = blockIdx.y, b = blockIdx.z;
     const int i0 = (gridDim.x - 1 - blockIdx.x) * BW_BQ;  // the longest rows first
     const int H = gridDim.y;
-    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
     const float* qb = q + b * qsb + h * qsh;
     const float* db = dout + b * qsb + h * qsh;
     const float* kb = k + b * ksb + (h / G) * ksh;
@@ -1025,7 +1031,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // the keys rows [i0, i0 + BW_BQ) may see: [j_lo, j_hi)
     const int i_last = min(i0 + BW_BQ, S) - 1;
-    int j_lo = vf, j_hi = T_;
+    int j_lo = 0, j_hi = T_;
     if (causal) j_hi = min(j_hi, i_last + 1);
     if (window >= 0) j_lo = max(j_lo, i0 - window + 1);
 
@@ -1034,12 +1040,12 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < HDMAX / 8; ++jj) adq[jj] = 0.f;
 
-    for (int j0 = (max(j_lo, 0) / BW_BK) * BW_BK; j0 < j_hi; j0 += BW_BK) {
+    for (int j0 = (j_lo / BW_BK) * BW_BK; j0 < j_hi; j0 += BW_BK) {
         __syncthreads();  // the previous tile's readers are done (and Q, dO landed)
         bw_tile(ks, kb, j0, T_, hd, kst, BW_BK);
         bw_tile(vs, vb, j0, T_, hd, kst, BW_BK);
         __syncthreads();
-        bw_scores(qs, dos, ks, vs, lse_s, d_s, nullptr, dss, i0, j0, S, T_, vf, hd, causal,
+        bw_scores(qs, dos, ks, vs, lse_s, d_s, nullptr, dss, i0, j0, S, T_, hd, causal,
                      window, cap, scale);
         __syncthreads();
         const float* dsrow = dss + r * (BW_BK + 1);
@@ -1062,351 +1068,705 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: the products on the tensor cores (WMMA, m16n16k16, float32 sums)
+// bfloat16: two warp-specialised wgmma passes behind TMA rings
 //
-// The same two passes, with every tile staged in shared memory: bf16 Q, dO,
-// K and V tiles (rows of HDP = hd rounded up to 16, zero-filled past hd and
-// past S or T, padded by 8 elements against bank conflicts), float32 score
-// and dP tiles out of the products, and the elementwise step writing P and
-// dS back as bf16 tiles for the next products (P rounded to V's type, as
-// K7 rounds it; dS rounded too, the price of the tensor cores).  8 warps.
-//   bwd_dkdv_tc_kernel: 32 keys a CTA; per 64-row query tile S^T and dP^T
-//     (one 16 x 16 tile a warp), then dV += P^T dO and dK += dS^T Q, each
-//     warp holding up to 4 + 4 accumulator tiles of the 32 x HDP outputs in
-//     registers across the G heads and query tiles.
-//   bwd_dq_tc_kernel: 64 query rows a CTA; per 64-key tile S and dP (two
-//     tiles a warp), then dQ += dS K, up to 8 accumulator tiles a warp.
-// Each output element is summed by one warp in a fixed order: no atomics.
+// Both passes take K7's CTA (TC_THREADS: two consumer warpgroups and a
+// producer warpgroup whose registers go to the consumers by setmaxnreg),
+// its tensor maps (boxes of Tc<HDP>::BOXC columns, swizzled as wgmma reads
+// them, zero-filled past hd, S and T) and its operand descriptors.
+//
+// dK/dV pass (bwd_dkdv_wgmma_kernel): one CTA per (KV head, b, 64-key
+// tile), the key tiles with the most query tiles (the first, under causal
+// masking) issued first.  The producer warp loads K and V once, then
+// streams the 64-row Q and dO tiles through a ring of Bk<HDP>::STAGES
+// stages over the G query heads and the query tiles that can see the keys
+// (causal, window and S cut the walk); its lanes stage each tile's lse (in
+// the exp2 domain) and D beside it.  Per stage each consumer warpgroup
+// computes S^T = K Q^T and dP^T = V dO^T (m64n32, both operands K-major)
+// for its 32 of the 64 rows, runs the elementwise step on the accumulator
+// fragments (the per-element mask only on tiles that cross the diagonal,
+// the window edge, S or T), and writes its bf16 P^T and dS^T columns into
+// two 128-byte-swizzled exchange tiles [64 keys][64 rows] (double-buffered
+// by stage parity); the warpgroups meet at a named barrier, and then
+// warpgroup 0 takes dV += P^T dO and warpgroup 1 dK += dS^T Q (m64n{HDP},
+// A the exchange tile, B read MN-major from the stage, as K7 reads V).
+// Each warpgroup holds one 64 x HDP float32 accumulator (HDP / 2 registers
+// a thread); every score product is computed once.
+//
+// dQ pass (bwd_dq_wgmma_kernel): one CTA per (KV head and query-head pair,
+// b, query tile), the longest rows first, as K7's forward: the consumer
+// warpgroups own two query heads of one KV head at the same 64 rows (G >= 2;
+// odd G leaves the last pair's second warpgroup idle) or two 64-row tiles
+// of one head (G = 1).  Q and dO stay resident, with each row's lse and D
+// in registers; K and V stream through a ring of Bq<HDP>::BK-key stages (32
+// keys at HDP 256, where Q and dO of two heads take 128 KB; 64 below).
+// Per stage: S = Q K^T and dP = dO V^T, the elementwise step in registers,
+// dS rounded to bf16 and repacked as the register A operand, dQ += dS K
+// with K read MN-major.
 // ---------------------------------------------------------------------------
 
-#define TB_BK 32
-#define TB_BQ 64
-#define TB_WARPS 8
+#define BB_ROWS 64  // keys of a dK/dV CTA; rows of a dK/dV stage and of a dQ warpgroup
 
-template <int HDP> struct Tb {
-    static constexpr int LDH = HDP + 8;    // bf16 row stride of Q, dO, K, V tiles
-    static constexpr int LDS = 64 + 4;     // float32 row stride of score tiles
-    static constexpr int LDP = 64 + 8;     // bf16 row stride of P, dS tiles
+template <int HDP> struct Bk {  // the dK/dV pass
+    using C = Tc<HDP>;
+    static constexpr int STAGES = HDP == 256 ? 2 : 4;
+    static constexpr int XT = 64 * 128;  // bytes of one [64 keys][64 rows] bf16 exchange tile
+    // the alignment slack, K, V, the stages' Q and dO, the exchange tiles
+    // [2][P^T, dS^T], the stages' lse and D [64] float32, kvfull full[STAGES]
+    // empty[STAGES]: 231,464 bytes at HDP 256 (two stages), 199,752 at 128 (four)
+    static constexpr size_t SMEM = 1024 + (size_t)(2 + 2 * STAGES) * C::TILE + 4 * XT +
+                                   512 * STAGES + 8 * (1 + 2 * STAGES);
 };
 
-// rows [0, rows) of a bf16 tile of HDP columns from src (row stride rs,
-// hd valid columns, rows r0 + r < n_valid), 16 bytes at a time
-__device__ __forceinline__ void tb_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
-                                        int r0, int n_valid, int hd, int hdp, long long rs,
-                                        int rows)
+template <int HDP> struct Bq {  // the dQ pass
+    using C = Tc<HDP>;
+    static constexpr int BK = HDP == 256 ? 32 : 64;  // keys of one stage
+    static constexpr int KBOX = BK * C::RB;          // bytes of one box of BK rows
+    static constexpr int KTILE = C::NBOX * KBOX;
+    static constexpr int STAGES = HDP == 256 ? 3 : 4;
+    // the alignment slack, Q [2], dO [2], the stages' K and V, full[STAGES]
+    // empty[STAGES] qfull[2]: 230,464 bytes at HDP 256, 197,712 at 128
+    static constexpr size_t SMEM =
+        1024 + 4 * (size_t)C::TILE + 2 * (size_t)STAGES * KTILE + 8 * (2 * STAGES + 2);
+};
+
+// S^T (+)= K.Q^T over 32 rows (dK/dV pass) and S (+)= Q.K^T over 32 keys
+// (dQ pass at HDP 256): m64n32k16, both operands K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d)
 {
-    const int chunks = hdp / 8;
-    for (int idx = threadIdx.x; idx < rows * chunks; idx += TB_WARPS * 32) {
-        const int r = idx / chunks, c = (idx - r * chunks) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < n_valid && c < hd)
-            v = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rs + c);
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    }
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : WG_F16(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// the elementwise step on a [rows][64] float32 pair (S, dP) whose element
-// (a, b) is query qi(a, b), key kj(a, b): P (rounded) to pb, dS (scale and
-// the cap's derivative folded in) to dsb; lse and D by query row
-template <bool KEY_ROWS>
-__device__ __forceinline__ void tb_softmax_grad(const float* ss, const float* dps, int lds,
-                                                __nv_bfloat16* pb, __nv_bfloat16* dsb,
-                                                int ldp, int rows, const float* lse_s,
-                                                const float* d_s, int i0, int j0, int S,
-                                                int T_, int vf, int causal, int window,
-                                                float cap, float scale)
+// dV += P^T.dO and dK += dS^T.Q: m64n{N}k16, A K-major and B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[8], uint64_t desc_a, uint64_t desc_b)
 {
-    for (int e = threadIdx.x; e < rows * 64; e += TB_WARPS * 32) {
-        const int a = e >> 6, b = e & 63;
-        const int qr = KEY_ROWS ? b : a;  // the query row within its tile
-        const int i = i0 + qr, j = j0 + (KEY_ROWS ? a : b);
-        bool ok = i < S && j < T_ && j >= vf;
-        if (causal) ok = ok && j <= i;
-        if (window >= 0) ok = ok && i - j < window;
-        const float x = ss[a * lds + b] * scale;
-        float sv = x, dcap = 1.f;
-        if (cap > 0.f) {
-            const float t = tanhf(x / cap);
-            sv = cap * t;
-            dcap = 1.f - t * t;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        " %8, %9, p, 1, 1, 0, 1;\n}\n"
+        : WG_F8(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[16], uint64_t desc_a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, 1;\n}\n"
+        : WG_F16(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t desc_a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : WG_F32(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[64], uint64_t desc_a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63},"
+        " %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : WG_F64(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[128], uint64_t desc_a, uint64_t desc_b)
+{
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127},"
+        " %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : WG_F128(d, 0)
+        : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi)
+{
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One score of the backward from x = q.k and dp = dO.v, with its row's lse
+// (in the exp2 domain, L2) and D: p = exp(s - lse), 0 where masked, and
+// ds = p (dp - D) softcap'(x) scale.  As in K7, s is kept in the exp2
+// domain: cap_l2 tanh(x scale / cap) (exact tanhf) or x scale log2(e).
+__device__ __forceinline__ void bwd_score(float x, float dp, float L2, float D, bool ok,
+                                          float cap_l2, float sc, float scale, float& p,
+                                          float& ds)
+{
+    float s, g = scale;
+    if (cap_l2 > 0.f) {
+        const float t = tanhf(x * sc);
+        s = cap_l2 * t;
+        g = scale * (1.f - t * t);
+    } else {
+        s = x * sc;
+    }
+    p = ok ? exp2f(s - L2) : 0.f;
+    ds = p * (dp - D) * g;
+}
+
+// One stage of the dK/dV pass for consumer warpgroup wg: S^T and dP^T of
+// the CTA's 64 keys against the stage's rows [wg * 32, wg * 32 + 32) (qdesc,
+// ddesc already offset to them), the elementwise step, and P^T and dS^T
+// (bf16) into the exchange tiles at pt and pt + XT.  This thread's keys are
+// kr0 and kr0 + 8 of the tile, its rows wg * 32 + 8n + cq (+ 1).  MASK: the
+// tile crosses the diagonal, the window edge, S or T.
+template <int HDP, bool MASK>
+__device__ __forceinline__ void bk_scores(uint64_t kdesc, uint64_t vdesc, uint64_t qdesc,
+                                          uint64_t ddesc, const float* lds, uint32_t pt,
+                                          int wg, int kr0, int cq, int j0, int i0, int S,
+                                          int T_, int causal, int window, float cap_l2,
+                                          float sc, float scale)
+{
+    using C = Tc<HDP>;
+    float st[16], dpt[16];
+#pragma unroll
+    for (int n = 0; n < 16; ++n) st[n] = dpt[n] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = ((kk / C::KPR) * C::BOX + (kk % C::KPR) * 32) >> 4;
+        wgmma_ss(st, kdesc + off, qdesc + off, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t off = ((kk / C::KPR) * C::BOX + (kk % C::KPR) * 32) >> 4;
+        wgmma_ss(dpt, vdesc + off, ddesc + off, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+        const int c = wg * 32 + 8 * n + cq;  // the stage rows of this block: c, c + 1
+        const float2 L = *reinterpret_cast<const float2*>(lds + c);
+        const float2 D = *reinterpret_cast<const float2*>(lds + 64 + c);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            bool ok = true;
+            if (MASK) {
+                const int i = i0 + c + (e & 1), j = j0 + kr0 + (e < 2 ? 0 : 8);
+                ok = i < S && j < T_;
+                if (causal) ok = ok && j <= i;
+                if (window >= 0) ok = ok && i - j < window;
+            }
+            bwd_score(st[4 * n + e], dpt[4 * n + e], e & 1 ? L.y : L.x, e & 1 ? D.y : D.x, ok,
+                      cap_l2, sc, scale, p[e], ds[e]);
         }
-        const float p = ok ? expf(sv - lse_s[qr]) : 0.f;
-        if (pb != nullptr) pb[a * ldp + b] = __float2bfloat16_rn(p);
-        dsb[a * ldp + b] = __float2bfloat16_rn(p * (dps[a * lds + b] - d_s[qr]) * dcap * scale);
+        // rows kr0 and kr0 + 8 (the same phase of the swizzle), 16-byte chunk
+        // wg * 4 + n of the 128-byte row
+        const uint32_t a0 = pt + kr0 * 128 + (((uint32_t)(wg * 4 + n) ^ (kr0 & 7)) << 4) + cq * 2;
+        st_shared_u32(a0, pack_bf16(p[0], p[1]));
+        st_shared_u32(a0 + 8 * 128, pack_bf16(p[2], p[3]));
+        st_shared_u32(a0 + Bk<HDP>::XT, pack_bf16(ds[0], ds[1]));
+        st_shared_u32(a0 + Bk<HDP>::XT + 8 * 128, pack_bf16(ds[2], ds[3]));
     }
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(TB_WARPS * 32)
-bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ dsum,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                   const int* __restrict__ valid_from, int G, int S, int T_, int hd,
-                   long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-                   long long kst, int causal, int window, float cap, float scale)
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap dmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse,
+                      const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int G, int H, int S, int T_, int hd,
+                      long long ksb, long long ksh, long long kst, int causal, int window,
+                      float cap, float scale)
 {
-    using C = Tb<HDP>;
-    namespace w = nvcuda::wmma;
-    extern __shared__ __align__(128) unsigned char tb_smem[];
-    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(tb_smem);  // [TB_BK][LDH]
-    __nv_bfloat16* vs = ks + TB_BK * C::LDH;                         // [TB_BK][LDH]
-    __nv_bfloat16* qs = vs + TB_BK * C::LDH;                         // [TB_BQ][LDH]
-    __nv_bfloat16* dos = qs + TB_BQ * C::LDH;                        // [TB_BQ][LDH]
-    float* ss = reinterpret_cast<float*>(dos + TB_BQ * C::LDH);      // [TB_BK][LDS]
-    float* dps = ss + TB_BK * C::LDS;                                // [TB_BK][LDS]
-    __nv_bfloat16* pb = reinterpret_cast<__nv_bfloat16*>(dps + TB_BK * C::LDS);  // [TB_BK][LDP]
-    __nv_bfloat16* dsb = pb + TB_BK * C::LDP;                        // [TB_BK][LDP]
-    float* lse_s = reinterpret_cast<float*>(dsb + TB_BK * C::LDP);   // [TB_BQ]
-    float* d_s = lse_s + TB_BQ;                                      // [TB_BQ]
+    using C = Tc<HDP>;
+    using P = Bk<HDP>;
+    extern __shared__ unsigned char tc_smem[];
+    const uint32_t base = smem_u32(tc_smem);
+    const uint32_t k_sm = (base + 1023u) & ~1023u;
+    const uint32_t v_sm = k_sm + C::TILE;
+    const uint32_t q_sm = v_sm + C::TILE;              // [STAGES][TILE]
+    const uint32_t d_sm = q_sm + P::STAGES * C::TILE;  // [STAGES][TILE]
+    const uint32_t x_sm = d_sm + P::STAGES * C::TILE;  // [2][P^T, dS^T]
+    const uint32_t l_sm = x_sm + 4 * P::XT;            // [STAGES][lse 64, D 64]
+    const uint32_t kvfull = l_sm + 512 * P::STAGES;
+    const uint32_t full = kvfull + 8;                  // + 8 s
+    const uint32_t empty = full + 8 * P::STAGES;       // + 8 s
+    float* const l_all = reinterpret_cast<float*>(tc_smem + (l_sm - base));
 
-    const int kvh = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * TB_BK;
-    const int H = gridDim.y * G;
-    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
-    const int warp = threadIdx.x >> 5;
-    tb_tile(ks, C::LDH, k + b * ksb + kvh * ksh, j0, T_, hd, HDP, kst, TB_BK);
-    tb_tile(vs, C::LDH, v + b * ksb + kvh * ksh, j0, T_, hd, HDP, kst, TB_BK);
+    const int kvh = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * BB_ROWS;
+    // the query tiles of each head that can see keys [j0, j0 + 64): nqt from qt_lo
+    const int i_lo = causal ? j0 : 0;
+    int i_hi = S;
+    if (window >= 0) i_hi = min(i_hi, j0 + BB_ROWS - 1 + window);
+    const int qt_lo = i_lo / BB_ROWS;
+    const int nqt = i_lo < i_hi ? (i_hi + BB_ROWS - 1) / BB_ROWS - qt_lo : 0;
+    const int n_it = G * nqt;  // stages: head g = it / nqt, tile qt_lo + it % nqt
 
-    int i_lo = causal ? j0 : 0, i_hi = S;
-    if (window >= 0) i_hi = min(i_hi, j0 + TB_BK - 1 + window);
-    i_lo = max(i_lo, vf);
-
-    // output tiles of [TB_BK][HDP]: t = warp + 8 n
-    constexpr int NT = (TB_BK / 16) * (HDP / 16);
-    constexpr int NTW = (NT + TB_WARPS - 1) / TB_WARPS;
-    w::fragment<w::accumulator, 16, 16, 16, float> adv[NTW], adk[NTW];
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        mbar_init(kvfull, 1);
 #pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-        w::fill_fragment(adv[n], 0.f);
-        w::fill_fragment(adk[n], 0.f);
+        for (int s = 0; s < P::STAGES; ++s) {
+            mbar_init(full + 8 * s, 32);  // the producer warp's lanes, one with the bytes
+            mbar_init(empty + 8 * s, 8);  // each consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    const int skb = warp >> 2, sqb = warp & 3;  // this warp's S^T tile
+    __syncthreads();
 
-    for (int g = 0; g < G; ++g) {
-        const int h = kvh * G + g;
-        const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-        const __nv_bfloat16* db = dout + b * qsb + h * qsh;
-        const float* lrow = lse + ((long long)b * H + h) * S;
-        const float* drow = dsum + ((long long)b * H + h) * S;
-        for (int i0 = (i_lo / TB_BQ) * TB_BQ; i0 < i_hi; i0 += TB_BQ) {
-            __syncthreads();  // the previous tile's readers are done
-            tb_tile(qs, C::LDH, qb, i0, S, hd, HDP, qss, TB_BQ);
-            tb_tile(dos, C::LDH, db, i0, S, hd, HDP, qss, TB_BQ);
-            if (threadIdx.x < TB_BQ) {
-                const int i = i0 + threadIdx.x;
-                lse_s[threadIdx.x] = i < S ? lrow[i] : INFINITY;
-                d_s[threadIdx.x] = i < S ? drow[i] : 0.f;
+    if (tid >= 2 * 128) {
+        // producer warpgroup: its first warp; lane 0 issues every copy
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (tid >= 2 * 128 + 32 || n_it == 0) return;
+        const int lane = tid & 31;
+        if (lane == 0) {
+            mbar_expect_tx(kvfull, 2 * C::TILE);
+#pragma unroll
+            for (int c = 0; c < C::NBOX; ++c) {
+                tma_load(k_sm + c * C::BOX, &kmap, kvfull, c * C::BOXC, j0, kvh, b);
+                tma_load(v_sm + c * C::BOX, &vmap, kvfull, c * C::BOXC, j0, kvh, b);
             }
-            __syncthreads();
-            {   // S^T = K Q^T and dP^T = V dO^T, one 16 x 16 tile each
-                w::fragment<w::accumulator, 16, 16, 16, float> sacc, pacc;
-                w::fill_fragment(sacc, 0.f);
-                w::fill_fragment(pacc, 0.f);
-                w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
-                w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::col_major> fb;
-#pragma unroll 4
-                for (int kk = 0; kk < HDP / 16; ++kk) {
-                    w::load_matrix_sync(fa, ks + skb * 16 * C::LDH + kk * 16, C::LDH);
-                    w::load_matrix_sync(fb, qs + sqb * 16 * C::LDH + kk * 16, C::LDH);
-                    w::mma_sync(sacc, fa, fb, sacc);
-                    w::load_matrix_sync(fa, vs + skb * 16 * C::LDH + kk * 16, C::LDH);
-                    w::load_matrix_sync(fb, dos + sqb * 16 * C::LDH + kk * 16, C::LDH);
-                    w::mma_sync(pacc, fa, fb, pacc);
+        }
+        for (int it = 0; it < n_it; ++it) {
+            const int g = it / nqt, i0 = (qt_lo + it - g * nqt) * BB_ROWS, h = kvh * G + g;
+            const int s = it % P::STAGES;
+            if (it >= P::STAGES) mbar_wait(empty + 8 * s, (it / P::STAGES - 1) & 1);
+            const long long row = ((long long)b * H + h) * S;
+            float* lds = l_all + 128 * s;
+            for (int r = lane; r < BB_ROWS; r += 32) {
+                const int i = i0 + r;
+                lds[r] = i < S ? lse[row + i] * TC_LOG2E : 0.f;
+                lds[64 + r] = i < S ? dsum[row + i] : 0.f;
+            }
+            const uint32_t bar = full + 8 * s;
+            if (lane == 0) {
+                mbar_expect_tx(bar, 2 * C::TILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c) {
+                    tma_load(q_sm + s * C::TILE + c * C::BOX, &qmap, bar, c * C::BOXC, i0, h, b);
+                    tma_load(d_sm + s * C::TILE + c * C::BOX, &dmap, bar, c * C::BOXC, i0, h, b);
                 }
-                w::store_matrix_sync(ss + skb * 16 * C::LDS + sqb * 16, sacc, C::LDS,
-                                     w::mem_row_major);
-                w::store_matrix_sync(dps + skb * 16 * C::LDS + sqb * 16, pacc, C::LDS,
-                                     w::mem_row_major);
+            } else {
+                mbar_arrive(bar);
             }
-            __syncthreads();
-            tb_softmax_grad<true>(ss, dps, C::LDS, pb, dsb, C::LDP, TB_BK, lse_s, d_s, i0, j0,
-                                  S, T_, vf, causal, window, cap, scale);
-            __syncthreads();
-            // dV += P^T dO, dK += dS^T Q over the tile's 64 query rows
+        }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        const int wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
+        const int kr0 = warp * 16 + (lane >> 2);  // this thread's keys: kr0, kr0 + 8
+        const int cq = 2 * (lane & 3);
+        const float cap_l2 = cap > 0.f ? cap * TC_LOG2E : 0.f;
+        const float sc = cap > 0.f ? scale / cap : scale * TC_LOG2E;
+        const uint64_t kdesc = smem_desc<C::LAYOUT>(k_sm, 16, 8 * C::RB);
+        const uint64_t vdesc = smem_desc<C::LAYOUT>(v_sm, 16, 8 * C::RB);
+        // warpgroup 0 sums dV, warpgroup 1 dK: 64 keys x HDP
+        float acc[HDP / 2];
 #pragma unroll
-            for (int n = 0; n < NTW; ++n) {
-                const int t = warp + TB_WARPS * n;
-                if (t >= NT) break;
-                const int kb = t / (HDP / 16), dbk = t - kb * (HDP / 16);
-                w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
-                w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major> fb;
+        for (int n = 0; n < HDP / 2; ++n) acc[n] = 0.f;
+        if (n_it > 0) mbar_wait(kvfull, 0);
+
+        for (int it = 0; it < n_it; ++it) {
+            const int g = it / nqt, i0 = (qt_lo + it - g * nqt) * BB_ROWS;
+            const int s = it % P::STAGES;
+            mbar_wait(full + 8 * s, (it / P::STAGES) & 1);
+            const uint32_t qs = q_sm + s * C::TILE, dos = d_sm + s * C::TILE;
+            const uint32_t pt = x_sm + (it & 1) * 2 * P::XT;
+            const int qa = i0 + wg * 32;  // this warpgroup's rows of the scores: qa .. qa + 31
+            const uint64_t qdesc = smem_desc<C::LAYOUT>(qs + wg * 32 * C::RB, 16, 8 * C::RB);
+            const uint64_t ddesc = smem_desc<C::LAYOUT>(dos + wg * 32 * C::RB, 16, 8 * C::RB);
+            const float* lds = l_all + 128 * s;
+            const bool inner = qa + 32 <= S && j0 + BB_ROWS <= T_ &&
+                               (!causal || j0 + BB_ROWS - 1 <= qa) &&
+                               (window < 0 || qa + 31 - j0 < window);
+            if (inner)
+                bk_scores<HDP, false>(kdesc, vdesc, qdesc, ddesc, lds, pt, wg, kr0, cq, j0, i0,
+                                      S, T_, causal, window, cap_l2, sc, scale);
+            else
+                bk_scores<HDP, true>(kdesc, vdesc, qdesc, ddesc, lds, pt, wg, kr0, cq, j0, i0,
+                                     S, T_, causal, window, cap_l2, sc, scale);
+            // both warpgroups' halves of P^T and dS^T are in place (and visible
+            // to the tensor cores' reads)
+            fence_proxy_async();
+            named_bar_sync(1, 256);
+            // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1) over the
+            // stage's 64 rows; B MN-major: the next 64 columns one box on (LBO),
+            // the next 8 rows 8 rows on (SBO)
+            const uint64_t adesc = smem_desc<1>(pt + wg * P::XT, 16, 8 * 128);
+            const uint64_t bdesc = smem_desc<C::LAYOUT>(wg == 0 ? dos : qs, C::BOX, 8 * C::RB);
+            fence_regs(acc);
+            wgmma_fence();
 #pragma unroll
-                for (int qk = 0; qk < TB_BQ / 16; ++qk) {
-                    w::load_matrix_sync(fa, pb + kb * 16 * C::LDP + qk * 16, C::LDP);
-                    w::load_matrix_sync(fb, dos + qk * 16 * C::LDH + dbk * 16, C::LDH);
-                    w::mma_sync(adv[n], fa, fb, adv[n]);
-                    w::load_matrix_sync(fa, dsb + kb * 16 * C::LDP + qk * 16, C::LDP);
-                    w::load_matrix_sync(fb, qs + qk * 16 * C::LDH + dbk * 16, C::LDH);
-                    w::mma_sync(adk[n], fa, fb, adk[n]);
+            for (int kk = 0; kk < BB_ROWS / 16; ++kk)
+                wgmma_ss_t(acc, adesc + ((uint32_t)(kk * 32) >> 4),
+                           bdesc + ((uint32_t)(kk * 16 * C::RB) >> 4));
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(acc);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * s);
+        }
+
+        __nv_bfloat16* ob = (wg == 0 ? dv : dk) + b * ksb + kvh * ksh;
+        const int j = j0 + kr0;
+#pragma unroll
+        for (int n = 0; n < HDP / 8; ++n) {
+            const int d = n * 8 + cq;
+            if (d >= hd) break;
+            if (j < T_)
+                *reinterpret_cast<__nv_bfloat162*>(ob + j * kst + d) =
+                    __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
+            if (j + 8 < T_)
+                *reinterpret_cast<__nv_bfloat162*>(ob + (j + 8) * kst + d) =
+                    __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
+        }
+    }
+}
+
+// One key stage of the dQ pass for one consumer warpgroup: this thread's
+// rows are i0 and i0 + 8 (lse L0, L1 in the exp2 domain; D0, D1), its keys
+// j0 + 8n + cq (+ 1).  MASK as in bk_scores.
+template <int HDP, bool MASK>
+__device__ __forceinline__ void bq_tile(float (&acc)[HDP / 2], uint64_t qdesc, uint64_t ddesc,
+                                        uint32_t ks, uint32_t vs, int j0, int i0, int cq,
+                                        float L0, float L1, float D0, float D1, int T_,
+                                        int causal, int window, float cap_l2, float sc,
+                                        float scale)
+{
+    using C = Tc<HDP>;
+    using P = Bq<HDP>;
+    constexpr int NS = P::BK / 2;  // score registers a thread
+    float s[NS], dp[NS];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n] = dp[n] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    const uint64_t kdesc = smem_desc<C::LAYOUT>(ks, 16, 8 * C::RB);
+    const uint64_t vdesc = smem_desc<C::LAYOUT>(vs, 16, 8 * C::RB);
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t ao = ((kk / C::KPR) * C::BOX + (kk % C::KPR) * 32) >> 4;
+        const uint32_t bo = ((kk / C::KPR) * P::KBOX + (kk % C::KPR) * 32) >> 4;
+        wgmma_ss(s, qdesc + ao, kdesc + bo, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+        const uint32_t ao = ((kk / C::KPR) * C::BOX + (kk % C::KPR) * 32) >> 4;
+        const uint32_t bo = ((kk / C::KPR) * P::KBOX + (kk % C::KPR) * 32) >> 4;
+        wgmma_ss(dp, ddesc + ao, vdesc + bo, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS rounded to bf16, packed as the A operand: da[2n] row i0, da[2n + 1]
+    // row i0 + 8, of the 8-key block n (K7's packing of P)
+    uint32_t da[NS / 2];
+#pragma unroll
+    for (int n = 0; n < P::BK / 8; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            bool ok = true;
+            if (MASK) {
+                const int i = e < 2 ? i0 : i0 + 8, j = j0 + 8 * n + cq + (e & 1);
+                ok = j < T_;
+                if (causal) ok = ok && j <= i;
+                if (window >= 0) ok = ok && i - j < window;
+            }
+            float p;
+            bwd_score(s[4 * n + e], dp[4 * n + e], e < 2 ? L0 : L1, e < 2 ? D0 : D1, ok, cap_l2,
+                      sc, scale, p, ds[e]);
+        }
+        da[2 * n] = pack_bf16(ds[0], ds[1]);
+        da[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    // dQ += dS K with K MN-major: the next 64 columns one box on, the next 8
+    // keys 8 rows on
+    const uint64_t kmn = smem_desc<C::LAYOUT>(ks, P::KBOX, 8 * C::RB);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P::BK / 16; ++kk) {
+        const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+        wgmma_rs(acc, a, kmn + ((uint32_t)(kk * 16 * C::RB) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap dmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse,
+                    const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int G, int H,
+                    int S, int T_, int hd, long long qsb, long long qsh, long long qss,
+                    int causal, int window, float cap, float scale)
+{
+    using C = Tc<HDP>;
+    using P = Bq<HDP>;
+    extern __shared__ unsigned char tc_smem[];
+    const uint32_t q_sm = (smem_u32(tc_smem) + 1023u) & ~1023u;  // [2][TILE]
+    const uint32_t d_sm = q_sm + 2 * C::TILE;                     // [2][TILE]
+    const uint32_t k_sm = d_sm + 2 * C::TILE;                     // [STAGES][KTILE]
+    const uint32_t v_sm = k_sm + P::STAGES * P::KTILE;            // [STAGES][KTILE]
+    const uint32_t full = v_sm + P::STAGES * P::KTILE;            // + 8 s
+    const uint32_t empty = full + 8 * P::STAGES;                  // + 8 s
+    const uint32_t qfull = empty + 8 * P::STAGES;                 // + 8 w
+
+    const int NP = G == 1 ? 1 : (G + 1) / 2;
+    const int kvh = blockIdx.x / NP, pair = blockIdx.x - kvh * NP, b = blockIdx.y;
+    const int qt = gridDim.z - 1 - blockIdx.z;
+    // the two consumer warpgroups: head, first row, activity, key tiles
+    const int head0 = G == 1 ? kvh : kvh * G + 2 * pair, head1 = G == 1 ? kvh : head0 + 1;
+    const int qa0 = G == 1 ? qt * 2 * BB_ROWS : qt * BB_ROWS, qa1 = G == 1 ? qa0 + BB_ROWS : qa0;
+    const bool act0 = qa0 < S, act1 = (G == 1 || 2 * pair + 1 < G) && qa1 < S;
+    int lo0, hi0, lo1, hi1;
+    key_tiles<P::BK>(qa0, S, T_, 0, causal, window, lo0, hi0);
+    key_tiles<P::BK>(qa1, S, T_, 0, causal, window, lo1, hi1);
+    if (!act1) lo1 = hi1 = 0;
+    int u_lo = INT_MAX, u_hi = 0;  // the union the producer loads
+    if (lo0 < hi0) u_lo = lo0, u_hi = hi0;
+    if (lo1 < hi1) u_lo = min(u_lo, lo1), u_hi = max(u_hi, hi1);
+    if (u_lo >= u_hi) u_lo = u_hi = 0;
+
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+#pragma unroll
+        for (int s = 0; s < P::STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 4 * (act0 + act1));  // each consumer warp releases
+        }
+        mbar_init(qfull, 1);
+        mbar_init(qfull + 8, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (tid >= 2 * 128) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (tid == 2 * 128) {
+            if (lo0 < hi0) {
+                mbar_expect_tx(qfull, 2 * C::TILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c) {
+                    tma_load(q_sm + c * C::BOX, &qmap, qfull, c * C::BOXC, qa0, head0, b);
+                    tma_load(d_sm + c * C::BOX, &dmap, qfull, c * C::BOXC, qa0, head0, b);
+                }
+            }
+            if (lo1 < hi1) {
+                mbar_expect_tx(qfull + 8, 2 * C::TILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c) {
+                    tma_load(q_sm + C::TILE + c * C::BOX, &qmap, qfull + 8, c * C::BOXC, qa1,
+                             head1, b);
+                    tma_load(d_sm + C::TILE + c * C::BOX, &dmap, qfull + 8, c * C::BOXC, qa1,
+                             head1, b);
+                }
+            }
+            for (int t = u_lo; t < u_hi; ++t) {
+                const int i = t - u_lo, s = i % P::STAGES;
+                if (i >= P::STAGES) mbar_wait(empty + 8 * s, (i / P::STAGES - 1) & 1);
+                const uint32_t bar = full + 8 * s;
+                mbar_expect_tx(bar, 2 * P::KTILE);
+#pragma unroll
+                for (int c = 0; c < C::NBOX; ++c) {
+                    tma_load(k_sm + s * P::KTILE + c * P::KBOX, &kmap, bar, c * C::BOXC,
+                             t * P::BK, kvh, b);
+                    tma_load(v_sm + s * P::KTILE + c * P::KBOX, &vmap, bar, c * C::BOXC,
+                             t * P::BK, kvh, b);
                 }
             }
         }
-    }
-    // the accumulators through shared memory (float32 [TB_BK][HDP + 4] each,
-    // over the Q and dO tiles) to dK and dV in bf16
-    __syncthreads();
-    constexpr int LDO = HDP + 4;
-    float* ok_ = reinterpret_cast<float*>(qs);
-    float* ov_ = ok_ + TB_BK * LDO;
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+        const int wg = tid >> 7;
+        if (!(wg == 0 ? act0 : act1)) return;  // odd G: no head for this warpgroup
+        const int head = wg == 0 ? head0 : head1, qa = wg == 0 ? qa0 : qa1;
+        const int my_lo = wg == 0 ? lo0 : lo1, my_hi = wg == 0 ? hi0 : hi1;
+        const int warp = (tid & 127) >> 5, lane = tid & 31;
+        const int i0 = qa + warp * 16 + (lane >> 2);  // rows i0 and i0 + 8
+        const int cq = 2 * (lane & 3);               // keys cq, cq + 1 of each 8
+        const float cap_l2 = cap > 0.f ? cap * TC_LOG2E : 0.f;
+        const float sc = cap > 0.f ? scale / cap : scale * TC_LOG2E;
+        const long long row = ((long long)b * H + head) * S;
+        const float L0 = i0 < S ? lse[row + i0] * TC_LOG2E : 0.f;
+        const float L1 = i0 + 8 < S ? lse[row + i0 + 8] * TC_LOG2E : 0.f;
+        const float D0 = i0 < S ? dsum[row + i0] : 0.f;
+        const float D1 = i0 + 8 < S ? dsum[row + i0 + 8] : 0.f;
+        const uint64_t qdesc = smem_desc<C::LAYOUT>(q_sm + wg * C::TILE, 16, 8 * C::RB);
+        const uint64_t ddesc = smem_desc<C::LAYOUT>(d_sm + wg * C::TILE, 16, 8 * C::RB);
+
+        float acc[HDP / 2];
 #pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-        const int t = warp + TB_WARPS * n;
-        if (t >= NT) break;
-        const int kb = t / (HDP / 16), dbk = t - kb * (HDP / 16);
-        w::store_matrix_sync(ok_ + kb * 16 * LDO + dbk * 16, adk[n], LDO, w::mem_row_major);
-        w::store_matrix_sync(ov_ + kb * 16 * LDO + dbk * 16, adv[n], LDO, w::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TB_BK * hd; idx += TB_WARPS * 32) {
-        const int c = idx / hd, d = idx - c * hd, j = j0 + c;
-        if (j >= T_) continue;
-        dk[b * ksb + kvh * ksh + j * kst + d] = __float2bfloat16_rn(ok_[c * LDO + d]);
-        dv[b * ksb + kvh * ksh + j * kst + d] = __float2bfloat16_rn(ov_[c * LDO + d]);
-    }
-}
+        for (int n = 0; n < HDP / 2; ++n) acc[n] = 0.f;
+        if (my_lo < my_hi) mbar_wait(qfull + 8 * wg, 0);
 
-template <int HDP>
-__global__ void __launch_bounds__(TB_WARPS * 32)
-bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ dsum,
-                 __nv_bfloat16* __restrict__ dq, const int* __restrict__ valid_from, int G,
-                 int S, int T_, int hd, long long qsb, long long qsh, long long qss,
-                 long long ksb, long long ksh, long long kst, int causal, int window,
-                 float cap, float scale)
-{
-    using C = Tb<HDP>;
-    namespace w = nvcuda::wmma;
-    extern __shared__ __align__(128) unsigned char tb_smem[];
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tb_smem);  // [TB_BQ][LDH]
-    __nv_bfloat16* dos = qs + TB_BQ * C::LDH;                        // [TB_BQ][LDH]
-    __nv_bfloat16* ks = dos + TB_BQ * C::LDH;                        // [64][LDH]
-    __nv_bfloat16* vs = ks + 64 * C::LDH;                            // [64][LDH]
-    float* ss = reinterpret_cast<float*>(vs + 64 * C::LDH);          // [TB_BQ][LDS]
-    float* dps = ss + TB_BQ * C::LDS;                                // [TB_BQ][LDS]
-    __nv_bfloat16* dsb = reinterpret_cast<__nv_bfloat16*>(dps + TB_BQ * C::LDS);  // [TB_BQ][LDP]
-    float* lse_s = reinterpret_cast<float*>(dsb + TB_BQ * C::LDP);
-    float* d_s = lse_s + TB_BQ;
-
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int i0 = (gridDim.x - 1 - blockIdx.x) * TB_BQ;  // the longest rows first
-    const int H = gridDim.y;
-    const int vf = valid_from != nullptr ? max(valid_from[b], 0) : 0;
-    const int warp = threadIdx.x >> 5;
-    const __nv_bfloat16* kb_ = k + b * ksb + (h / G) * ksh;
-    const __nv_bfloat16* vb_ = v + b * ksb + (h / G) * ksh;
-    tb_tile(qs, C::LDH, q + b * qsb + h * qsh, i0, S, hd, HDP, qss, TB_BQ);
-    tb_tile(dos, C::LDH, dout + b * qsb + h * qsh, i0, S, hd, HDP, qss, TB_BQ);
-    if (threadIdx.x < TB_BQ) {
-        const int i = i0 + threadIdx.x;
-        lse_s[threadIdx.x] = i < S ? lse[((long long)b * H + h) * S + i] : INFINITY;
-        d_s[threadIdx.x] = i < S ? dsum[((long long)b * H + h) * S + i] : 0.f;
-    }
-    const int i_last = min(i0 + TB_BQ, S) - 1;
-    int j_lo = vf, j_hi = T_;
-    if (causal) j_hi = min(j_hi, i_last + 1);
-    if (window >= 0) j_lo = max(j_lo, i0 - window + 1);
-
-    constexpr int NT = (TB_BQ / 16) * (HDP / 16);
-    constexpr int NTW = (NT + TB_WARPS - 1) / TB_WARPS;
-    w::fragment<w::accumulator, 16, 16, 16, float> adq[NTW];
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) w::fill_fragment(adq[n], 0.f);
-
-    for (int j0 = (max(j_lo, 0) / 64) * 64; j0 < j_hi; j0 += 64) {
-        __syncthreads();  // the previous tile's readers are done (and Q, dO landed)
-        tb_tile(ks, C::LDH, kb_, j0, T_, hd, HDP, kst, 64);
-        tb_tile(vs, C::LDH, vb_, j0, T_, hd, HDP, kst, 64);
-        __syncthreads();
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {  // S = Q K^T and dP = dO V^T: tiles warp, warp + 8
-            const int t = warp + TB_WARPS * n, qb = t >> 2, kb = t & 3;
-            w::fragment<w::accumulator, 16, 16, 16, float> sacc, pacc;
-            w::fill_fragment(sacc, 0.f);
-            w::fill_fragment(pacc, 0.f);
-            w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
-            w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::col_major> fb;
-#pragma unroll 4
-            for (int kk = 0; kk < HDP / 16; ++kk) {
-                w::load_matrix_sync(fa, qs + qb * 16 * C::LDH + kk * 16, C::LDH);
-                w::load_matrix_sync(fb, ks + kb * 16 * C::LDH + kk * 16, C::LDH);
-                w::mma_sync(sacc, fa, fb, sacc);
-                w::load_matrix_sync(fa, dos + qb * 16 * C::LDH + kk * 16, C::LDH);
-                w::load_matrix_sync(fb, vs + kb * 16 * C::LDH + kk * 16, C::LDH);
-                w::mma_sync(pacc, fa, fb, pacc);
+        for (int t = u_lo; t < u_hi; ++t) {
+            const int i = t - u_lo, s = i % P::STAGES;
+            mbar_wait(full + 8 * s, (i / P::STAGES) & 1);
+            if (t >= my_lo && t < my_hi) {
+                const int j0 = t * P::BK;
+                const uint32_t ks = k_sm + s * P::KTILE, vs = v_sm + s * P::KTILE;
+                const bool inner = j0 + P::BK <= T_ && (!causal || j0 + P::BK - 1 <= qa) &&
+                                   (window < 0 || qa + BB_ROWS - 1 - j0 < window);
+                if (inner)
+                    bq_tile<HDP, false>(acc, qdesc, ddesc, ks, vs, j0, i0, cq, L0, L1, D0, D1,
+                                        T_, causal, window, cap_l2, sc, scale);
+                else
+                    bq_tile<HDP, true>(acc, qdesc, ddesc, ks, vs, j0, i0, cq, L0, L1, D0, D1,
+                                       T_, causal, window, cap_l2, sc, scale);
             }
-            w::store_matrix_sync(ss + qb * 16 * C::LDS + kb * 16, sacc, C::LDS,
-                                 w::mem_row_major);
-            w::store_matrix_sync(dps + qb * 16 * C::LDS + kb * 16, pacc, C::LDS,
-                                 w::mem_row_major);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * s);
         }
-        __syncthreads();
-        tb_softmax_grad<false>(ss, dps, C::LDS, nullptr, dsb, C::LDP, TB_BQ, lse_s, d_s, i0,
-                               j0, S, T_, vf, causal, window, cap, scale);
-        __syncthreads();
+
+        __nv_bfloat16* ob = dq + b * qsb + head * qsh;
 #pragma unroll
-        for (int n = 0; n < NTW; ++n) {  // dQ += dS K
-            const int t = warp + TB_WARPS * n;
-            if (t >= NT) break;
-            const int qb = t / (HDP / 16), dbk = t - qb * (HDP / 16);
-            w::fragment<w::matrix_a, 16, 16, 16, __nv_bfloat16, w::row_major> fa;
-            w::fragment<w::matrix_b, 16, 16, 16, __nv_bfloat16, w::row_major> fb;
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-                w::load_matrix_sync(fa, dsb + qb * 16 * C::LDP + kk * 16, C::LDP);
-                w::load_matrix_sync(fb, ks + kk * 16 * C::LDH + dbk * 16, C::LDH);
-                w::mma_sync(adq[n], fa, fb, adq[n]);
-            }
+        for (int n = 0; n < HDP / 8; ++n) {
+            const int d = n * 8 + cq;
+            if (d >= hd) break;
+            if (i0 < S)
+                *reinterpret_cast<__nv_bfloat162*>(ob + i0 * qss + d) =
+                    __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
+            if (i0 + 8 < S)
+                *reinterpret_cast<__nv_bfloat162*>(ob + (i0 + 8) * qss + d) =
+                    __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
         }
     }
-    __syncthreads();
-    constexpr int LDO = HDP + 4;
-    float* oq = reinterpret_cast<float*>(ks);  // [TB_BQ][LDO] over the K and V tiles
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-        const int t = warp + TB_WARPS * n;
-        if (t >= NT) break;
-        const int qb = t / (HDP / 16), dbk = t - qb * (HDP / 16);
-        w::store_matrix_sync(oq + qb * 16 * LDO + dbk * 16, adq[n], LDO, w::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TB_BQ * hd; idx += TB_WARPS * 32) {
-        const int r = idx / hd, d = idx - r * hd, i = i0 + r;
-        if (i < S) dq[b * qsb + h * qsh + i * qss + d] = __float2bfloat16_rn(oq[r * LDO + d]);
-    }
 }
 
+// the bf16 passes at HDP (hd rounded up to a compiled width); q, dout and
+// dq share q's strides st[0..2], k, v, dk and dv k's st[3..5]
 template <int HDP>
-static size_t tb_dkdv_smem()
+static int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* dsum, void* dq, void* dk, void* dv,
+                           int B, int H, int KV, int S, int T_, int hd, const long long* st,
+                           int causal, int window, float cap, float scale, int passes,
+                           cudaStream_t stream)
 {
-    using C = Tb<HDP>;
-    return 2 * ((size_t)2 * TB_BK * C::LDH + 2 * TB_BQ * C::LDH) +
-           4 * (size_t)2 * TB_BK * C::LDS + 2 * (size_t)2 * TB_BK * C::LDP + 4 * 2 * TB_BQ;
-}
-
-template <int HDP>
-static size_t tb_dq_smem()
-{
-    using C = Tb<HDP>;
-    return 2 * ((size_t)2 * TB_BQ * C::LDH + 2 * 64 * C::LDH) + 4 * (size_t)2 * TB_BQ * C::LDS +
-           2 * (size_t)TB_BQ * C::LDP + 4 * 2 * TB_BQ;
+    const auto kkv = bwd_dkdv_wgmma_kernel<HDP>;
+    const auto kq = bwd_dq_wgmma_kernel<HDP>;
+    static bool raised = false;
+    if (!raised) {
+        cudaError_t err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)Bk<HDP>::SMEM);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(kq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)Bq<HDP>::SMEM);
+        if (err != cudaSuccess) return (int)err;
+        raised = true;
+    }
+    const int G = H / KV;
+    if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+    CUtensorMap qm, dm, km, vm;
+    int rc = tile_map<HDP>(&qm, q, B, H, S, hd, st[0], st[1], st[2]);
+    if (rc == 0) rc = tile_map<HDP>(&dm, dout, B, H, S, hd, st[0], st[1], st[2]);
+    if (rc == 0) rc = tile_map<HDP>(&km, k, B, KV, T_, hd, st[3], st[4], st[5]);
+    if (rc == 0) rc = tile_map<HDP>(&vm, v, B, KV, T_, hd, st[3], st[4], st[5]);
+    if (rc != 0) return rc;
+    if (passes & 2) {
+        const dim3 grid(KV, B, (T_ + BB_ROWS - 1) / BB_ROWS);
+        kkv<<<grid, TC_THREADS, Bk<HDP>::SMEM, stream>>>(
+            qm, dm, km, vm, lse, dsum, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, G, H, S, T_, hd,
+            st[3], st[4], st[5], causal, window, cap, scale);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (passes & 4) {
+        // K and V in stages of Bq<HDP>::BK keys
+        if (Bq<HDP>::BK != BB_ROWS) {
+            rc = tile_map<HDP>(&km, k, B, KV, T_, hd, st[3], st[4], st[5], Bq<HDP>::BK);
+            if (rc == 0) rc = tile_map<HDP>(&vm, v, B, KV, T_, hd, st[3], st[4], st[5], Bq<HDP>::BK);
+            if (rc != 0) return rc;
+        }
+        const int rows = G == 1 ? 2 * BB_ROWS : BB_ROWS;  // query rows of one CTA
+        const dim3 grid(KV * (G == 1 ? 1 : (G + 1) / 2), B, (S + rows - 1) / rows);
+        kq<<<grid, TC_THREADS, Bq<HDP>::SMEM, stream>>>(
+            qm, dm, km, vm, lse, dsum, (__nv_bfloat16*)dq, G, H, S, T_, hd, st[0], st[1], st[2],
+            causal, window, cap, scale);
+    }
+    return (int)cudaGetLastError();
 }
 
 template <typename T, int HDMAX>
 static int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* dsum, void* dq, void* dk,
-                      void* dv, const void* valid_from, int B, int H, int KV, int S, int T_,
-                      int hd, const long long* st, int causal, int window, float cap,
-                      float scale, cudaStream_t stream)
+                      void* dv, int B, int H, int KV, int S, int T_, int hd, const long long* st,
+                      int causal, int window, float cap, float scale, int passes,
+                      cudaStream_t stream)
 {
-    const int G = H / KV;
-    const long long rows = (long long)B * H * S;
-    bwd_dot_kernel<T><<<(unsigned)((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)), BW_THREADS,
-                        0, stream>>>((const T*)o, (const T*)dout, dsum, H, S, hd, st[0], st[1],
-                                     st[2], rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    cudaError_t err;
+    if (passes & 1) {
+        const long long rows = (long long)B * H * S;
+        bwd_dot_kernel<T><<<(unsigned)((rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32)),
+                            BW_THREADS, 0, stream>>>((const T*)o, (const T*)dout, dsum, H, S, hd,
+                                                     st[0], st[1], st[2], rows);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
     if constexpr (std::is_same<T, float>::value) {
+        const int G = H / KV;
         const auto kdkdv = bwd_dkdv_kernel<HDMAX>;
         const auto kdq = bwd_dq_kernel<HDMAX>;
         const size_t smem = bw_smem_bytes(hd);
@@ -1420,59 +1780,39 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
             if (err != cudaSuccess) return (int)err;
             raised = true;
         }
-        const dim3 gkv((T_ + BW_BK - 1) / BW_BK, KV, B);
-        kdkdv<<<gkv, BW_THREADS, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk, (T*)dv,
-            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
-            causal, window, cap, scale);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        const dim3 gq((S + BW_BQ - 1) / BW_BQ, H, B);
-        kdq<<<gq, BW_THREADS, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq,
-            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
-            causal, window, cap, scale);
-    } else {
-        // bf16: the tensor-core body at HDP = HDMAX (hd rounded up to a compiled width)
-        const auto kdkdv = bwd_dkdv_tc_kernel<HDMAX>;
-        const auto kdq = bwd_dq_tc_kernel<HDMAX>;
-        static bool raised = false;
-        if (!raised) {
-            err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)tb_dkdv_smem<HDMAX>());
-            if (err == cudaSuccess)
-                err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)tb_dq_smem<HDMAX>());
+        if (passes & 2) {
+            const dim3 gkv((T_ + BW_BK - 1) / BW_BK, KV, B);
+            kdkdv<<<gkv, BW_THREADS, smem, stream>>>(
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk,
+                (T*)dv, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], causal, window,
+                cap, scale);
+            err = cudaGetLastError();
             if (err != cudaSuccess) return (int)err;
-            raised = true;
         }
-        const dim3 gkv((T_ + TB_BK - 1) / TB_BK, KV, B);
-        kdkdv<<<gkv, TB_WARPS * 32, tb_dkdv_smem<HDMAX>(), stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk, (T*)dv,
-            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
-            causal, window, cap, scale);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-        const dim3 gq((S + TB_BQ - 1) / TB_BQ, H, B);
-        kdq<<<gq, TB_WARPS * 32, tb_dq_smem<HDMAX>(), stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq,
-            (const int*)valid_from, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5],
-            causal, window, cap, scale);
+        if (passes & 4) {
+            const dim3 gq((S + BW_BQ - 1) / BW_BQ, H, B);
+            kdq<<<gq, BW_THREADS, smem, stream>>>(
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq, G, S,
+                T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], causal, window, cap, scale);
+        }
+        return (int)cudaGetLastError();
+    } else {
+        return launch_bwd_bf16<HDMAX>(q, k, v, dout, lse, dsum, dq, dk, dv, B, H, KV, S, T_, hd,
+                                      st, causal, window, cap, scale, passes, stream);
     }
-    return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* dsum, void* dq, void* dk,
-                        void* dv, const void* valid_from, int B, int H, int KV, int S, int T_,
-                        int hd, const long long* st, int causal, int window, float cap,
-                        float scale, cudaStream_t stream)
+                        void* dv, int B, int H, int KV, int S, int T_, int hd,
+                        const long long* st, int causal, int window, float cap, float scale,
+                        int passes, cudaStream_t stream)
 {
 #define BW_CASE(W)                                                                          \
     if (hd <= W)                                                                            \
-        return launch_bwd<T, W>(q, k, v, o, dout, lse, dsum, dq, dk, dv, valid_from, B, H,  \
-                                KV, S, T_, hd, st, causal, window, cap, scale, stream);
+        return launch_bwd<T, W>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H, KV, S, T_,   \
+                                hd, st, causal, window, cap, scale, passes, stream);
     BW_CASE(16) BW_CASE(32) BW_CASE(64) BW_CASE(128) BW_CASE(256)
 #undef BW_CASE
     return (int)cudaErrorInvalidValue;
@@ -1480,34 +1820,38 @@ static int dispatch_bwd(const void* q, const void* k, const void* v, const void*
 
 // q, o, dout and dq [B, H, S, hd] by strides (qsb, qsh, qss); k, v, dk and
 // dv [B, KV, T, hd] by strides (ksb, ksh, kst); the hd axis contiguous.
-// lse [B, H, S] float32 from K7's forward on the same q, k, v; dsum [B, H,
-// S] float32 scratch (D).  dtype 0 = float32, 1 = bfloat16 (every tensor
-// but lse and dsum).  valid_from, window, cap and scale as the forward's.
-// Launches three kernels on `stream` and returns the first error of a
-// launch (0 on success).
+// lse [B, H, S] float32 from K7's forward on the same q, k, v (no row
+// without a valid key: training has no left pads); dsum [B, H, S] float32
+// scratch (D).  dtype 0 = float32, 1 = bfloat16 (every tensor but lse and
+// dsum); for bfloat16, TMA reads q, k, v and dout: 16-byte aligned bases
+// and strides in multiples of 8 elements.  window and cap as the
+// forward's.  passes: a mask of the launches to make in order, 1 the D
+// pass, 2 the dK/dV pass, 4 the dQ pass (7: the whole backward; a later
+// pass reads what an earlier one wrote).  Launches on `stream` and returns
+// the first error of a launch (0 on success).
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* dsum, void* dq, void* dk, void* dv, const void* valid_from,
-    int dtype, int B, int H, int KV, int S, int T, int hd, long long qsb, long long qsh,
-    long long qss, long long ksb, long long ksh, long long kst, int causal, int window,
-    float cap, float scale, void* stream)
+    const void* lse, void* dsum, void* dq, void* dk, void* dv, int dtype, int B, int H, int KV,
+    int S, int T, int hd, long long qsb, long long qsh, long long qss, long long ksb,
+    long long ksh, long long kst, int causal, int window, float cap, float scale, int passes,
+    void* stream)
 {
-    if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV || hd < 8 || hd > 256 || hd % 8)
+    if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV || hd < 8 || hd > 256 || hd % 8 ||
+        passes < 1 || passes > 7)
         return (int)cudaErrorInvalidValue;
     const long long st[6] = {qsb, qsh, qss, ksb, ksh, kst};
     if (dtype == 0)
         return dispatch_bwd<float>(q, k, v, o, dout, (const float*)lse, (float*)dsum, dq, dk,
-                                   dv, valid_from, B, H, KV, S, T, hd, st, causal, window, cap,
-                                   scale, (cudaStream_t)stream);
+                                   dv, B, H, KV, S, T, hd, st, causal, window, cap, scale,
+                                   passes, (cudaStream_t)stream);
     if (dtype == 1) {
-        // the tensor-core body reads rows 16 bytes at a time
         for (int i = 0; i < 6; ++i)
             if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
         if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout) % 16)
             return (int)cudaErrorMisalignedAddress;
         return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, (const float*)lse, (float*)dsum,
-                                           dq, dk, dv, valid_from, B, H, KV, S, T, hd, st,
-                                           causal, window, cap, scale, (cudaStream_t)stream);
+                                           dq, dk, dv, B, H, KV, S, T, hd, st, causal, window,
+                                           cap, scale, passes, (cudaStream_t)stream);
     }
     return (int)cudaErrorInvalidValue;
 }

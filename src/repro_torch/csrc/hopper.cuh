@@ -1,6 +1,6 @@
-// Hopper (sm_90a) primitives shared by the port's tensor-core kernels: K7's
-// bf16 flash attention (attention.cu) and the K2/K3 closure body
-// (frontier.cu).  Shared-memory addresses, mbarriers, TMA, wgmma
+// Hopper (sm_90a) primitives shared by the port's tensor-core kernels: the
+// bf16 bodies of K7 and of its backward K7b (attention.cu) and the K2/K3
+// closure body (frontier.cu).  Shared-memory addresses, mbarriers, TMA, wgmma
 // descriptors and fences, ordering between the generic and async proxies,
 // named barriers, and the driver's tensor-map encoder reached through the
 // runtime (no link against libcuda).

@@ -30,13 +30,15 @@ tensors it runs the plain version, :func:`attention_plain` — the
 reference's online-softmax scan over key blocks, written in torch.  Each
 wrapper counts its kernel launches in a plain ``launches`` attribute.
 
-K7b, the backward (``csrc/attention.cu``, :func:`attention_backward`):
-the gradient of :func:`blockwise_attention` without pads — dq, dk and dv
-from q, k, v, the output, the rows' log-sum-exp (K7's optional ``lse``
-output, not written when serving) and the output's gradient, with K7's
-rounding of p to V's dtype in dV.  A train-mode :func:`blockwise_attention`
-on the card goes through :class:`_BlockwiseAttentionFn` (K7 forward, K7b
-backward); its plain version is autograd through :func:`attention_plain`
+K7b, the backward (``csrc/attention.cu``, :func:`attention_backward`;
+bfloat16 through two warp-specialised ``wgmma`` passes behind TMA rings,
+float32 on the FMA pipes): the gradient of :func:`blockwise_attention`
+without pads — dq, dk and dv from q, k, v, the output, the rows'
+log-sum-exp (K7's optional ``lse`` output, not written when serving) and
+the output's gradient, with K7's rounding of p to V's dtype in dV.  A
+train-mode :func:`blockwise_attention` on the card goes through
+:class:`_BlockwiseAttentionFn` (K7 forward, K7b backward); its plain
+version is autograd through :func:`attention_plain`
 (:func:`attention_backward_plain`), which the CPU path takes.  The
 reference has no backward kernel: it differentiates its jnp scan.
 """
@@ -157,8 +159,8 @@ def _lib() -> ctypes.CDLL:
     )
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_backward_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
-        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.flash_attention_backward_launch.restype = ctypes.c_int
     return lib
@@ -324,14 +326,18 @@ def attention_backward_plain(q, k, v, dout, *, window=None, logit_cap=None):
         return torch.autograd.grad(out, (q, k, v), dout)
 
 
-def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None):
+def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None,
+                       events=None):
     """K7b: the gradient of :func:`blockwise_attention` without pads, in the
     model layout — q, dout [B, S, H, hd], k/v [B, S, KV, hd], the forward's
     ``out`` and its log-sum-exp ``lse`` [B, H, S] float32 → (dq, dk, dv).
-    For CUDA tensors it launches the kernel (three kernels on the current
-    stream; deterministic: no atomics) or raises; for CPU tensors it runs
-    the plain version (``out`` and ``lse`` unused).
-    ``attention_backward.launches`` counts kernel launches."""
+    For CUDA tensors it launches the kernel or raises: three kernels on the
+    current stream (D = rowsum(dout ∘ out), the dK/dV pass, the dQ pass;
+    deterministic: no atomics).  ``events``, four ``torch.cuda.Event``
+    objects or None, are recorded before the first launch and after each
+    of the three, so that a caller can time the passes apart.  For CPU
+    tensors it runs the plain version (``out``, ``lse`` and ``events``
+    unused).  ``attention_backward.launches`` counts kernel launches."""
     _check(q, k, v, window, logit_cap, heads_axis=2)
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} and out {tuple(out.shape)} must be "
@@ -348,18 +354,26 @@ def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None):
     if S == 0 or B == 0:
         return dq, dk, dv
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _lib().flash_attention_backward_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None, DTYPES[q.dtype], B, H, KV, S, S, hd,
+            DTYPES[q.dtype], B, H, KV, S, S, hd,
             q.stride(0), q.stride(2), q.stride(1), k.stride(0), k.stride(2), k.stride(1),
             1, -1 if window is None else int(window),
-            0.0 if logit_cap is None else float(logit_cap), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {rc}")
+            0.0 if logit_cap is None else float(logit_cap), 1.0 / math.sqrt(hd))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device)
+        # the D pass, the dK/dV pass and the dQ pass: one call, or one each
+        # with an event after it
+        parts = (7,) if events is None else (1, 2, 4)
+        if events is not None:
+            events[0].record(stream)
+        for i, part in enumerate(parts):
+            rc = _lib().flash_attention_backward_launch(*args, part, stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"flash attention backward kernel launch failed: CUDA error {rc}")
+            if events is not None:
+                events[i + 1].record(stream)
     attention_backward.launches += 1
     return dq, dk, dv
 

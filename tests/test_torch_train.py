@@ -173,14 +173,28 @@ def test_remat_changes_no_gradient():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("window,cap,G", [(None, None, 1), (5, None, 2), (None, 50.0, 4),
-                                          (7, 30.0, 2)])
-def test_attention_backward_plain_matches_the_references_gradient(window, cap, G):
+# (window, cap, G, S, hd): the first four at S 40, hd 16; then the edges of
+# K7b's bf16 tiles (S beside 64 and 128), the head dims it zero-pads (8,
+# 24) and 64, G 1, 3 and 5, windows of 40 and 100 that end inside a 64-key
+# tile, and the cap
+K7B_PLAIN_CASES = [(None, None, 1, 40, 16), (5, None, 2, 40, 16), (None, 50.0, 4, 40, 16),
+                   (7, 30.0, 2, 40, 16),
+                   (None, None, 1, 63, 8), (40, None, 3, 64, 24), (None, 50.0, 5, 65, 64),
+                   (100, 30.0, 3, 129, 64), (40, 50.0, 1, 129, 24), (None, None, 5, 64, 8),
+                   (40, None, 1, 65, 64), (100, 50.0, 5, 129, 8)]
+
+
+@pytest.mark.parametrize("window,cap,G,Sq,hd", K7B_PLAIN_CASES, ids=[
+    f"{w}-{c}-{G}" + ("" if (S, hd) == (40, 16) else f"-S{S}-hd{hd}")
+    for w, c, G, S, hd in K7B_PLAIN_CASES])
+def test_attention_backward_plain_matches_the_references_gradient(window, cap, G, Sq, hd):
     """K7b's plain version (autograd through ``attention_plain``) against
     ``jax.vjp`` of the reference's ``blockwise_attention`` at the positions
-    ``attn_full`` gives it: dq, dk and dv within 1e-5 (float32 sums)."""
+    ``attn_full`` gives it: dq, dk and dv within 1e-5 (float32 sums).
+    These are the gradients chip_smoke.py holds the kernel to on the card
+    (phase 18)."""
     rng = np.random.default_rng(11)
-    Bq, Sq, KV, hd = 2, 40, 2, 16
+    Bq, KV = 2, 2
     q = rng.standard_normal((Bq, Sq, KV * G, hd)).astype(np.float32)
     k, v = (rng.standard_normal((Bq, Sq, KV, hd)).astype(np.float32) for _ in range(2))
     dout = rng.standard_normal(q.shape).astype(np.float32)
@@ -194,6 +208,73 @@ def test_attention_backward_plain_matches_the_references_gradient(window, cap, G
                                 logit_cap=cap)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def _cuda_functions(text: str) -> dict:
+    """Each function defined in a CUDA source (``__global__`` or
+    ``__device__``) → (is a kernel, its body)."""
+    import re
+
+    text = re.sub(r"__launch_bounds__\([^)]*\)", "", text)
+    found = {}
+    for m in re.finditer(r"\b(__global__|__device__)\b", text):
+        paren = text.index("(", m.end())
+        name = re.findall(r"(\w+)\s*$", text[m.end():paren])
+        depth, i = 0, paren
+        while True:  # the parameter list's closing parenthesis
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            if depth == 0:
+                break
+            i += 1
+        rest = text[i + 1:].lstrip()
+        if not name or not rest.startswith("{"):
+            continue  # a declaration or a qualifier inside a body
+        start = text.index("{", i)
+        depth, j = 0, start
+        while True:
+            depth += {"{": 1, "}": -1}.get(text[j], 0)
+            if depth == 0:
+                break
+            j += 1
+        kernel = m.group(1) == "__global__"
+        found[name[0]] = (found.get(name[0], (False, ""))[0] or kernel,
+                          found.get(name[0], (False, ""))[1] + text[start:j + 1])
+    return found
+
+
+def test_every_wgmma_kernel_is_held_to_the_ptxas_rule():
+    """Every ``__global__`` kernel of ``src/repro_torch/csrc`` whose body
+    issues a ``wgmma`` product (itself or through the device functions it
+    calls) is named in chip_smoke.py's ``PTXAS_BODIES``, whose
+    instantiations must show no stack and no spills on the card; and no
+    source includes ``<mma.h>`` (no WMMA body: K7b's bf16 passes are
+    ``wgmma`` behind TMA rings)."""
+    import re
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+
+    csrc = root / "src" / "repro_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    funcs = {}
+    for path in sources:
+        text = path.read_text()
+        assert not re.search(r"#include\s*<mma\.h>", text), path.name
+        funcs.update(_cuda_functions(text))
+    issues = {n for n, (_, body) in funcs.items() if "wgmma.mma_async" in body}
+    while True:  # through the calls, to a fixed point
+        more = {n for n, (_, body) in funcs.items() if n not in issues
+                and any(re.search(rf"\b{c}\b", body) for c in issues)}
+        if not more:
+            break
+        issues |= more
+    kernels = {n for n in issues if funcs[n][0]}
+    assert {"flash_fwd_wgmma_kernel", "bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel",
+            "closure_tc_kernel"} <= kernels
+    assert kernels <= set(cs.PTXAS_BODIES), kernels - set(cs.PTXAS_BODIES)
 
 
 def test_blockwise_attention_with_grad_refuses_valid_from():
