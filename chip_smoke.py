@@ -240,6 +240,19 @@ checks, on the card:
      (``fault_hook``), the restore, the replayed step 2 (the third)
      bit-identical to its first run; step walls, checkpoint save and
      restore walls and bytes, peak memory;
+  21. the partitioner (``repro_torch.dist.partition``) on a one-rank NCCL
+     group and its 1 x 1 data x model mesh (see ``PARTITION_EP_ARCH``):
+     (a) llama4-scout at phase 17's width and depth through
+     ``ServeEngine(partitioner=)`` on phase 17's model (run inside phase
+     17): K7 on each of its 12 layers, the expert-parallel MoE body in
+     each, its drops the unpartitioned prefill's, logits within
+     ``LM_FAMILY_TOL_FRAC`` of the unpartitioned run's and the same
+     tokens; (b) phase 19's ten configs through the partitioned train
+     step, each plan's FSDP and optimizer, the reference's losses; (c) a
+     state of the unpartitioned trainer restored onto the mesh, its next
+     loss the unpartitioned next loss; (d) K7 and K7b at query offsets
+     (``K7_OFFSET_S``): chunks against the full launch and the plain
+     versions;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
      work alone; median of 25 after warm-up): the sum over the run, by the
@@ -256,14 +269,14 @@ checks, on the card:
      The kernels line's ``launches`` also counts phase 12's kernel runs,
      phase 14's warm async runs, phase 15's load runs and phase 16's sweep
      and recorded runs, whose chunks are not replayed here; K7's counts
-     phase 10's prefills, phase 11's and phase 17's kernel runs and phases
-     19's and 20's train steps.  K7b's record (``attention_backward``):
+     phase 10's prefills, phase 11's and phase 17's kernel runs, phases
+     19's and 20's train steps and phase 21's (a)-(c).  K7b's record (``attention_backward``):
      its time at gemma2-9b's full-width layer (``K7B_TIMED``, the cap)
      beside autograd through the plain version and its bound (10 hd
      operations per valid pair at the bf16 tensor-core rate), its three
      passes apart (``dot_ms``, ``dkdv_ms``, ``dq_ms``: CUDA events around
      each launch), and SDPA's backward on the cap-free shape as
-     ``library_ms``; its launches those of phases 19 and 20.
+     ``library_ms``; its launches those of phases 19, 20 and 21.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -4090,6 +4103,9 @@ def run_lm_family(device, arch: str, depth, prompt_lens, max_len: int, k7_per_pr
         report["moe"] = drops = moe_drops(model, prompts)
         if not drops["prefill_dropped"] > 0 or drops["decode_dropped"] != 0:
             failures.append(f"MoE drops {drops}: want > 0 in the prefill and none in decode")
+    if arch == PARTITION_EP_ARCH:  # phase 21a, on this model (reported in phase 21)
+        PARTITION_EP.update(partition_ep_run(model, cfg, arch, prompts, max_len, cold, tol,
+                                             k7_per_prefill, drops["prefill_dropped"], device))
     del model, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -4214,6 +4230,302 @@ def check_attention_backward(device) -> list[dict]:
     return records
 
 
+# Phase 21d: K7 and K7b at query offsets.  A rank of the partitioner's
+# sequence-sharded attention holds the query rows [r S / tp, (r + 1) S / tp)
+# against all S keys; the chunks of tp in {2, 4} at S 4100 (not a multiple
+# of the 64-row tiles: 1025 rows a chunk at tp 4) for gemma2-9b's head shape
+# (16 / 8 heads of 256, cap 50, window 4096) and llama4-scout's (40 / 8
+# heads of 128), float32 and bfloat16.  K7 runs each chunk with and without
+# valid_from (pads of 0 and 1500 rows; K7b takes none: training has no
+# pads), K7b each chunk at the full launch's dO rows.
+K7_OFFSET_S = 4100
+K7_OFFSET_TP = (2, 4)
+K7_OFFSET_SHAPES = (  # arch, H, KV, hd, window, cap
+    ("gemma2-9b", 16, 8, 256, 4096, 50.0),
+    ("llama4-scout-17b-a16e", 40, 8, 128, None, None),
+)
+
+
+def check_attention_offsets(device) -> list[dict]:
+    """Phase 21d (see K7_OFFSET_S): every chunk's K7 rows equal the full
+    launch's rows bit for bit (a key tile wholly outside a row's mask adds
+    an exact 0 to its sums, so the row's sums are the same whatever tile it
+    sits in); K7b's dQ of each chunk matches the full launch's rows within
+    K7B_TOL and K7B_MIN_COS (bit-equal where the chunk starts on a 64-row
+    tile edge; elsewhere the masked and unmasked bodies of the bf16 dQ pass
+    meet a row on other tiles and may round it one bf16 step apart: the
+    record counts the bit-equal chunks), its dK and dV summed over the
+    chunks (partial sums of the model axis) match the full launch within
+    the same tolerances; the last chunk of each case also against the
+    plain versions at the shifted query positions (K7_TOL, K7B_TOL)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(20241029)
+    S = K7_OFFSET_S
+    records = []
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for arch, H, KV, hd, window, cap in K7_OFFSET_SHAPES:
+            B = 2
+            q, k, v, dout = (torch.randn(B, S, h, hd, generator=gen, device=device).to(dt)
+                             for h in (H, KV, KV, H))
+            for vf in (None, torch.tensor([0, 1500], dtype=torch.int32, device=device)):
+                full = fa.blockwise_attention(q, k, v, window=window, logit_cap=cap,
+                                              valid_from=vf)
+                for tp in K7_OFFSET_TP:
+                    n = S // tp
+                    name = (f"K7 {dname} {arch} tp={tp} "
+                            f"{'valid_from' if vf is not None else 'no pads'}")
+                    for r in range(tp):
+                        lo = r * n
+                        got = fa.blockwise_attention(q[:, lo: lo + n].contiguous(), k, v,
+                                                     window=window, logit_cap=cap,
+                                                     valid_from=vf, q_off=lo)
+                        if not torch.equal(got.view(torch.uint8),
+                                           full[:, lo: lo + n].contiguous().view(torch.uint8)):
+                            raise AssertionError(f"{name}: chunk {r} differs from the full "
+                                                 f"launch's rows")
+                    pos = fa.positions_of(vf, B, S, device)
+                    want = fa.attention_plain(q[:, lo: lo + n], k, v, pos[:, lo: lo + n], pos,
+                                              window=window, logit_cap=cap)
+                    rec = k7_require(f"{name} last chunk against the plain version", got,
+                                     want, dname, pad=(pos[:, lo: lo + n] < 0))
+                    records.append({"kernel": "blockwise_attention", "dtype": dname,
+                                    "arch": arch, "tp": tp, "S": S, "valid_from": vf is not None,
+                                    "chunks_bit_equal": True, **rec})
+                    del got, want
+                del full
+            out, lse = fa._blockwise_forward(q, k, v, window, cap, lse=True)
+            fq, fk, fv = fa.attention_backward(q, k, v, out, lse, dout, window=window,
+                                               logit_cap=cap)
+            for tp in K7_OFFSET_TP:
+                n = S // tp
+                name = f"K7b {dname} {arch} tp={tp}"
+                dk = torch.zeros(k.shape, dtype=torch.float32, device=device)
+                dv = torch.zeros(v.shape, dtype=torch.float32, device=device)
+                dq = torch.empty_like(fq)
+                dq_equal = 0
+                for r in range(tp):
+                    lo = r * n
+                    qc, dc = q[:, lo: lo + n].contiguous(), dout[:, lo: lo + n].contiguous()
+                    oc, lc = fa._blockwise_forward(qc, k, v, window, cap, lse=True, q_off=lo)
+                    gq, gk, gv = fa.attention_backward(qc, k, v, oc, lc, dc, window=window,
+                                                       logit_cap=cap, q_off=lo)
+                    dq[:, lo: lo + n] = gq
+                    dq_equal += torch.equal(gq.view(torch.uint8),
+                                            fq[:, lo: lo + n].contiguous().view(torch.uint8))
+                    dk += gk.float()
+                    dv += gv.float()
+                rec = k7b_require(f"{name} chunks' dQ and dK/dV summed over the chunks",
+                                  (dq, dk.to(dt), dv.to(dt)), (fq, fk, fv), dout, v, dname)
+                want = fa.attention_backward_plain(
+                    qc, k, v, dc, window=window, logit_cap=cap,
+                    q_pos=torch.arange(lo, lo + n, device=device))
+                plain = k7b_require(f"{name} last chunk against the plain version",
+                                    (gq, gk, gv), want, dc, v, dname)
+                records.append({"kernel": "attention_backward", "dtype": dname, "arch": arch,
+                                "tp": tp, "S": S, "dq_bit_equal_chunks": dq_equal,
+                                "chunks": tp, "summed": rec, "plain": plain})
+                del dk, dv, dq, want
+            del q, k, v, dout, out, lse, fq, fk, fv
+    torch.cuda.empty_cache()
+    return records
+
+
+# Phase 21: the partitioner on the card.  The card's machine has one H100
+# and NCCL refuses two ranks on one card, so the phase runs a one-rank NCCL
+# group and the 1 x 1 data x model mesh (``make_local_mesh()``): every spec
+# resolves to replicated, and everything still runs through the
+# partitioned entry points on DTensors, with K7 and K7b under
+# ``Partitioner.local``.  (a) PARTITION_EP_ARCH at phase 17's width and
+# depth, on phase 17's model and prompts (its ~54 GB of bf16 weights are
+# wrapped, not copied), prefilled and decoded through
+# ``ServeEngine(partitioner=)``: the expert-parallel MoE (the ``model``
+# axis, size 1, divides E) in every prefill layer, its drops those of the
+# unpartitioned prefill (one data shard: the same capacity), the logits
+# within LM_FAMILY_TOL_FRAC of the unpartitioned kernel run's and its
+# greedy tokens.  (b) Phase 19's ten reduced configs through
+# ``make_train_step(..., partitioner)`` with each plan's FSDP and
+# optimizer: the reference's losses within TRAIN_LOSS_TOL.  (c)
+# PARTITION_RESTORE_ARCH's state saved by the unpartitioned trainer at step
+# 3, restored onto the mesh (``Trainer(state_shardings=)``): its next step's
+# loss equal to the unpartitioned trainer's next step from the same
+# checkpoint.  (d) K7 and K7b at query offsets (K7_OFFSET_S).
+PARTITION_EP_ARCH = "llama4-scout-17b-a16e"
+PARTITION_RESTORE_ARCH = "gemma2-9b"
+PARTITION_EP: dict = {}  # phase 21a's record, made in phase 17
+_PARTITION: dict = {}
+
+
+def partition_mesh(device):
+    """Phase 21's mesh over a one-rank NCCL group (started once, here)."""
+    if "mesh" not in _PARTITION:
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.launch.train import ensure_group
+
+        _PARTITION["started"] = ensure_group(device)
+        _PARTITION["mesh"] = make_local_mesh()
+    return _PARTITION["mesh"]
+
+
+def close_partition_group() -> None:
+    import torch.distributed as dist
+
+    if _PARTITION.get("started"):
+        dist.destroy_process_group()
+    _PARTITION.clear()
+
+
+def unshard_model(model) -> None:
+    """Phase 21a's DTensor parameters (and MoE drop counts) back to the
+    plain tensors they wrap."""
+    import torch
+
+    for name, p in list(model.named_parameters()):
+        if hasattr(p, "placements"):
+            *path, leaf = name.split(".")
+            setattr(model.get_submodule(".".join(path)), leaf,
+                    torch.nn.Parameter(p.to_local(), requires_grad=p.requires_grad))
+    for m in model.moe_layers():
+        if hasattr(m.dropped, "placements"):
+            m.dropped = m.dropped.to_local()
+
+
+def partition_ep_run(model, cfg, arch: str, prompts, max_len: int, cold: dict, tol: float,
+                     k7_per_prefill: int, prefill_dropped: int, device) -> dict:
+    """Phase 21a on phase 17's model (see PARTITION_EP_ARCH): K7 and the
+    expert-parallel MoE body counted from 0 over one generate."""
+    import torch
+
+    from repro_torch.configs import get_plan
+    from repro_torch.dist.partition import Partitioner
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    part = Partitioner(partition_mesh(device), fsdp=get_plan(arch).fsdp)
+    before = torch.cuda.memory_allocated()
+    eng = ServeEngine(cfg, model, ServeConfig(max_len=max_len, batch_slots=len(prompts)),
+                      device=device, partitioner=part)
+    placed = torch.cuda.memory_allocated() - before
+    for m in model.moe_layers():
+        m.reset_dropped()
+    ep_calls = []
+    real_ep = moe_mod._moe_ep
+
+    def counting(*args, **kw):
+        ep_calls.append(1)
+        return real_ep(*args, **kw)
+
+    moe_mod._moe_ep = counting
+    try:
+        run = family_run(eng, prompts)
+    finally:
+        moe_mod._moe_ep = real_ep
+    dropped = int(sum(m.dropped for m in model.moe_layers()))
+    all_placed = all(hasattr(p, "placements") for p in model.parameters())
+    unshard_model(model)
+    logit_err = float((run["logits"] - cold["logits"]).abs().max())
+    rec = {"arch": arch, "layers": cfg.n_layers, "mesh": dict(part.shape),
+           "fsdp": part.fsdp, "k7_launches": run["launches"],
+           "ep_launches": len(ep_calls), "moe_layers": len(model.moe_layers()),
+           "dropped": dropped, "unpartitioned_prefill_dropped": prefill_dropped,
+           "logits_max_abs_diff": logit_err, "tol": tol,
+           "tokens_equal": run["tokens"] == cold["tokens"], "params_placed": all_placed,
+           "bytes_allocated_by_placing": placed, "prefill_ms": run["prefill_ms"],
+           "decode_ms_median": statistics.median(run["decode_ms"]),
+           "peak_bytes": run["peak_bytes"], "seconds": time.perf_counter() - t0}
+    failures = []
+    if run["launches"] != k7_per_prefill:
+        failures.append(f"K7 launched {run['launches']} times, not {k7_per_prefill}")
+    if len(ep_calls) != len(model.moe_layers()) or not all_placed:
+        failures.append(f"the expert-parallel body ran {len(ep_calls)} times for "
+                        f"{len(model.moe_layers())} MoE layers (parameters placed: {all_placed})")
+    if dropped != prefill_dropped or not dropped > 0:
+        failures.append(f"{dropped} drops, the unpartitioned prefill {prefill_dropped}")
+    if not logit_err <= tol or not rec["tokens_equal"]:
+        failures.append(f"logits {logit_err} from the unpartitioned run's (tol {tol}), "
+                        f"tokens equal: {rec['tokens_equal']}")
+    if placed > 2**30:
+        failures.append(f"placing the parameters allocated {placed} bytes")
+    rec["failures"] = failures
+    return rec
+
+
+def run_partition_phase(device, ep: dict) -> tuple[dict, dict]:
+    """Phase 21 (b), (c) and (d), and (a)'s record from phase 17.  Returns
+    the report and the phase's K7 / K7b launches on its main path (a-c)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS
+
+    t_phase = time.perf_counter()
+    mesh = partition_mesh(device)
+    failures = list(ep.get("failures", ["phase 21a did not run"]))
+    launches = {"blockwise_attention": ep.get("k7_launches", 0), "attention_backward": 0}
+    ckpt = ROOT / "build" / "partition_ckpt"
+    train = {}
+    for arch in ARCH_IDS:  # (b)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        kernels.reset_launches()
+        rec = train_reduced(arch, device, str(ckpt), mesh=mesh)
+        torch.cuda.synchronize()
+        rec["launches"] = n = train_launches()
+        for name in launches:
+            launches[name] += n[name]
+        want = TRAIN_REDUCED_EXPECTED[arch]
+        rec["max_loss_diff"] = max(abs(a - b) for a, b in zip(rec["losses"], want))
+        train[arch] = rec
+        layers = rec["attention_layers"]
+        if (rec["steps"] != TRAIN_REDUCED_STEPS or rec["restarts"] or not rec["params_placed"]
+                or len(rec["losses"]) != len(want) or not rec["max_loss_diff"] <= TRAIN_LOSS_TOL):
+            failures.append(f"21b {arch}: {rec}")
+        if n != {"blockwise_attention": 2 * TRAIN_REDUCED_STEPS * layers,
+                 "attention_backward": TRAIN_REDUCED_STEPS * layers}:
+            failures.append(f"21b {arch}: launches {n} over {TRAIN_REDUCED_STEPS} steps of "
+                            f"{layers} attention layers")
+    # (c) restore onto the mesh
+    arch = PARTITION_RESTORE_ARCH
+    shutil.rmtree(ckpt, ignore_errors=True)
+    saved = train_reduced(arch, device, str(ckpt / "saved"))
+    for name in ("plain", "mesh"):
+        shutil.copytree(ckpt / "saved", ckpt / name)
+    plain = train_reduced(arch, device, str(ckpt / "plain"), total_steps=TRAIN_REDUCED_STEPS + 1)
+    kernels.reset_launches()
+    placed = train_reduced(arch, device, str(ckpt / "mesh"), mesh=mesh,
+                           total_steps=TRAIN_REDUCED_STEPS + 1)
+    torch.cuda.synchronize()
+    n = train_launches()
+    for name in launches:
+        launches[name] += n[name]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    restore = {"arch": arch, "saved_losses": saved["losses"], "next_loss": placed["losses"],
+               "unpartitioned_next_loss": plain["losses"], "params_placed": placed["params_placed"],
+               "launches": n}
+    if (placed["losses"] != plain["losses"] or len(plain["losses"]) != 1
+            or not placed["params_placed"] or placed["restarts"]):
+        failures.append(f"21c: {restore}")
+    # (d) the kernels at query offsets
+    t0 = time.perf_counter()
+    offsets = check_attention_offsets(device)
+    report = {"mesh": {k: v for k, v in zip(mesh.device_mesh.mesh_dim_names,
+                                             mesh.device_mesh.shape)},
+              "a_ep": ep, "b_train": train, "c_restore": restore,
+              "d_offsets": {"cases": len(offsets), "seconds": time.perf_counter() - t0,
+                            "records": offsets},
+              "launches": launches, "seconds": time.perf_counter() - t_phase,
+              "failures": failures}
+    emit({"phase": "partition", **report})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report, launches
+
+
 def k7b_bound_ms(B: int, S: int, H: int, KV: int, hd: int, window) -> tuple:
     """K7b's least time: the backward's products, 10 hd operations per valid
     (query, key) pair (2.5 x the forward's 4 hd), at the bf16 tensor-core
@@ -4303,39 +4615,55 @@ def train_launches() -> dict:
             "attention_backward": fa.attention_backward.launches}
 
 
-def train_reduced(arch: str, device, ckpt_dir: str) -> dict:
+def train_reduced(arch: str, device, ckpt_dir: str, mesh=None,
+                  total_steps: int = TRAIN_REDUCED_STEPS) -> dict:
     """One arch of phase 19 (see TRAIN_REDUCED_EXPECTED) through the
-    Trainer; returns each step's metrics."""
+    Trainer; returns each step's metrics.  ``mesh`` (phase 21): through
+    ``Partitioner(mesh, fsdp=plan.fsdp)`` — the model and optimizer state
+    placed by ``state_shardings``, a checkpoint in ``ckpt_dir`` restored
+    onto the mesh.  ``total_steps`` past the checkpoint in ``ckpt_dir``
+    continues from it."""
     from repro_torch.configs import get_config, get_plan
     from repro_torch.data.lm_data import make_batch_iterator
+    from repro_torch.dist.partition import Partitioner, replicate_plain
     from repro_torch.interop import numpy_params, params_from_jax
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.transformer import Decoder
+    from repro_torch.train import step as tstep
     from repro_torch.train.loop import Trainer, TrainerConfig
     from repro_torch.train.optim import get_optimizer, warmup_cosine
-    from repro_torch.train.step import init_state, make_train_step
 
     cfg = get_config(arch).reduced()
-    opt = get_optimizer(get_plan(arch).optimizer,
+    plan = get_plan(arch)
+    opt = get_optimizer(plan.optimizer,
                         warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_REDUCED_STEPS))
     model = Decoder(cfg, device=device, seed=None)
     weights = params_from_jax(numpy_params(cfg, LM_SEED), cfg)
+    part = sh = None
+    if mesh is not None:
+        part = Partitioner(mesh, fsdp=plan.fsdp)
+        sh = tstep.model_state_shardings(part, model, opt)
+        tstep.shard_model(model, part)
 
     def init():
-        model.load_state_dict(weights)
-        return init_state(model, opt)
+        with replicate_plain():  # whole values into the placed parameters
+            model.load_state_dict(weights)
+        return tstep.init_state(model, opt, sh)
 
     shape = ShapeConfig("reduced", "train", *TRAIN_REDUCED_SHAPE)
-    trainer = Trainer(make_train_step(model, opt), init,
+    trainer = Trainer(tstep.make_train_step(model, opt, part), init,
                       lambda start: make_batch_iterator(cfg, shape, seed=0, start_step=start),
-                      TrainerConfig(total_steps=TRAIN_REDUCED_STEPS,
-                                    ckpt_every=TRAIN_REDUCED_STEPS, ckpt_dir=ckpt_dir, keep=1))
+                      TrainerConfig(total_steps=total_steps,
+                                    ckpt_every=TRAIN_REDUCED_STEPS, ckpt_dir=ckpt_dir, keep=1),
+                      state_shardings=sh)
     out = trainer.run()
     trainer.ckpt.close()
     return {"steps": out["steps"], "restarts": out["n_restarts"],
             "losses": [h["loss"] for h in out["history"]],
             "grad_norms": [h["grad_norm"] for h in out["history"]],
-            "optimizer": get_plan(arch).optimizer, "attention_layers": attention_layers(cfg)}
+            "optimizer": plan.optimizer, "fsdp": plan.fsdp,
+            "attention_layers": attention_layers(cfg),
+            "params_placed": all(hasattr(p, "placements") for p in model.parameters())}
 
 
 def run_train_reduced(device) -> tuple[dict, dict]:
@@ -5053,18 +5381,26 @@ def main() -> int:
     t0 = time.perf_counter()
     _, full_train = run_train_full(device)
     emit({"phase": "train_full_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    try:
+        _, partition = run_partition_phase(device, PARTITION_EP)
+    finally:
+        close_partition_group()
+    emit({"phase": "partition_seconds", "seconds": time.perf_counter() - t0})
     # K7's launches: phase 10's prefills, phase 11's and phase 17's kernel
-    # runs, and phases 19's and 20's train steps (the forward and the
-    # backward's recompute)
+    # runs, phases 19's and 20's train steps (the forward and the
+    # backward's recompute) and phase 21's prefills and train steps
     k7["launches_by_phase"] = {"10": reduced_k7, "11": k7["launches"], "17": families_k7,
                                "19": reduced_train["blockwise_attention"],
-                               "20": full_train["blockwise_attention"]}
+                               "20": full_train["blockwise_attention"],
+                               "21": partition["blockwise_attention"]}
     k7["launches"] = sum(k7["launches_by_phase"].values())
     k7b = time_attention_backward(
-        device, reduced_train["attention_backward"] + full_train["attention_backward"],
-        k7b_records)
+        device, reduced_train["attention_backward"] + full_train["attention_backward"]
+        + partition["attention_backward"], k7b_records)
     k7b["launches_by_phase"] = {"19": reduced_train["attention_backward"],
-                                "20": full_train["attention_backward"]}
+                                "20": full_train["attention_backward"],
+                                "21": partition["attention_backward"]}
     emit({"kernels": time_kernels(device, launches, chunks) + [k7, k7b]})
 
     print(nvidia_smi("name,power.limit"), flush=True)

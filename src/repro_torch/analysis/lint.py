@@ -6,9 +6,10 @@ AST-level rules over ``src/repro_torch``:
   regions* (the ``_*_async`` round loops in ``repro_torch.core.mr`` and the
   speculative ``spec_*``/``reconcile_*`` orchestration in
   ``repro_torch.core.frontier``): ``.item()``, ``.tolist()``, ``.cpu()``,
-  ``.numpy()``, ``np.asarray(...)``, ``host_bits(...)`` (the port's D2H
-  idiom), ``torch.cuda.synchronize()`` and an ``Event`` / ``Stream``
-  ``.synchronize()``.  Those loops exist to keep rounds in flight; a stray
+  ``.numpy()``, ``.full_tensor()`` (a DTensor gathered whole: a collective
+  the step waits for, counted as a read), ``np.asarray(...)``,
+  ``host_bits(...)`` (the port's D2H idiom), ``torch.cuda.synchronize()``
+  and an ``Event`` / ``Stream`` ``.synchronize()``.  Those loops exist to keep rounds in flight; a stray
   sync collapses the double-buffering.  The blessed reconcile points
   (``_download``, ``_download_packed``, ``_block_scalar``) are
   allowlisted; ad-hoc exceptions annotate the line with ``# sync: ok``.
@@ -19,6 +20,9 @@ AST-level rules over ``src/repro_torch``:
   on every read going through the injected ``clock``).  Bare attribute
   references in keyword defaults (``clock=time.monotonic``) are the
   injection mechanism itself and stay legal.  Annotate ``# clock: ok``.
+  ``ServeEngine._generate`` is allowlisted: its timers are the LM
+  engine's ``GenerateStats`` (host-clock prefill and decode seconds), which
+  no virtual clock drives.
 
 * ``mutable-default`` — no mutable default arguments anywhere (classic
   shared-state bug).
@@ -76,7 +80,7 @@ _WALL_CLOCK_FNS = {"time", "monotonic", "perf_counter", "monotonic_ns", "time_ns
 # tensor methods that read a device value on the host (``.cpu()`` and
 # ``.numpy()`` copy it, ``.item()`` / ``.tolist()`` convert it) and the
 # waits on a device event, stream or the whole device
-_SYNC_METHODS = {"item", "tolist", "cpu", "numpy", "synchronize"}
+_SYNC_METHODS = {"item", "tolist", "cpu", "numpy", "synchronize", "full_tensor"}
 # np.asarray of a tensor and host_bits are the D2H idioms; np.array(list,
 # ...) host constructions are not syncs and stay legal
 _SYNC_NP_FNS = {"asarray"}

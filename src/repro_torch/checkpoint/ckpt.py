@@ -25,10 +25,20 @@ Guarantees, as the reference's:
 
 Restore writes each leaf into the target tree's tensor in place (the
 target is the fresh state of the same model on its device) and returns
-that tree: a full-width state is never held twice on the card.  The
-reference's restore onto another mesh (``shardings``) waits for the
-partitioner.  Leaves are hashed and written by a few threads at once
-(``hashlib`` and file writes release the interpreter lock).
+that tree: a full-width state is never held twice on the card.  Leaves
+are hashed and written by a few threads at once (``hashlib`` and file
+writes release the interpreter lock).
+
+Sharded trees (DTensor leaves, under the partitioner) are stored whole,
+as the reference stores them: on save every rank gathers each leaf
+(``full_tensor()``, a collective), rank 0 of the default group writes and
+the others wait for it at a barrier.  ``restore_checkpoint(...,
+shardings=)`` is the reference's elastic path: each leaf, read whole on
+every rank, is placed with the *new* mesh's placements
+(``repro_torch.dist.partition.distribute``: each rank keeps its chunk), so
+a state saved on one mesh (4 × 1, or none) restores onto another (1 × 4);
+a target leaf that already has those placements takes the values in
+place, any other leaf of the returned tree is the new DTensor.
 """
 
 from __future__ import annotations
@@ -41,6 +51,10 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.partition import Sharding, distribute
 
 try:  # optional: fall back to raw (uncompressed) leaves when absent
     import zstandard
@@ -75,7 +89,10 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 def _host_bytes(t: torch.Tensor, copy: bool = False) -> np.ndarray:
     """The tensor's bytes, row-major, as a uint8 numpy array on the host
-    (for a CPU tensor a view of its memory unless ``copy``)."""
+    (for a CPU tensor a view of its memory unless ``copy``; a DTensor
+    whole, gathered from its shards)."""
+    if isinstance(t, DTensor):
+        t, copy = t.full_tensor(), False
     arr = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
     return arr.copy() if copy and t.device.type == "cpu" else arr
 
@@ -89,11 +106,27 @@ def _write_leaf(tmp: str, i: int, name: str, t, codec: str) -> dict:
     return {"file": fname, "name": name, "sha256": digest}
 
 
+def _writer() -> bool:
+    """Whether this rank writes a sharded tree: rank 0 of the default group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(path: str, step: int, tree) -> str:
     """Blocking save of a tree of tensors (or of the host copy an async
-    ``CheckpointManager.save`` takes).  Returns the committed directory."""
+    ``CheckpointManager.save`` takes).  Returns the committed directory.
+    A sharded tree is gathered by every rank and written by rank 0; every
+    rank returns once it is committed."""
     flat = tree if isinstance(tree, _HostTree) else _HostTree.of(tree, copy=False)
     final = os.path.join(path, f"step_{step:08d}")
+    if flat.sharded:
+        if _writer():
+            _write(final, step, flat)
+        dist.barrier()
+        return final
+    return _write(final, step, flat)
+
+
+def _write(final: str, step: int, flat: "_HostTree") -> str:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -121,18 +154,22 @@ def save_checkpoint(path: str, step: int, tree) -> str:
 
 class _HostTree:
     """A flattened tree ready to write: per leaf its bytes (a host copy when
-    ``copy``, else the tensor itself, copied as it is written), shape and
-    dtype name."""
+    ``copy`` or when the tree is sharded, else the tensor itself, copied as
+    it is written), shape and dtype name; ``sharded`` when a leaf is a
+    DTensor (gathered here, on every rank)."""
 
-    def __init__(self, leaves: dict, shapes: dict, dtypes: dict):
+    def __init__(self, leaves: dict, shapes: dict, dtypes: dict, sharded: bool = False):
         self.leaves, self.shapes, self.dtypes = leaves, shapes, dtypes
+        self.sharded = sharded
 
     @classmethod
     def of(cls, tree, copy: bool) -> "_HostTree":
         flat = flatten(tree)
-        return cls({k: _host_bytes(t, copy=True) if copy else t for k, t in flat.items()},
+        sharded = any(isinstance(t, DTensor) for t in flat.values())
+        return cls({k: _host_bytes(t, copy=True) if copy or sharded else t
+                    for k, t in flat.items()},
                    {k: tuple(t.shape) for k, t in flat.items()},
-                   {k: _dtype_name(t) for k, t in flat.items()})
+                   {k: _dtype_name(t) for k, t in flat.items()}, sharded)
 
 
 def latest_step(path: str) -> int | None:
@@ -147,7 +184,10 @@ def latest_step(path: str) -> int | None:
     return best
 
 
-def _read_leaf(d: str, meta: dict, target: torch.Tensor, zstd: bool) -> None:
+def _read_leaf(d: str, meta: dict, target: torch.Tensor, zstd: bool, sharding=None):
+    """Read one leaf and check its hash; into ``target`` in place, or, for a
+    placed leaf (``sharding``, or a DTensor target), returned as the whole
+    host tensor for the caller to place."""
     fname = os.path.join(d, meta["file"])
     raw = bytearray(os.path.getsize(fname))
     with open(fname, "rb") as f:
@@ -156,18 +196,49 @@ def _read_leaf(d: str, meta: dict, target: torch.Tensor, zstd: bool) -> None:
         raw = bytearray(zstandard.ZstdDecompressor().decompress(raw))
     if hashlib.sha256(raw).hexdigest() != meta["sha256"]:
         raise IOError(f"checksum mismatch in {meta['file']}")
-    if not raw:
-        return
-    host = torch.frombuffer(raw, dtype=torch.uint8).view(target.dtype).reshape(target.shape)
-    with torch.no_grad():
-        target.copy_(host)
+    host = (torch.frombuffer(raw, dtype=torch.uint8).view(target.dtype).reshape(target.shape)
+            if raw else torch.empty(target.shape, dtype=target.dtype))
+    if sharding is not None or isinstance(target, DTensor):
+        return host
+    if raw:
+        with torch.no_grad():
+            target.copy_(host)
+    return None
 
 
-def restore_checkpoint(path: str, step: int, target_tree):
+def _place(host: torch.Tensor, target: torch.Tensor, sharding):
+    """A whole leaf placed with ``sharding`` (or the target's own
+    placements): into the target's local shard in place when the target
+    is so placed already, else as a new DTensor."""
+    if sharding is None:
+        sharding = Sharding(target.device_mesh, tuple(target.placements))
+    mesh, placements = sharding
+    new = distribute(host.to(mesh.device_type), sharding)
+    if (isinstance(target, DTensor) and target.device_mesh == mesh
+            and tuple(target.placements) == tuple(placements)):
+        with torch.no_grad():
+            target.to_local().copy_(new.to_local())
+        return target
+    return new
+
+
+def _replace(tree, flat_new: dict, prefix: str = ""):
+    """``tree`` with the leaves named in ``flat_new`` replaced."""
+    if isinstance(tree, torch.Tensor):
+        return flat_new.get(prefix, tree)
+    return {k: _replace(v, flat_new, f"{prefix}/{k}" if prefix else str(k))
+            for k, v in tree.items()}
+
+
+def restore_checkpoint(path: str, step: int, target_tree, shardings=None):
     """Restore the checkpoint of ``step`` into ``target_tree`` (nested dicts
     of tensors of the saved names, shapes and dtypes), leaf by leaf in
-    place; returns ``target_tree``.  Raises ``ValueError`` on a structure,
-    shape or dtype mismatch and ``IOError`` on a checksum mismatch."""
+    place; returns ``target_tree``.  ``shardings``: a tree of the same
+    structure of :class:`~repro_torch.dist.partition.Sharding` — each leaf
+    is placed with the new mesh's placements (the elastic path; see the
+    module's note) and the tree returned holds the placed leaves.  Raises
+    ``ValueError`` on a structure, shape or dtype mismatch and ``IOError``
+    on a checksum mismatch."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -191,12 +262,27 @@ def restore_checkpoint(path: str, step: int, target_tree):
             "checkpoint was written with zstd compression but the "
             "'zstandard' module is not installed"
         )
+    flat_sh = flatten_shardings(shardings) if shardings is not None else {}
     with concurrent.futures.ThreadPoolExecutor(_IO_THREADS) as pool:
-        futures = [pool.submit(_read_leaf, d, meta, flat[meta["name"]], codec == "zstd")
+        futures = [pool.submit(_read_leaf, d, meta, flat[meta["name"]], codec == "zstd",
+                               flat_sh.get(meta["name"]))
                    for meta in leaves]
-        for f in futures:
-            f.result()
-    return target_tree
+        hosts = {meta["name"]: f.result() for meta, f in zip(leaves, futures)}
+    placed = {name: _place(host, flat[name], flat_sh.get(name))
+              for name, host in hosts.items() if host is not None}
+    if not placed:
+        return target_tree
+    return _replace(target_tree, placed)
+
+
+def flatten_shardings(tree, prefix: str = "") -> dict:
+    """A tree of ``Sharding`` → ``{"a/b": Sharding}`` (``flatten``'s names)."""
+    if isinstance(tree, dict):
+        out = {}
+        for key in sorted(tree):
+            out.update(flatten_shardings(tree[key], f"{prefix}/{key}" if prefix else str(key)))
+        return out
+    return {prefix: tree}
 
 
 class CheckpointManager:
@@ -212,25 +298,37 @@ class CheckpointManager:
             else None
         )
         self._pending: concurrent.futures.Future | None = None
+        self._sharded = False  # the pending save is of a sharded tree
         os.makedirs(path, exist_ok=True)
 
     def save(self, step: int, tree):
         if self._pool is not None:
             self.wait()
-            # snapshot to the host now, write on the background thread
+            # snapshot to the host now (a sharded tree gathered by every
+            # rank), write on the background thread (rank 0 of a sharded
+            # tree; the others meet it at the barrier of ``wait``)
             host = _HostTree.of(tree, copy=True)
-            self._pending = self._pool.submit(self._save_and_gc, step, host)
+            self._sharded = host.sharded
+            if not host.sharded or _writer():
+                self._pending = self._pool.submit(self._write_and_gc, step, host)
         else:
-            self._save_and_gc(step, tree)
+            host = _HostTree.of(tree, copy=False)
+            if not host.sharded or _writer():
+                self._write_and_gc(step, host)
+            if host.sharded:
+                dist.barrier()
 
-    def _save_and_gc(self, step: int, tree):
-        save_checkpoint(self.path, step, tree)
+    def _write_and_gc(self, step: int, host: "_HostTree"):
+        _write(os.path.join(self.path, f"step_{step:08d}"), step, host)
         self._gc()
 
     def wait(self):
         if self._pending is not None:
             self._pending.result()
             self._pending = None
+        if self._sharded:
+            dist.barrier()
+            self._sharded = False
 
     def _gc(self):
         steps = sorted(
@@ -245,11 +343,11 @@ class CheckpointManager:
     def latest(self) -> int | None:
         return latest_step(self.path)
 
-    def restore(self, target_tree, step: int | None = None):
+    def restore(self, target_tree, shardings=None, step: int | None = None):
         step = step if step is not None else self.latest()
         if step is None:
             return None
-        return restore_checkpoint(self.path, step, target_tree)
+        return restore_checkpoint(self.path, step, target_tree, shardings)
 
     def close(self):
         """Wait for a pending save and stop the background thread."""

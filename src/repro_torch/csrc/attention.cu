@@ -4,10 +4,10 @@
 // _flash_kernel), and serves the reference's model-layout scan
 // src/repro/models/attention.py:blockwise_attention on the prefill path.
 // For each batch row b, query head h (KV head h / G: no repeated K/V) and
-// query i < S:
+// query row i < S, at position p = q_off + i among the T keys:
 //   s_ij = softcap(q_i . k_j * scale),  softcap(x) = cap * tanh(x / cap)
 //   key j valid iff  j < T  and  j >= valid_from[b]
-//                    and (causal => j <= i)  and (window >= 0 => i - j < window)
+//                    and (causal => j <= p)  and (window >= 0 => p - j < window)
 //   o_i  = sum_j p_ij v_j / sum_j p_ij over valid j, by an online softmax
 //          over key tiles with a float32 running max and sum (-2^30 for
 //          "no key yet", as in the reference);
@@ -17,8 +17,9 @@
 // Tiles of keys wholly above the diagonal, wholly outside the window or
 // wholly before valid_from are never read (the key range of a query tile is
 // cut before the loop, as pl.when(run) skips blocks).  causal, window,
-// logit cap, valid_from, S, T, the strides and the scale are launch
-// arguments: none forces a rebuild.  The head dim hd (a multiple of 8 up
+// the query offset q_off (0 for a whole sequence; r * S for the rows one
+// rank of a sequence-sharded attention owns), logit cap, valid_from, S, T,
+// the strides and the scale are launch arguments: none forces a rebuild.  The head dim hd (a multiple of 8 up
 // to 256) is rounded up to one of five compile-time widths (16 ... 256);
 // element types float32 and bfloat16.  Strides let one kernel read the
 // [B, H, S, hd] layout of flash_attention and the [B, S, H, hd] layout of
@@ -86,7 +87,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
                  long long osb, long long osh, long long oss,
-                 int causal, int window, float cap, float scale)
+                 int causal, int window, int q_off, float cap, float scale)
 {
     extern __shared__ float smem[];
     const int ld = hd + 1;
@@ -107,7 +108,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // four threads per query row: row r, score columns sub + 4c, output
     // columns sub + 4jj
     const int r = tid >> 2, sub = tid & 3;
-    const int i = q0 + r;
+    const int i = q0 + r, ip = q_off + i;  // the row and its position
 
     for (int idx = tid; idx < FA_BQ * hd; idx += FA_THREADS) {
         const int rr = idx / hd, d = idx - rr * hd;
@@ -117,8 +118,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the keys any row of this tile may see: [k_lo, k_hi)
     const int q_last = min(q0 + FA_BQ, S) - 1;
     int k_lo = vf, k_hi = T_;
-    if (causal) k_hi = min(k_hi, q_last + 1);
-    if (window >= 0) k_lo = max(k_lo, q0 - window + 1);
+    if (causal) k_hi = min(k_hi, q_off + q_last + 1);
+    if (window >= 0) k_lo = max(k_lo, q_off + q0 - window + 1);
 
     float m = FA_NEG_INF, l = 0.f;
     float acc[HDMAX / 4];
@@ -152,8 +153,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int c = 0; c < FA_BK / 4; ++c) {
             const int j = k0 + sub + 4 * c;
             bool ok = i < S && j < T_ && j >= vf;
-            if (causal) ok = ok && j <= i;
-            if (window >= 0) ok = ok && i - j < window;
+            if (causal) ok = ok && j <= ip;
+            if (window >= 0) ok = ok && ip - j < window;
             float s = sc[c] * scale;
             if (cap > 0.f) s = cap * tanhf(s / cap);
             sc[c] = s;
@@ -370,20 +371,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// the key tiles of BK keys [lo, hi) that rows [qa, qa + 64) of a query tile may see
+// the key tiles of BK keys [lo, hi) that rows [qa, qa + 64) of a query tile
+// (at positions q_off + qa ...) may see
 template <int BK = TC_BK>
 __device__ __forceinline__ void key_tiles(int qa, int S, int T_, int vf, int causal, int window,
-                                          int& lo, int& hi)
+                                          int q_off, int& lo, int& hi)
 {
     int k_lo = vf, k_hi = T_;
-    if (causal) k_hi = min(k_hi, min(qa + TC_BQ, S));
-    if (window >= 0) k_lo = max(k_lo, qa - window + 1);
+    if (causal) k_hi = min(k_hi, q_off + min(qa + TC_BQ, S));
+    if (window >= 0) k_lo = max(k_lo, q_off + qa - window + 1);
     lo = k_lo < k_hi ? k_lo / BK : 0;
     hi = k_lo < k_hi ? (k_hi + BK - 1) / BK : 0;
 }
 
-// One key tile of one consumer warpgroup: this thread's rows are i0 and
-// i0 + 8, its columns of each 8-column block cq and cq + 1.  MASK: the tile
+// One key tile of one consumer warpgroup: this thread's rows sit at
+// positions i0 and i0 + 8, its columns of each 8-column block cq and cq + 1.  MASK: the tile
 // crosses the diagonal, the window edge, valid_from or T, so each score is
 // masked on its own; interior tiles skip it.  Scores are kept in the exp2
 // domain: x * log2(e), with the cap applied first (exact tanhf).
@@ -486,7 +488,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        float* __restrict__ lse, const int* __restrict__ valid_from, int G,
                        int H, int S, int T_, int hd,
                        long long osb, long long osh, long long oss, int causal, int window,
-                       float cap, float scale)
+                       int q_off, float cap, float scale)
 {
     using C = Tc<HDP>;
     extern __shared__ unsigned char tc_smem[];
@@ -506,8 +508,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int qa0 = G == 1 ? qt * 2 * TC_BQ : qt * TC_BQ, qa1 = G == 1 ? qa0 + TC_BQ : qa0;
     const bool act0 = qa0 < S, act1 = (G == 1 || 2 * pair + 1 < G) && qa1 < S;
     int lo0, hi0, lo1, hi1;
-    key_tiles(qa0, S, T_, vf, causal, window, lo0, hi0);
-    key_tiles(qa1, S, T_, vf, causal, window, lo1, hi1);
+    key_tiles(qa0, S, T_, vf, causal, window, q_off, lo0, hi0);
+    key_tiles(qa1, S, T_, vf, causal, window, q_off, lo1, hi1);
     if (!act1) lo1 = hi1 = 0;
     // the union the producer loads (contiguous: the ranges overlap or meet)
     int u_lo = INT_MAX, u_hi = 0;
@@ -587,15 +589,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 // V: the next 64 columns one box on (LBO), the next 8 keys 8 rows on (SBO)
                 const uint64_t vdesc =
                     smem_desc<C::LAYOUT>(v_sm + s * C::TILE, C::BOX, 8 * C::RB);
+                const int pa = q_off + qa;  // the tile's first position
                 const bool inner = j0 + TC_BK <= T_ && j0 >= vf &&
-                                   (!causal || j0 + TC_BK - 1 <= qa) &&
-                                   (window < 0 || qa + TC_BQ - 1 - j0 < window);
+                                   (!causal || j0 + TC_BK - 1 <= pa) &&
+                                   (window < 0 || pa + TC_BQ - 1 - j0 < window);
                 if (inner)
-                    tc_tile<HDP, false>(O, m0, m1, l0, l1, qdesc, kdesc, vdesc, j0, i0, cq, T_,
-                                        vf, causal, window, cap_l2, sc);
+                    tc_tile<HDP, false>(O, m0, m1, l0, l1, qdesc, kdesc, vdesc, j0, q_off + i0,
+                                        cq, T_, vf, causal, window, cap_l2, sc);
                 else
-                    tc_tile<HDP, true>(O, m0, m1, l0, l1, qdesc, kdesc, vdesc, j0, i0, cq, T_,
-                                       vf, causal, window, cap_l2, sc);
+                    tc_tile<HDP, true>(O, m0, m1, l0, l1, qdesc, kdesc, vdesc, j0, q_off + i0,
+                                       cq, T_, vf, causal, window, cap_l2, sc);
             }
             __syncwarp();
             if (lane == 0) mbar_arrive(empty + 8 * s);
@@ -639,8 +642,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int HDP>
 static int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                       const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
-                      const long long* st, int causal, int window, float cap, float scale,
-                      cudaStream_t stream)
+                      const long long* st, int causal, int window, int q_off, float cap,
+                      float scale, cudaStream_t stream)
 {
     const auto kernel = flash_fwd_kernel<HDP>;
     // per instantiation: raise the limit once, to the widest launch (hd = HDP)
@@ -655,7 +658,7 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, floa
     kernel<<<grid, FA_THREADS, smem_bytes(hd), stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
         (const int*)valid_from, H / KV, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-        st[10], st[11], causal, window, cap, scale);
+        st[10], st[11], causal, window, q_off, cap, scale);
     return (int)cudaGetLastError();
 }
 
@@ -684,8 +687,8 @@ static int tile_map(CUtensorMap* map, const void* ptr, int B, int heads, int row
 template <int HDP>
 static int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                        const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
-                       const long long* st, int causal, int window, float cap, float scale,
-                       cudaStream_t stream)
+                       const long long* st, int causal, int window, int q_off, float cap,
+                       float scale, cudaStream_t stream)
 {
     using C = Tc<HDP>;
     const auto kernel = flash_fwd_wgmma_kernel<HDP>;
@@ -707,7 +710,8 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o, flo
     if (rc != 0) return rc;
     kernel<<<grid, TC_THREADS, C::SMEM, stream>>>(qm, km, vm, (__nv_bfloat16*)o, lse,
                                                   (const int*)valid_from, G, H, S, T_, hd, st[9],
-                                                  st[10], st[11], causal, window, cap, scale);
+                                                  st[10], st[11], causal, window, q_off, cap,
+                                                  scale);
     return (int)cudaGetLastError();
 }
 
@@ -715,17 +719,17 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o, flo
 template <typename T>
 static int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
                     const void* valid_from, int B, int H, int KV, int S, int T_, int hd,
-                    const long long* st, int causal, int window, float cap, float scale,
-                    cudaStream_t stream)
+                    const long long* st, int causal, int window, int q_off, float cap,
+                    float scale, cudaStream_t stream)
 {
 #define FA_CASE(W)                                                                          \
     if (hd <= W) {                                                                          \
         if constexpr (std::is_same<T, float>::value)                                        \
             return launch_f32<W>(q, k, v, o, lse, valid_from, B, H, KV, S, T_, hd, st, causal,   \
-                                 window, cap, scale, stream);                               \
+                                 window, q_off, cap, scale, stream);                        \
         else                                                                                \
             return launch_bf16<W>(q, k, v, o, lse, valid_from, B, H, KV, S, T_, hd, st, causal,  \
-                                  window, cap, scale, stream);                              \
+                                  window, q_off, cap, scale, stream);                       \
     }
     FA_CASE(16) FA_CASE(32) FA_CASE(64) FA_CASE(128) FA_CASE(256)
 #undef FA_CASE
@@ -739,7 +743,9 @@ static int dispatch(const void* q, const void* k, const void* v, void* o, float*
 // scores, m + log(l) in the natural domain over the sums the kernel kept
 // (+inf on a row with no valid key), for the backward (K7b); serving
 // passes null.  valid_from [B] int32 or null (all 0); window < 0 = none; cap <= 0 =
-// none.  S >= 1, H % KV == 0, hd a multiple of 8 in [8, 256]; for
+// none; q_off >= 0 the position of query row 0 among the keys (0 for a whole
+// sequence or a cross-attention).
+// S >= 1, H % KV == 0, hd a multiple of 8 in [8, 256]; for
 // bfloat16, TMA reads q, k and v: 16-byte aligned bases and strides in
 // multiples of 8 elements.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or the error that stopped the launch.
@@ -750,22 +756,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       long long ksb, long long ksh, long long kst,
                                       long long vsb, long long vsh, long long vst,
                                       long long osb, long long osh, long long oss,
-                                      int causal, int window, float cap, float scale,
-                                      void* stream)
+                                      int causal, int window, int q_off, float cap,
+                                      float scale, void* stream)
 {
-    if (B < 1 || S < 1 || T < 0 || KV < 1 || H % KV || hd < 8 || hd > 256 || hd % 8)
+    if (B < 1 || S < 1 || T < 0 || KV < 1 || H % KV || hd < 8 || hd > 256 || hd % 8 ||
+        q_off < 0)
         return (int)cudaErrorInvalidValue;
     const long long st[12] = {qsb, qsh, qss, ksb, ksh, kst, vsb, vsh, vst, osb, osh, oss};
     if (dtype == 0)
         return dispatch<float>(q, k, v, o, (float*)lse, valid_from, B, H, KV, S, T, hd, st, causal,
-                               window, cap, scale, (cudaStream_t)stream);
+                               window, q_off, cap, scale, (cudaStream_t)stream);
     if (dtype == 1) {
         for (int i = 0; i < 12; ++i)
             if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
         if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
             return (int)cudaErrorMisalignedAddress;
         return dispatch<__nv_bfloat16>(q, k, v, o, (float*)lse, valid_from, B, H, KV, S, T, hd, st,
-                                       causal, window, cap, scale, (cudaStream_t)stream);
+                                       causal, window, q_off, cap, scale, (cudaStream_t)stream);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -777,7 +784,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // blockwise_attention (src/repro/models/attention.py:73) under autodiff, the
 // scan's reverse; the port trains through K7, whose output has no autograd
 // graph, so the gradient of the same function is this kernel.  For each row
-// i of query head h (KV head h / G) and key j, with the forward's scores
+// i of query head h (KV head h / G), at position q_off + i among the T keys
+// (K7's mask and offset), and key j, with the forward's scores
 //   x_ij = q_i . k_j * scale,  s_ij = softcap(x_ij)  (cap * tanh(x / cap)),
 // the row's log-sum-exp L_i (K7's lse output) and D_i = dO_i . O_i:
 //   P_ij  = exp(s_ij - L_i) over the valid keys (K7's mask), else 0
@@ -874,7 +882,7 @@ __device__ __forceinline__ void bw_tile(float* dst, const float* src, int r0, in
 __device__ __forceinline__ void bw_scores(const float* qs, const float* dos, const float* ks,
                                           const float* vs, const float* lse_s, const float* d_s,
                                           float* ps, float* dss, int i0, int j0, int S, int T_,
-                                          int hd, int causal, int window, float cap,
+                                          int hd, int causal, int window, int q_off, float cap,
                                           float scale)
 {
     const int ld = hd + 1;
@@ -890,14 +898,14 @@ __device__ __forceinline__ void bw_scores(const float* qs, const float* dos, con
             dp[n] = fmaf(dod, vs[(c0 + 8 * n) * ld + d], dp[n]);
         }
     }
-    const int i = i0 + r;
+    const int i = i0 + r, ip = q_off + i;  // the row and its position
     const float L = lse_s[r], Di = d_s[r];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
         const int c = c0 + 8 * n, j = j0 + c;
         bool ok = i < S && j < T_;
-        if (causal) ok = ok && j <= i;
-        if (window >= 0) ok = ok && i - j < window;
+        if (causal) ok = ok && j <= ip;
+        if (window >= 0) ok = ok && ip - j < window;
         const float x = sx[n] * scale;
         float s = x, dcap = 1.f;
         if (cap > 0.f) {
@@ -918,7 +926,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ lse, const float* __restrict__ dsum,
                 float* __restrict__ dk, float* __restrict__ dv, int G, int S, int T_, int hd,
                 long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-                long long kst, int causal, int window, float cap, float scale)
+                long long kst, int causal, int window, int q_off, float cap, float scale)
 {
     extern __shared__ float bw_smem[];
     const int ld = hd + 1;
@@ -939,9 +947,9 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     bw_tile(vs, vb, j0, T_, hd, kst, BW_BK);
 
     // the query rows that may see keys [j0, j0 + BW_BK): [i_lo, i_hi)
-    const int i_lo = causal ? j0 : 0;
+    const int i_lo = causal ? max(j0 - q_off, 0) : 0;
     int i_hi = S;
-    if (window >= 0) i_hi = min(i_hi, j0 + BW_BK - 1 + window);
+    if (window >= 0) i_hi = min(i_hi, j0 + BW_BK - 1 + window - q_off);
 
     const int c = threadIdx.x >> 3, e0 = threadIdx.x & 7;  // sum phase: key c, columns e0 + 8jj
     float adk[HDMAX / 8], adv[HDMAX / 8];
@@ -965,7 +973,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             }
             __syncthreads();
             bw_scores(qs, dos, ks, vs, lse_s, d_s, ps, dss, i0, j0, S, T_, hd, causal,
-                         window, cap, scale);
+                         window, q_off, cap, scale);
             __syncthreads();
             for (int r = 0; r < BW_BQ; ++r) {
                 const float p = ps[r * (BW_BK + 1) + c], ds = dss[r * (BW_BK + 1) + c];
@@ -1002,7 +1010,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ lse, const float* __restrict__ dsum,
               float* __restrict__ dq, int G, int S, int T_, int hd, long long qsb,
               long long qsh, long long qss, long long ksb, long long ksh, long long kst,
-              int causal, int window, float cap, float scale)
+              int causal, int window, int q_off, float cap, float scale)
 {
     extern __shared__ float bw_smem[];
     const int ld = hd + 1;
@@ -1032,8 +1040,8 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // the keys rows [i0, i0 + BW_BQ) may see: [j_lo, j_hi)
     const int i_last = min(i0 + BW_BQ, S) - 1;
     int j_lo = 0, j_hi = T_;
-    if (causal) j_hi = min(j_hi, i_last + 1);
-    if (window >= 0) j_lo = max(j_lo, i0 - window + 1);
+    if (causal) j_hi = min(j_hi, q_off + i_last + 1);
+    if (window >= 0) j_lo = max(j_lo, q_off + i0 - window + 1);
 
     const int r = threadIdx.x >> 3, e0 = threadIdx.x & 7;  // sum phase: row r, columns e0 + 8jj
     float adq[HDMAX / 8];
@@ -1046,7 +1054,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         bw_tile(vs, vb, j0, T_, hd, kst, BW_BK);
         __syncthreads();
         bw_scores(qs, dos, ks, vs, lse_s, d_s, nullptr, dss, i0, j0, S, T_, hd, causal,
-                     window, cap, scale);
+                     window, q_off, cap, scale);
         __syncthreads();
         const float* dsrow = dss + r * (BW_BK + 1);
         for (int cc = 0; cc < BW_BK; ++cc) {
@@ -1270,8 +1278,8 @@ template <int HDP, bool MASK>
 __device__ __forceinline__ void bk_scores(uint64_t kdesc, uint64_t vdesc, uint64_t qdesc,
                                           uint64_t ddesc, const float* lds, uint32_t pt,
                                           int wg, int kr0, int cq, int j0, int i0, int S,
-                                          int T_, int causal, int window, float cap_l2,
-                                          float sc, float scale)
+                                          int T_, int causal, int window, int q_off,
+                                          float cap_l2, float sc, float scale)
 {
     using C = Tc<HDP>;
     float st[16], dpt[16];
@@ -1307,8 +1315,8 @@ __device__ __forceinline__ void bk_scores(uint64_t kdesc, uint64_t vdesc, uint64
             if (MASK) {
                 const int i = i0 + c + (e & 1), j = j0 + kr0 + (e < 2 ? 0 : 8);
                 ok = i < S && j < T_;
-                if (causal) ok = ok && j <= i;
-                if (window >= 0) ok = ok && i - j < window;
+                if (causal) ok = ok && j <= q_off + i;
+                if (window >= 0) ok = ok && q_off + i - j < window;
             }
             bwd_score(st[4 * n + e], dpt[4 * n + e], e & 1 ? L.y : L.x, e & 1 ? D.y : D.x, ok,
                       cap_l2, sc, scale, p[e], ds[e]);
@@ -1332,7 +1340,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int G, int H, int S, int T_, int hd,
                       long long ksb, long long ksh, long long kst, int causal, int window,
-                      float cap, float scale)
+                      int q_off, float cap, float scale)
 {
     using C = Tc<HDP>;
     using P = Bk<HDP>;
@@ -1351,9 +1359,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     const int kvh = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * BB_ROWS;
     // the query tiles of each head that can see keys [j0, j0 + 64): nqt from qt_lo
-    const int i_lo = causal ? j0 : 0;
+    const int i_lo = causal ? max(j0 - q_off, 0) : 0;
     int i_hi = S;
-    if (window >= 0) i_hi = min(i_hi, j0 + BB_ROWS - 1 + window);
+    if (window >= 0) i_hi = min(i_hi, j0 + BB_ROWS - 1 + window - q_off);
     const int qt_lo = i_lo / BB_ROWS;
     const int nqt = i_lo < i_hi ? (i_hi + BB_ROWS - 1) / BB_ROWS - qt_lo : 0;
     const int n_it = G * nqt;  // stages: head g = it / nqt, tile qt_lo + it % nqt
@@ -1432,14 +1440,14 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             const uint64_t ddesc = smem_desc<C::LAYOUT>(dos + wg * 32 * C::RB, 16, 8 * C::RB);
             const float* lds = l_all + 128 * s;
             const bool inner = qa + 32 <= S && j0 + BB_ROWS <= T_ &&
-                               (!causal || j0 + BB_ROWS - 1 <= qa) &&
-                               (window < 0 || qa + 31 - j0 < window);
+                               (!causal || j0 + BB_ROWS - 1 <= q_off + qa) &&
+                               (window < 0 || q_off + qa + 31 - j0 < window);
             if (inner)
                 bk_scores<HDP, false>(kdesc, vdesc, qdesc, ddesc, lds, pt, wg, kr0, cq, j0, i0,
-                                      S, T_, causal, window, cap_l2, sc, scale);
+                                      S, T_, causal, window, q_off, cap_l2, sc, scale);
             else
                 bk_scores<HDP, true>(kdesc, vdesc, qdesc, ddesc, lds, pt, wg, kr0, cq, j0, i0,
-                                     S, T_, causal, window, cap_l2, sc, scale);
+                                     S, T_, causal, window, q_off, cap_l2, sc, scale);
             // both warpgroups' halves of P^T and dS^T are in place (and visible
             // to the tensor cores' reads)
             fence_proxy_async();
@@ -1479,7 +1487,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // One key stage of the dQ pass for one consumer warpgroup: this thread's
-// rows are i0 and i0 + 8 (lse L0, L1 in the exp2 domain; D0, D1), its keys
+// rows sit at positions i0 and i0 + 8 (lse L0, L1 in the exp2 domain; D0, D1), its keys
 // j0 + 8n + cq (+ 1).  MASK as in bk_scores.
 template <int HDP, bool MASK>
 __device__ __forceinline__ void bq_tile(float (&acc)[HDP / 2], uint64_t qdesc, uint64_t ddesc,
@@ -1561,7 +1569,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap vmap, const float* __restrict__ lse,
                     const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dq, int G, int H,
                     int S, int T_, int hd, long long qsb, long long qsh, long long qss,
-                    int causal, int window, float cap, float scale)
+                    int causal, int window, int q_off, float cap, float scale)
 {
     using C = Tc<HDP>;
     using P = Bq<HDP>;
@@ -1582,8 +1590,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int qa0 = G == 1 ? qt * 2 * BB_ROWS : qt * BB_ROWS, qa1 = G == 1 ? qa0 + BB_ROWS : qa0;
     const bool act0 = qa0 < S, act1 = (G == 1 || 2 * pair + 1 < G) && qa1 < S;
     int lo0, hi0, lo1, hi1;
-    key_tiles<P::BK>(qa0, S, T_, 0, causal, window, lo0, hi0);
-    key_tiles<P::BK>(qa1, S, T_, 0, causal, window, lo1, hi1);
+    key_tiles<P::BK>(qa0, S, T_, 0, causal, window, q_off, lo0, hi0);
+    key_tiles<P::BK>(qa1, S, T_, 0, causal, window, q_off, lo1, hi1);
     if (!act1) lo1 = hi1 = 0;
     int u_lo = INT_MAX, u_hi = 0;  // the union the producer loads
     if (lo0 < hi0) u_lo = lo0, u_hi = hi0;
@@ -1668,14 +1676,15 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             if (t >= my_lo && t < my_hi) {
                 const int j0 = t * P::BK;
                 const uint32_t ks = k_sm + s * P::KTILE, vs = v_sm + s * P::KTILE;
-                const bool inner = j0 + P::BK <= T_ && (!causal || j0 + P::BK - 1 <= qa) &&
-                                   (window < 0 || qa + BB_ROWS - 1 - j0 < window);
+                const int pa = q_off + qa;  // the tile's first position
+                const bool inner = j0 + P::BK <= T_ && (!causal || j0 + P::BK - 1 <= pa) &&
+                                   (window < 0 || pa + BB_ROWS - 1 - j0 < window);
                 if (inner)
-                    bq_tile<HDP, false>(acc, qdesc, ddesc, ks, vs, j0, i0, cq, L0, L1, D0, D1,
-                                        T_, causal, window, cap_l2, sc, scale);
+                    bq_tile<HDP, false>(acc, qdesc, ddesc, ks, vs, j0, q_off + i0, cq, L0, L1,
+                                        D0, D1, T_, causal, window, cap_l2, sc, scale);
                 else
-                    bq_tile<HDP, true>(acc, qdesc, ddesc, ks, vs, j0, i0, cq, L0, L1, D0, D1,
-                                       T_, causal, window, cap_l2, sc, scale);
+                    bq_tile<HDP, true>(acc, qdesc, ddesc, ks, vs, j0, q_off + i0, cq, L0, L1,
+                                       D0, D1, T_, causal, window, cap_l2, sc, scale);
             }
             __syncwarp();
             if (lane == 0) mbar_arrive(empty + 8 * s);
@@ -1702,8 +1711,8 @@ template <int HDP>
 static int launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* dsum, void* dq, void* dk, void* dv,
                            int B, int H, int KV, int S, int T_, int hd, const long long* st,
-                           int causal, int window, float cap, float scale, int passes,
-                           cudaStream_t stream)
+                           int causal, int window, int q_off, float cap, float scale,
+                           int passes, cudaStream_t stream)
 {
     const auto kkv = bwd_dkdv_wgmma_kernel<HDP>;
     const auto kq = bwd_dq_wgmma_kernel<HDP>;
@@ -1729,7 +1738,7 @@ static int launch_bwd_bf16(const void* q, const void* k, const void* v, const vo
         const dim3 grid(KV, B, (T_ + BB_ROWS - 1) / BB_ROWS);
         kkv<<<grid, TC_THREADS, Bk<HDP>::SMEM, stream>>>(
             qm, dm, km, vm, lse, dsum, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, G, H, S, T_, hd,
-            st[3], st[4], st[5], causal, window, cap, scale);
+            st[3], st[4], st[5], causal, window, q_off, cap, scale);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
@@ -1744,7 +1753,7 @@ static int launch_bwd_bf16(const void* q, const void* k, const void* v, const vo
         const dim3 grid(KV * (G == 1 ? 1 : (G + 1) / 2), B, (S + rows - 1) / rows);
         kq<<<grid, TC_THREADS, Bq<HDP>::SMEM, stream>>>(
             qm, dm, km, vm, lse, dsum, (__nv_bfloat16*)dq, G, H, S, T_, hd, st[0], st[1], st[2],
-            causal, window, cap, scale);
+            causal, window, q_off, cap, scale);
     }
     return (int)cudaGetLastError();
 }
@@ -1753,7 +1762,7 @@ template <typename T, int HDMAX>
 static int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* dsum, void* dq, void* dk,
                       void* dv, int B, int H, int KV, int S, int T_, int hd, const long long* st,
-                      int causal, int window, float cap, float scale, int passes,
+                      int causal, int window, int q_off, float cap, float scale, int passes,
                       cudaStream_t stream)
 {
     cudaError_t err;
@@ -1785,7 +1794,7 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
             kdkdv<<<gkv, BW_THREADS, smem, stream>>>(
                 (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dk,
                 (T*)dv, G, S, T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], causal, window,
-                cap, scale);
+                q_off, cap, scale);
             err = cudaGetLastError();
             if (err != cudaSuccess) return (int)err;
         }
@@ -1793,12 +1802,13 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
             const dim3 gq((S + BW_BQ - 1) / BW_BQ, H, B);
             kdq<<<gq, BW_THREADS, smem, stream>>>(
                 (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, (T*)dq, G, S,
-                T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], causal, window, cap, scale);
+                T_, hd, st[0], st[1], st[2], st[3], st[4], st[5], causal, window, q_off, cap,
+                scale);
         }
         return (int)cudaGetLastError();
     } else {
         return launch_bwd_bf16<HDMAX>(q, k, v, dout, lse, dsum, dq, dk, dv, B, H, KV, S, T_, hd,
-                                      st, causal, window, cap, scale, passes, stream);
+                                      st, causal, window, q_off, cap, scale, passes, stream);
     }
 }
 
@@ -1806,13 +1816,13 @@ template <typename T>
 static int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* dsum, void* dq, void* dk,
                         void* dv, int B, int H, int KV, int S, int T_, int hd,
-                        const long long* st, int causal, int window, float cap, float scale,
-                        int passes, cudaStream_t stream)
+                        const long long* st, int causal, int window, int q_off, float cap,
+                        float scale, int passes, cudaStream_t stream)
 {
 #define BW_CASE(W)                                                                          \
     if (hd <= W)                                                                            \
         return launch_bwd<T, W>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, H, KV, S, T_,   \
-                                hd, st, causal, window, cap, scale, passes, stream);
+                                hd, st, causal, window, q_off, cap, scale, passes, stream);
     BW_CASE(16) BW_CASE(32) BW_CASE(64) BW_CASE(128) BW_CASE(256)
 #undef BW_CASE
     return (int)cudaErrorInvalidValue;
@@ -1824,8 +1834,8 @@ static int dispatch_bwd(const void* q, const void* k, const void* v, const void*
 // without a valid key: training has no left pads); dsum [B, H, S] float32
 // scratch (D).  dtype 0 = float32, 1 = bfloat16 (every tensor but lse and
 // dsum); for bfloat16, TMA reads q, k, v and dout: 16-byte aligned bases
-// and strides in multiples of 8 elements.  window and cap as the
-// forward's.  passes: a mask of the launches to make in order, 1 the D
+// and strides in multiples of 8 elements.  window, cap and q_off (q_off +
+// S <= T) as the forward's.  passes: a mask of the launches to make in order, 1 the D
 // pass, 2 the dK/dV pass, 4 the dQ pass (7: the whole backward; a later
 // pass reads what an earlier one wrote).  Launches on `stream` and returns
 // the first error of a launch (0 on success).
@@ -1833,17 +1843,17 @@ extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* dsum, void* dq, void* dk, void* dv, int dtype, int B, int H, int KV,
     int S, int T, int hd, long long qsb, long long qsh, long long qss, long long ksb,
-    long long ksh, long long kst, int causal, int window, float cap, float scale, int passes,
-    void* stream)
+    long long ksh, long long kst, int causal, int window, int q_off, float cap, float scale,
+    int passes, void* stream)
 {
     if (B < 1 || S < 1 || T < 1 || KV < 1 || H % KV || hd < 8 || hd > 256 || hd % 8 ||
-        passes < 1 || passes > 7)
+        passes < 1 || passes > 7 || q_off < 0 || q_off + S > T)
         return (int)cudaErrorInvalidValue;
     const long long st[6] = {qsb, qsh, qss, ksb, ksh, kst};
     if (dtype == 0)
         return dispatch_bwd<float>(q, k, v, o, dout, (const float*)lse, (float*)dsum, dq, dk,
-                                   dv, B, H, KV, S, T, hd, st, causal, window, cap, scale,
-                                   passes, (cudaStream_t)stream);
+                                   dv, B, H, KV, S, T, hd, st, causal, window, q_off, cap,
+                                   scale, passes, (cudaStream_t)stream);
     if (dtype == 1) {
         for (int i = 0; i < 6; ++i)
             if (st[i] % 8) return (int)cudaErrorMisalignedAddress;
@@ -1851,7 +1861,7 @@ extern "C" int flash_attention_backward_launch(
             return (int)cudaErrorMisalignedAddress;
         return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, (const float*)lse, (float*)dsum,
                                            dq, dk, dv, B, H, KV, S, T, hd, st, causal, window,
-                                           cap, scale, passes, (cudaStream_t)stream);
+                                           q_off, cap, scale, passes, (cudaStream_t)stream);
     }
     return (int)cudaErrorInvalidValue;
 }

@@ -62,6 +62,7 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.dist import collectives
 from repro_torch.dist.collectives import SIM_AXIS, SIM_CAND_AXIS
+from repro_torch.dist.partition import object_axes
 
 # Schedules the autotuner arbitrates between.  ``pmin`` is excluded: its
 # unpacked-lane volume is strictly dominated for every batch size.
@@ -210,7 +211,7 @@ class ShardPlan:
             mesh.object_group,
             device,
             cand_group=mesh.cand_group,
-            axis_names=mesh.object_axes,
+            axis_names=object_axes(mesh),
             cand_axis_names=mesh.cand_axes,
             mesh_shape=mesh.shape,
             **kw,

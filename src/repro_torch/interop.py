@@ -141,6 +141,36 @@ def params_from_jax(values, cfg) -> dict:
     return out
 
 
+def axes_from_jax(axes, cfg) -> dict:
+    """The reference's logical-axes tree of the parameters (the axes half of
+    ``layers.split_params``) → ``{port parameter name: axes}``, named as
+    :func:`params_from_jax` names the values: a period-stacked leaf gives
+    every layer of its block its axes without the leading ``layers``
+    entry (``Decoder.param_axes()`` holds the same)."""
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, tuple) and all(a is None or isinstance(a, str) for a in tree):
+            return {prefix: tree}
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for key, sub in items:
+            out.update(leaves(sub, f"{prefix}.{key}" if prefix else str(key)))
+        return out
+
+    out = {k: v for k, v in leaves(axes).items() if not k.startswith(("layers.", "tail."))}
+    P = len(cfg.layer_pattern)
+    for p in range(cfg.n_periods):
+        for i in range(P):
+            for path, ax in leaves(axes["layers"][f"block{i}"]).items():
+                if ax[:1] != ("layers",):
+                    raise ValueError(f"stacked leaf {path} lacks its 'layers' axis: {ax}")
+                out[f"layers.{P * p + i}.{path}"] = ax[1:]
+    for j, tree in enumerate(axes.get("tail", [])):
+        for path, ax in leaves(tree).items():
+            out[f"layers.{P * cfg.n_periods + j}.{path}"] = ax
+    return out
+
+
 def opt_state_from_jax(values, cfg) -> dict:
     """The reference's optimizer state with numpy leaves (``adamw``: ``step``,
     ``m``, ``v``, ``master``; ``adafactor``: ``step``, ``v``) → the port's

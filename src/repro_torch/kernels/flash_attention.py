@@ -14,7 +14,13 @@ on the FMA pipes):
     ``[B, S, H, hd]``, k/v ``[B, S, KV, hd]``, at the positions that
     ``attn_full`` and ``attn_prefill`` give it: ``arange(S)``, and ``-1``
     before each row's ``valid_from`` (left pads).  It takes ``valid_from``
-    itself, as the kernel does: keys before it are never attended.
+    itself, as the kernel does: keys before it are never attended.  With
+    ``q_off`` the queries are rows ``[q_off, q_off + S)`` of a longer
+    sequence whose ``T`` keys k/v hold (the query rows one rank of the
+    partitioner's sequence-sharded attention owns): query row i sits at
+    position ``q_off + i`` in the causal and window masks, and the tile
+    ranges each launch visits follow it.  ``q_off`` is a run-time launch
+    argument (no rebuild), as are S, T and the masks.
 
 Semantics of both: fp32 scores, running max and sum; ``p`` rounded to V's
 dtype before ``P·V`` and the running sum taken over the rounded ``p``
@@ -155,12 +161,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_backward_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
-        + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
     )
     lib.flash_attention_backward_launch.restype = ctypes.c_int
     return lib
@@ -179,7 +185,7 @@ def _aligned(*xs: torch.Tensor):
 
 
 def _launch(q, k, v, out, valid_from, *, B, H, KV, S, T, q_st, kv_st, v_st, o_st,
-            causal, window, logit_cap, lse=None) -> None:
+            causal, window, logit_cap, lse=None, q_off: int = 0) -> None:
     hd = q.shape[3]
     with torch.cuda.device(q.device):
         rc = _lib().flash_attention_launch(
@@ -187,7 +193,7 @@ def _launch(q, k, v, out, valid_from, *, B, H, KV, S, T, q_st, kv_st, v_st, o_st
             None if lse is None else lse.data_ptr(),
             None if valid_from is None else valid_from.data_ptr(),
             DTYPES[q.dtype], B, H, KV, S, T, hd, *q_st, *kv_st, *v_st, *o_st,
-            int(causal), -1 if window is None else int(window),
+            int(causal), -1 if window is None else int(window), int(q_off),
             0.0 if logit_cap is None else float(logit_cap), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -233,14 +239,16 @@ def positions_of(valid_from, B: int, S: int, device=None) -> torch.Tensor:
     return torch.where(pos >= valid_from.to(pos.device)[:, None], pos, -1)
 
 
-def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None):
-    """K7 in the model layout: q [B, S, H, hd], k/v [B, S, KV, hd] →
-    [B, S, H, hd], causal self-attention at positions ``arange(S)``; in
-    row b the keys before ``valid_from[b]`` (an integer tensor [B], on q's
-    device; None: all 0) are never attended and the query rows before it
-    are 0 — the reference's ``blockwise_attention`` at the positions
-    :func:`positions_of` gives.  ``blockwise_attention.launches`` counts
-    kernel launches.
+def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None, q_off: int = 0):
+    """K7 in the model layout: q [B, S, H, hd], k/v [B, T, KV, hd] →
+    [B, S, H, hd], causal self-attention over the T positions
+    ``arange(T)`` for the query rows ``[q_off, q_off + S)`` of them (``q_off
+    + S <= T``; T = S for a whole sequence); in row b the keys before
+    ``valid_from[b]`` (an integer tensor [B], on q's device; None: all 0)
+    are never attended and the query rows before it are 0 — the
+    reference's ``blockwise_attention`` at the positions
+    :func:`positions_of` gives, its queries shifted by ``q_off``.
+    ``blockwise_attention.launches`` counts kernel launches.
 
     Under autograd (grad enabled and q, k or v requiring grad) the result
     has a gradient: on the card through :class:`_BlockwiseAttentionFn` (K7
@@ -250,8 +258,10 @@ def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None):
     _check(q, k, v, window, logit_cap, heads_axis=2)
     B, S, H, _ = q.shape
     KV, T = k.shape[2], k.shape[1]
-    if T != S:
-        raise ValueError(f"blockwise_attention is self-attention: {T} keys for {S} queries")
+    q_off = int(q_off)
+    if q_off < 0 or q_off + S > T:
+        raise ValueError(f"blockwise_attention is self-attention: {T} keys for {S} queries "
+                         f"at offset {q_off}")
     if valid_from is not None and (
             not isinstance(valid_from, torch.Tensor) or tuple(valid_from.shape) != (B,)
             or valid_from.dtype.is_floating_point or valid_from.device != q.device):
@@ -261,14 +271,16 @@ def blockwise_attention(q, k, v, *, window, logit_cap, valid_from=None):
         raise ValueError("blockwise_attention takes no valid_from under autograd "
                          "(training has no left pads)")
     if q.device.type == "cpu":
-        pos = positions_of(valid_from, B, S)
-        return attention_plain(q, k, v, pos, pos, window=window, logit_cap=logit_cap)
+        pos = positions_of(valid_from, B, T)
+        return attention_plain(q, k, v, pos[:, q_off: q_off + S], pos, window=window,
+                               logit_cap=logit_cap)
     if grad:
-        return _BlockwiseAttentionFn.apply(q, k, v, window, logit_cap)
-    return _blockwise_forward(q, k, v, window, logit_cap, valid_from)[0]
+        return _BlockwiseAttentionFn.apply(q, k, v, window, logit_cap, q_off)
+    return _blockwise_forward(q, k, v, window, logit_cap, valid_from, q_off=q_off)[0]
 
 
-def _blockwise_forward(q, k, v, window, logit_cap, valid_from=None, lse: bool = False):
+def _blockwise_forward(q, k, v, window, logit_cap, valid_from=None, lse: bool = False,
+                       q_off: int = 0):
     """K7 on CUDA tensors in the model layout → (out, lse [B, H, S] float32
     when ``lse``, else None)."""
     B, S, H, _ = q.shape
@@ -285,7 +297,7 @@ def _blockwise_forward(q, k, v, window, logit_cap, valid_from=None, lse: bool = 
             kv_st=(k.stride(0), k.stride(2), k.stride(1)),
             v_st=(v.stride(0), v.stride(2), v.stride(1)),
             o_st=(out.stride(0), out.stride(2), out.stride(1)),
-            causal=True, window=window, logit_cap=logit_cap, lse=lse_out)
+            causal=True, window=window, logit_cap=logit_cap, lse=lse_out, q_off=q_off)
     blockwise_attention.launches += 1
     return out, lse_out
 
@@ -300,36 +312,39 @@ class _BlockwiseAttentionFn(torch.autograd.Function):
     log-sum-exp; nothing of size S² is kept."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, logit_cap):
-        out, lse = _blockwise_forward(q, k, v, window, logit_cap, lse=True)
+    def forward(ctx, q, k, v, window, logit_cap, q_off=0):
+        out, lse = _blockwise_forward(q, k, v, window, logit_cap, lse=True, q_off=q_off)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.logit_cap = window, logit_cap
+        ctx.window, ctx.logit_cap, ctx.q_off = window, logit_cap, q_off
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, out, lse, dout, window=ctx.window,
-                                        logit_cap=ctx.logit_cap)
-        return dq, dk, dv, None, None
+                                        logit_cap=ctx.logit_cap, q_off=ctx.q_off)
+        return dq, dk, dv, None, None, None
 
 
-def attention_backward_plain(q, k, v, dout, *, window=None, logit_cap=None):
+def attention_backward_plain(q, k, v, dout, *, window=None, logit_cap=None, q_pos=None):
     """The plain version of K7b: autograd through :func:`attention_plain`
-    (causal self-attention at ``arange(S)``) → (dq, dk, dv) in q's, k's and
-    v's dtypes."""
-    S = q.shape[1]
+    (causal self-attention over the keys at ``arange(T)``, the queries at
+    ``q_pos`` [S] or [B, S], default ``arange(S)``) → (dq, dk, dv) in q's,
+    k's and v's dtypes."""
     with torch.enable_grad():
         q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
-        pos = torch.arange(S, device=q.device)
-        out = attention_plain(q, k, v, pos, pos, window=window, logit_cap=logit_cap)
+        if q_pos is None:
+            q_pos = torch.arange(q.shape[1], device=q.device)
+        out = attention_plain(q, k, v, q_pos, torch.arange(k.shape[1], device=q.device),
+                              window=window, logit_cap=logit_cap)
         return torch.autograd.grad(out, (q, k, v), dout)
 
 
 def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None,
-                       events=None):
+                       events=None, q_off: int = 0):
     """K7b: the gradient of :func:`blockwise_attention` without pads, in the
-    model layout — q, dout [B, S, H, hd], k/v [B, S, KV, hd], the forward's
+    model layout — q, dout [B, S, H, hd], k/v [B, T, KV, hd] (T = S, or the
+    keys of which q holds rows ``[q_off, q_off + S)``), the forward's
     ``out`` and its log-sum-exp ``lse`` [B, H, S] float32 → (dq, dk, dv).
     For CUDA tensors it launches the kernel or raises: three kernels on the
     current stream (D = rowsum(dout ∘ out), the dK/dV pass, the dQ pass;
@@ -342,10 +357,15 @@ def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None,
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} and out {tuple(out.shape)} must be "
                          f"q's shape {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, dout, window=window, logit_cap=logit_cap)
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    KV, T = k.shape[2], k.shape[1]
+    q_off = int(q_off)
+    if q_off < 0 or q_off + S > T:
+        raise ValueError(f"{T} keys for {S} queries at offset {q_off}")
+    if q.device.type == "cpu":
+        return attention_backward_plain(
+            q, k, v, dout, window=window, logit_cap=logit_cap,
+            q_pos=torch.arange(q_off, q_off + S, device=q.device))
     if lse is None or tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [{B}, {H}, {S}]")
     q, k, v, out, dout = _aligned(*(x.contiguous() for x in (q, k, v, out, dout.to(q.dtype))))
@@ -356,9 +376,9 @@ def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None,
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            DTYPES[q.dtype], B, H, KV, S, S, hd,
+            DTYPES[q.dtype], B, H, KV, S, T, hd,
             q.stride(0), q.stride(2), q.stride(1), k.stride(0), k.stride(2), k.stride(1),
-            1, -1 if window is None else int(window),
+            1, -1 if window is None else int(window), q_off,
             0.0 if logit_cap is None else float(logit_cap), 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device)

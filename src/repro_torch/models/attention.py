@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers
@@ -39,6 +40,10 @@ class KVCache(NamedTuple):
 class Attention(nn.Module):
     """``wq`` [d, H, hd], ``wk`` / ``wv`` [d, KV, hd], ``wo`` [H, hd, d] and,
     with ``qkv_bias``, ``bq`` [H, hd], ``bk`` / ``bv`` [KV, hd]."""
+
+    AXES = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv", "head_dim"),
+            "wv": ("embed", "kv", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+            "bq": ("heads", "head_dim"), "bk": ("kv", "head_dim"), "bv": ("kv", "head_dim")}
 
     def __init__(self, cfg: ModelConfig, dtype, device=None):
         super().__init__()
@@ -66,13 +71,13 @@ class Attention(nn.Module):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, heads, hd = w.shape
-    return (x @ w.reshape(d, heads * hd)).unflatten(-1, (heads, hd))
+    return layers.linear(x, w.reshape(d, heads * hd)).unflatten(-1, (heads, hd))
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     H, hd, d = wo.shape
-    return o.flatten(-2) @ wo.reshape(H * hd, d)
+    return layers.linear(o.flatten(-2), wo.reshape(H * hd, d))
 
 
 def _project_qkv(p: Attention, x, cfg: ModelConfig, rope_positions):
@@ -102,13 +107,75 @@ def _window_for(cfg: ModelConfig, kind: str) -> int | None:
     return None
 
 
-def attn_full(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions) -> torch.Tensor:
+def _constrain_q(q, shard):
+    """The reference's ``_constrain_q``: heads-TP when the model axis divides
+    the heads, else context parallelism (q sharded on the sequence over
+    ``model``: K and V stay whole on every model shard), else q as it is.
+    Returns ``(q, mode)``, mode ``"heads"``, ``"seq"`` or None."""
+    if shard is None or not shard.constrain_attention:
+        return q, None
+    H, S = q.shape[2], q.shape[1]
+    if shard.dim_shards("heads", H) > 1:
+        return shard(q, "batch", None, "heads", None), "heads"
+    if shard.dim_shards("seq_model", S) > 1:
+        return shard(q, "batch", "seq_model", None, None), "seq"
+    return q, None
+
+
+def _attend(q, k, v, cfg: ModelConfig, kind: str, shard, valid_from=None):
+    """K7 (and under autograd K7b) on the projected q, k, v.  Under a mesh
+    (q a DTensor) each rank runs the kernel on its local tensors through
+    :meth:`Partitioner.local`: its batch rows, and its query heads (heads
+    mode) or its query rows at their offset ``r · S / tp`` into the keys
+    (``seq`` mode); K and V are sharded by KV head where the model axis
+    divides them in heads mode, else whole on each model shard, and their
+    gradients are then partial sums over ``model``."""
+    window, cap = _window_for(cfg, kind), cfg.attn_logit_softcap
+    q, mode = _constrain_q(q, shard)
+    if not isinstance(q, DTensor):
+        return fa.blockwise_attention(q, k, v, window=window, logit_cap=cap,
+                                      valid_from=valid_from)
+    B, _, H, _ = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    tp = shard.axis_size(("model",))
+    q_pl = shard.placements(shard.spec(
+        ("batch", "seq_model" if mode == "seq" else None, "heads" if mode == "heads" else None,
+         None), q.shape))
+    kv_heads = mode == "heads" and KV % tp == 0
+    kv_pl = shard.placements(shard.spec(("batch", None, "kv" if kv_heads else None, None),
+                                        k.shape))
+    batch_split = shard.dim_shards("batch", B) > 1
+
+    def body(ql, kl, vl):
+        vf = valid_from
+        if vf is not None and batch_split:
+            Bl = ql.shape[0]
+            lo = shard.coordinate(("pod", "data")) * Bl
+            vf = vf[lo: lo + Bl]
+        q_off = 0
+        if mode == "seq":
+            q_off = shard.coordinate(("model",)) * ql.shape[1]
+        elif mode == "heads" and not kv_heads:
+            # this rank's query heads [r·Hl, (r+1)·Hl) read KV heads h // G
+            Hl = ql.shape[2]
+            h0 = shard.coordinate(("model",)) * Hl
+            if G % Hl == 0:  # all in one KV head
+                kl, vl = kl[:, :, h0 // G: h0 // G + 1], vl[:, :, h0 // G: h0 // G + 1]
+            else:  # one KV head per query head
+                idx = torch.arange(h0, h0 + Hl, device=kl.device) // G
+                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return fa.blockwise_attention(ql, kl, vl, window=window, logit_cap=cap,
+                                      valid_from=vf, q_off=q_off)
+
+    return shard.local(body, q_pl, (q_pl, kv_pl, kv_pl))(q, k, v)
+
+
+def attn_full(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
+              shard=None) -> torch.Tensor:
     """Train/prefill full-sequence attention (no cache)."""
-    S = x.shape[1]
     q, k, v = _project_qkv(p, x, cfg, rope_positions)
-    out = fa.blockwise_attention(q, k, v, window=_window_for(cfg, kind),
-                                 logit_cap=cfg.attn_logit_softcap)
-    return _out(out, p.wo)
+    return _out(_attend(q, k, v, cfg, kind, shard), p.wo)
 
 
 def init_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
@@ -135,11 +202,12 @@ def pad_rows(v: torch.Tensor, H: int) -> torch.Tensor:
     B, S, KV, hd = v.shape
     block = min(1024, S)
     keys = -(-S // block) * block
-    return (v.float().sum(1) / keys).repeat_interleave(H // KV, dim=1)
+    mean = v.float().sum(1) / keys  # [B, KV, hd], each KV head's G query heads alike
+    return mean[:, :, None].expand(B, KV, H // KV, hd).reshape(B, H, hd)
 
 
 def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
-                 cache: KVCache, valid_from=None):
+                 cache: KVCache, valid_from=None, shard=None):
     """Full-sequence forward that also fills the cache (its last L positions).
 
     ``valid_from`` [B] marks the first real token per slot (left-padded
@@ -149,8 +217,7 @@ def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, rope_positions)
     pos = fa.positions_of(valid_from, B, S, x.device)
-    out = fa.blockwise_attention(q, k, v, window=_window_for(cfg, kind),
-                                 logit_cap=cfg.attn_logit_softcap, valid_from=valid_from)
+    out = _attend(q, k, v, cfg, kind, shard, valid_from)
     if valid_from is not None:
         fill = pad_rows(v, q.shape[2]).to(out.dtype)
         out = torch.where((pos < 0)[:, :, None, None], fill[:, None], out)
@@ -160,10 +227,10 @@ def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
         cache.v[:, :S] = v
         cache.pos[:, :S] = pos
     else:  # keep the last L positions (ring layout: slot = pos % L)
-        roll = -(S % L)
-        cache.k.copy_(torch.roll(k[:, -L:], roll, dims=1))
-        cache.v.copy_(torch.roll(v[:, -L:], roll, dims=1))
-        cache.pos.copy_(torch.roll(pos[:, -L:], roll, dims=1))
+        shift = S % L  # torch.roll by -shift along the positions, as two slices
+        for dst, src in ((cache.k, k), (cache.v, v), (cache.pos, pos)):
+            tail = src[:, -L:]
+            dst.copy_(torch.cat([tail[:, shift:], tail[:, :shift]], dim=1))
     return _out(out, p.wo), cache
 
 
@@ -176,7 +243,7 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
     slot = t % L
     cache.k[:, slot] = k[:, 0]
     cache.v[:, slot] = v[:, 0]
-    cache.pos[:, slot] = t
+    cache.pos[:, slot].fill_(t)
     B, _, H, hd = q.shape
     KV = cache.k.shape[2]
     G = H // KV

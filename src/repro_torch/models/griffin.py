@@ -58,6 +58,11 @@ class Recurrent(nn.Module):
     ``proj_out`` [w, d], all in the model's dtype (the reference's
     ``init_recurrent``)."""
 
+    AXES = {"proj_rec": ("embed", "lru"), "proj_gate": ("embed", "lru"),
+            "conv_w": ("conv", "lru"), "conv_b": ("lru",), "w_a": ("lru", "lru"),
+            "b_a": ("lru",), "w_x": ("lru", "lru"), "b_x": ("lru",), "lam": ("lru",),
+            "proj_out": ("lru", "embed")}
+
     def __init__(self, cfg: ModelConfig, dtype, device=None):
         super().__init__()
         d, w, K = cfg.d_model, _width(cfg), cfg.griffin.conv_width
@@ -88,7 +93,9 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     K, L = w.shape[0], x.shape[1]
     out = x * w[K - 1]
     for i in range(1, K):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :L]
+        # x shifted i positions later, zeros first
+        zeros = x.new_zeros((x.shape[0], min(i, L), x.shape[2]))
+        shifted = torch.cat([zeros, x[:, : L - i]], dim=1) if i < L else zeros
         out = out + shifted * w[K - 1 - i]
     return out + b
 
@@ -104,8 +111,8 @@ def conv_state(raw: torch.Tensor, K: int) -> torch.Tensor:
 def _gates(p: Recurrent, x: torch.Tensor):
     """x [..., w] fp32 → (a, gated input), the RG-LRU equations."""
     f32 = torch.float32
-    r = torch.sigmoid(x @ p.w_a.to(f32) + p.b_a.to(f32))
-    i = torch.sigmoid(x @ p.w_x.to(f32) + p.b_x.to(f32))
+    r = torch.sigmoid(layers.linear(x, p.w_a.to(f32)) + p.b_a.to(f32))
+    i = torch.sigmoid(layers.linear(x, p.w_x.to(f32)) + p.b_x.to(f32))
     log_a = -_C * F.softplus(p.lam.to(f32)) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * x)
@@ -128,12 +135,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rec_block_full(p: Recurrent, xin: torch.Tensor, cfg: ModelConfig):
     """Prefill / train.  xin [B, L, d] → (y [B, L, d], final RecCache)."""
-    gate = layers._gelu(xin @ p.proj_gate)
-    xr_raw = xin @ p.proj_rec
+    gate = layers._gelu(layers.linear(xin, p.proj_gate))
+    xr_raw = layers.linear(xin, p.proj_rec)
     xr = causal_conv(xr_raw, p.conv_w, p.conv_b)
     a, b = _gates(p, xr.float())
     h_all = linear_scan(a, b)
-    y = (h_all.to(xin.dtype) * gate) @ p.proj_out
+    y = layers.linear(h_all.to(xin.dtype) * gate, p.proj_out)
     return y, RecCache(conv=conv_state(xr_raw, cfg.griffin.conv_width),
                        h=h_all[:, -1].clone())  # not a view that keeps h_all
 
@@ -146,11 +153,11 @@ def init_rec_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> RecCache
 
 def rec_block_decode(p: Recurrent, xin: torch.Tensor, cfg: ModelConfig, cache: RecCache):
     """One token.  xin [B, 1, d] → (y [B, 1, d], new RecCache)."""
-    gate = layers._gelu(xin @ p.proj_gate)  # [B, 1, w]
-    xr_raw = xin @ p.proj_rec  # [B, 1, w]
+    gate = layers._gelu(layers.linear(xin, p.proj_gate))  # [B, 1, w]
+    xr_raw = layers.linear(xin, p.proj_rec)  # [B, 1, w]
     window = torch.cat([cache.conv, xr_raw], dim=1)  # [B, K, w]
     xr = torch.einsum("bkw,kw->bw", window, p.conv_w) + p.conv_b
     a, b = _gates(p, xr.float())  # [B, w]
     h = a * cache.h + b
-    y = (h[:, None, :].to(xin.dtype) * gate) @ p.proj_out
+    y = layers.linear(h[:, None, :].to(xin.dtype) * gate, p.proj_out)
     return y, RecCache(conv=window[:, 1:], h=h)

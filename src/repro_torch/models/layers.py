@@ -18,6 +18,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.dist.partition import Partitioner, even
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -67,6 +70,41 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, (pos_per_freq * inv)[..., None, :])
 
 
+def local_product(fn, a, b):
+    """``fn(a, b)``, a matrix product (``mm`` of [M, K] by [K, N], or ``bmm``
+    of [G, M, K] by [G, K, N]), on DTensor operands by their local tensors:
+    per mesh dim the contraction is made whole (a dim sharded on K is
+    gathered), a batch dim sharded in one operand is sharded in both, and
+    rows and columns sharded on the same mesh dim keep the rows.  For the
+    products that DTensor has no rule for (``out_dtype``); plain operands
+    go straight to ``fn``."""
+    if not isinstance(a, DTensor) and not isinstance(b, DTensor):
+        return fn(a, b)
+    mesh = (a if isinstance(a, DTensor) else b).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    pa = list(a.placements) if isinstance(a, DTensor) else rep
+    pb = list(b.placements) if isinstance(b, DTensor) else rep
+    nd = a.dim()
+    k_a, k_b, n_b = nd - 1, nd - 2, nd - 1
+    out = []
+    for i in range(mesh.ndim):
+        da = pa[i].dim if isinstance(pa[i], Shard) else None
+        db = pb[i].dim if isinstance(pb[i], Shard) else None
+        if da == k_a or not isinstance(pa[i], (Shard, Replicate)):
+            da = None
+        if db == k_b or not isinstance(pb[i], (Shard, Replicate)):
+            db = None
+        if nd == 3 and 0 in (da, db):
+            da = db = 0
+        elif da is not None and db is not None:
+            db = None
+        pa[i] = Shard(da) if da is not None else Replicate()
+        pb[i] = Shard(db) if db is not None else Replicate()
+        out.append(Shard(da) if da is not None else Shard(n_b) if db is not None else Replicate())
+    part = Partitioner(mesh)
+    return part.local(fn, out, (pa, pb))(part.as_dtensor(a), part.as_dtensor(b))
+
+
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 3-D operands with float32 accumulation and output, as
     jnp's ``preferred_element_type=float32``: for bfloat16 on the card one
@@ -74,7 +112,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return local_product(lambda x, y: torch.bmm(x, y, out_dtype=torch.float32), a, b)
     return torch.bmm(a.float(), b.float())
 
 
@@ -105,8 +143,46 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for bf16 matrices on the card, accumulated and returned in
     float32 (jnp's ``preferred_element_type``), under autograd too."""
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _MmF32.apply(a, b)
-    return torch.mm(a, b, out_dtype=torch.float32)
+        return local_product(_MmF32.apply, a, b)
+    return local_product(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a, b)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a DTensor's global strides are always contiguous, so its
+        # ``contiguous()`` is a no-op: clone the local layout
+        return g.clone(memory_format=torch.contiguous_format)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x [..., K] and w [K, N], as one [rows, K] × [K, N]
+    product — what ``matmul`` folds it to.  On a DTensor the gradient of the
+    result is made contiguous first: its backward views it [rows, N], which
+    a DTensor's local gradient (of another layout) does not allow."""
+    x = even(x)
+    y = (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
+    if isinstance(y, DTensor) and torch.is_grad_enabled() and y.requires_grad:
+        y = _ContiguousGrad.apply(y)
+    return y
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``; on a DTensor each rank sums its local tensor along
+    ``dim`` (made whole first where it is sharded), so that the gradient
+    (the flipped cumsum of its gradient) is local too."""
+    if not isinstance(x, DTensor):
+        return torch.cumsum(x, dim)
+    d = dim % x.dim()
+    pl = [p if isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim != d)
+          else Replicate() for p in x.placements]
+    return Partitioner(x.device_mesh).local(lambda t: torch.cumsum(t, d), pl, (pl,))(x)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -131,6 +207,8 @@ def dense_(p: torch.Tensor, gen: torch.Generator, fan_in: int | None = None) -> 
 class RMSNorm(nn.Module):
     """``{"scale": [dim] float32}``, the reference's ``init_rms_norm``."""
 
+    AXES = {"scale": ("embed",)}
+
     def __init__(self, dim: int, device=None):
         super().__init__()
         self.scale = _param((dim,), torch.float32, device)
@@ -148,6 +226,7 @@ class MLP(nn.Module):
     plain ``gelu`` kind): swiglu, geglu (tanh GELU) or gelu."""
 
     KINDS = ("swiglu", "geglu", "gelu")
+    AXES = {"gate": ("embed", "ffn"), "up": ("embed", "ffn"), "down": ("ffn", "embed")}
 
     def __init__(self, d_model: int, d_ff: int, kind: str, dtype, device=None):
         super().__init__()
@@ -165,6 +244,6 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "gelu":
-            return _gelu(x @ self.up) @ self.down
+            return linear(_gelu(linear(x, self.up)), self.down)
         act = F.silu if self.kind == "swiglu" else _gelu
-        return (act(x @ self.gate) * (x @ self.up)) @ self.down
+        return linear(act(linear(x, self.gate)) * linear(x, self.up), self.down)

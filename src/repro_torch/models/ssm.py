@@ -53,6 +53,10 @@ class SSD(nn.Module):
     and ``out_proj`` [d_in, d] in the model's dtype, ``norm`` [d_in]
     float32 (the reference's ``init_ssd``)."""
 
+    AXES = {"in_proj": ("embed", "inner"), "conv_w": ("conv", "inner"), "conv_b": ("inner",),
+            "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",), "norm": ("inner",),
+            "out_proj": ("inner", "embed")}
+
     def __init__(self, cfg: ModelConfig, dtype, device=None):
         super().__init__()
         s, d_in, H, conv_dim = _dims(cfg)
@@ -96,7 +100,7 @@ def _split_xbc(cfg: ModelConfig, xBC: torch.Tensor):
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """a [..., Q] → [..., Q, Q]: s[i, j] = Σ_{j<k≤i} a_k (−inf for i < j)."""
     Q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = layers.cumsum(a, -1)
     s = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
     return torch.where(mask, s, -torch.inf)
@@ -127,7 +131,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     y_diag = torch.einsum("bchij,bcjhp->bcihp", scores * Lk, uc)
 
     # 2. per-chunk states: S_c = Σ_j exp(Σ_{k>j} dA) B_j ⊗ u_j
-    cums = torch.cumsum(dAc, dim=2)  # [B, nc, Q, H]
+    cums = layers.cumsum(dAc, 2)  # [B, nc, Q, H]
     decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)
     S = torch.einsum("bcjhn,bcjhp->bchpn", Bh * decay_to_end[..., None], uc)
 
@@ -153,7 +157,7 @@ def _gate_norm(p: SSD, y: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
 def ssd_block_full(p: SSD, xin: torch.Tensor, cfg: ModelConfig):
     """Prefill / train.  xin [B, L, d] → (y [B, L, d], final SSMCache)."""
     s, d_in, H, _ = _dims(cfg)
-    z, xBC_raw, dt_raw = _split_proj(cfg, xin @ p.in_proj)
+    z, xBC_raw, dt_raw = _split_proj(cfg, layers.linear(xin, p.in_proj))
     xBC = F.silu(causal_conv(xBC_raw, p.conv_w, p.conv_b))
     x, Bm, Cm = _split_xbc(cfg, xBC)
     dt = F.softplus(dt_raw.float() + p.dt_bias)
@@ -162,7 +166,7 @@ def ssd_block_full(p: SSD, xin: torch.Tensor, cfg: ModelConfig):
     y = y + p.D.float()[:, None] * x.float()
     y = _gate_norm(p, y.reshape(*xin.shape[:2], d_in), z, xin.dtype)
     cache = SSMCache(conv=conv_state(xBC_raw, s.conv_width).to(xin.dtype), h=h)
-    return y @ p.out_proj, cache
+    return layers.linear(y, p.out_proj), cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMCache:
@@ -176,7 +180,7 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMCache
 def ssd_block_decode(p: SSD, xin: torch.Tensor, cfg: ModelConfig, cache: SSMCache):
     """One token.  xin [B, 1, d] → (y [B, 1, d], new SSMCache)."""
     s, d_in, H, _ = _dims(cfg)
-    z, xBC_raw, dt_raw = _split_proj(cfg, xin @ p.in_proj)
+    z, xBC_raw, dt_raw = _split_proj(cfg, layers.linear(xin, p.in_proj))
     window = torch.cat([cache.conv, xBC_raw], dim=1)  # [B, K, C]
     conv_out = torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b
     x, Bm, Cm = _split_xbc(cfg, F.silu(conv_out)[:, None, :])
@@ -190,4 +194,4 @@ def ssd_block_decode(p: SSD, xin: torch.Tensor, cfg: ModelConfig, cache: SSMCach
     h = cache.h * g[..., None, None] + torch.einsum("bh,bhn,bhp->bhpn", dt, B1, x1)
     y = torch.einsum("bhpn,bhn->bhp", h, C1) + p.D.float()[:, None] * x1
     y = _gate_norm(p, y.reshape(xin.shape[0], 1, d_in), z, xin.dtype)
-    return y @ p.out_proj, SSMCache(conv=window[:, 1:], h=h)
+    return layers.linear(y, p.out_proj), SSMCache(conv=window[:, 1:], h=h)

@@ -35,11 +35,14 @@ reference's formulas for its value leaves (Griffin's ``lam``, SSD's
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.partition import even, replicate_plain
 from repro_torch.models import attention, griffin, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -84,13 +87,13 @@ class Block(nn.Module):
         for mod in self.children():
             mod.reset_parameters(gen)
 
-    def _core(self, h, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from):
+    def _core(self, h, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from, shard):
         if self.kind.startswith("attn"):
             if mode == "train":
-                return attention.attn_full(self.core, h, cfg, self.kind, rope_pos), None
+                return attention.attn_full(self.core, h, cfg, self.kind, rope_pos, shard), None
             if mode == "prefill":
                 return attention.attn_prefill(self.core, h, cfg, self.kind, rope_pos, cache,
-                                              valid_from)
+                                              valid_from, shard)
             return attention.attn_decode(self.core, h, cfg, self.kind, rope_pos, cache, t)
         full, decode = ((griffin.rec_block_full, griffin.rec_block_decode)
                         if self.kind == "rec" else (ssm.ssd_block_full, ssm.ssd_block_decode))
@@ -100,11 +103,14 @@ class Block(nn.Module):
         return y, (cache if mode == "prefill" else None)
 
     def forward(self, x, cfg: ModelConfig, rope_pos, mode: str, cache, t, valid_from,
-                count_drops: bool = True):
+                count_drops: bool = True, shard=None):
         """Returns ``(x, cache, aux)``; ``aux`` is the MoE load-balance term
         (None without MoE).  ``count_drops=False`` leaves ``MoE.dropped``
-        alone (the backward's recompute of a train step)."""
-        y, cache = self._core(self.pre_norm(x), cfg, rope_pos, mode, cache, t, valid_from)
+        alone (the backward's recompute of a train step).  ``shard``: the
+        partitioner (or None), for the attention's and the MoE's sharded
+        paths."""
+        y, cache = self._core(self.pre_norm(x), cfg, rope_pos, mode, cache, t, valid_from,
+                              shard)
         if cfg.post_norm:
             y = self.post_norm(y)
         x = x + y
@@ -114,7 +120,7 @@ class Block(nn.Module):
         h = self.pre_mlp_norm(x)
         if cfg.moe is not None:
             # no capacity drops for single-token decode, as the reference
-            y, aux = self.moe(h, cfg, exact=mode == "decode", count=count_drops)
+            y, aux = self.moe(h, cfg, exact=mode == "decode", count=count_drops, shard=shard)
             if cfg.moe.dense_residual:
                 y = y + self.mlp(h)
         else:
@@ -127,6 +133,8 @@ class Block(nn.Module):
 class Decoder(nn.Module):
     """``embed`` [V, d], ``final_norm``, ``unembed`` [d, V] (untied only) and
     ``layers`` — one :class:`Block` per layer."""
+
+    AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab")}
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int | None = 0):
         super().__init__()
@@ -163,6 +171,17 @@ class Decoder(nn.Module):
         for block in self.layers:
             block.reset_parameters(gen)
 
+    def param_axes(self) -> dict:
+        """The logical axes of every parameter, by name (the order of
+        ``named_parameters``): the reference's ``split_params`` axes of the
+        same leaf, without the leading ``layers`` entry of its
+        period-stacked leaves (each layer is a module of its own here)."""
+        axes = {}
+        for prefix, mod in self.named_modules():
+            for name, _ in mod.named_parameters(recurse=False):
+                axes[f"{prefix}.{name}" if prefix else name] = type(mod).AXES[name]
+        return {name: axes[name] for name, _ in self.named_parameters()}
+
     def moe_layers(self) -> list:
         """The MoE modules, layer by layer (empty without ``cfg.moe``)."""
         return [block.moe for block in self.layers if hasattr(block, "moe")]
@@ -188,14 +207,29 @@ class Decoder(nn.Module):
 
     def forward_hidden(self, inputs: torch.Tensor, *, mode: str, rope_positions=None,
                        caches=None, t: int | None = None, valid_from=None,
-                       remat: bool = True):
+                       remat: bool = True, shard=None):
         """inputs: token ids [B, S], or embeddings [B, S, d] for an ``embeds``
         config.  Returns ``(hidden [B, S, d], caches, aux)``, ``aux`` the
         summed MoE load-balance term (float32 0-dim; 0 without MoE).  In
         train mode under autograd, with ``remat``, each layer runs inside
         ``torch.utils.checkpoint`` (non-reentrant): its activations are
         recomputed in the backward, and its MoE drops are counted in the
-        first run only."""
+        first run only.
+
+        ``shard``: a :class:`~repro_torch.dist.partition.Partitioner` over a
+        mesh, for a model whose parameters it placed (``train.step.shard_model``):
+        the forward then runs on DTensors, with the reference's activation
+        constraints (the embedding's output and each period's output on
+        the batch axes, the logits' vocabulary on ``model``), K7 and K7b
+        on each rank's local heads or query rows, and the expert-parallel
+        MoE; plain tensors it meets (ids, positions, masks) count as
+        replicated."""
+        with shard_context(shard):
+            return self._forward_hidden(inputs, mode, rope_positions, caches, t, valid_from,
+                                        remat, active_shard(shard))
+
+    def _forward_hidden(self, inputs, mode, rope_positions, caches, t, valid_from, remat,
+                        shard):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose {MODES}")
         if mode != "train" and caches is None:
@@ -212,6 +246,8 @@ class Decoder(nn.Module):
             x = self.embed[ids].to(self.dtype)
             if cfg.emb_scale:
                 x = x * self.emb_scale
+        if shard is not None:
+            x = shard(x, "batch", None, None)
         B, S = x.shape[0], x.shape[1]
         if rope_positions is None:
             base = (torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -221,34 +257,43 @@ class Decoder(nn.Module):
                 base.expand(B, S)
         new_caches = [] if caches is not None else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if shard is not None:
+            aux = shard.as_dtensor(aux)
         remat = remat and mode == "train" and torch.is_grad_enabled()
+        P = len(cfg.layer_pattern)
         for i, block in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
             if remat:
-                x, a = checkpoint(_train_block, block, x, cfg, rope_positions, [True],
+                x, a = checkpoint(_train_block, block, x, cfg, rope_positions, [True], shard,
                                   use_reentrant=False)
             else:
-                x, cache, a = block(x, cfg, rope_positions, mode, cache, t, valid_from)
+                x, cache, a = block(x, cfg, rope_positions, mode, cache, t, valid_from,
+                                    shard=shard)
+            if shard is not None and i % P == P - 1 and i < P * cfg.n_periods:
+                x = shard(x, "batch", None, None)  # the end of a period (super-block)
             if a is not None:
                 aux = aux + a
             if new_caches is not None:
                 new_caches.append(cache)
         return self.final_norm(x), new_caches, aux
 
-    def logits_for(self, hidden: torch.Tensor) -> torch.Tensor:
+    def logits_for(self, hidden: torch.Tensor, shard=None) -> torch.Tensor:
         """fp32 logits [B, S, V] with the final softcap: products of the
         working-dtype operands accumulated and returned in fp32, as the
         reference's ``preferred_element_type`` (on the card a bf16 product
         with a float32 output, so the vocabulary matrix is never copied to
-        float32)."""
+        float32).  ``shard``: the vocabulary dim placed on ``model``."""
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        flat = hidden.reshape(-1, hidden.shape[-1])
+        flat = even(hidden).reshape(-1, hidden.shape[-1])
         if flat.dtype != torch.float32 and flat.is_cuda:
             logits = layers.mm_f32(flat, w)
         else:
             logits = flat.float() @ w.float()
         logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
-        return layers.softcap(logits, self.cfg.final_logit_softcap)
+        logits = layers.softcap(logits, self.cfg.final_logit_softcap)
+        if shard is not None:
+            logits = shard(logits, "batch", None, "vocab")
+        return logits
 
     def stacks(self) -> dict:
         """The reference's period-stacked leaves: ``"layers/block{b}/<path>"``
@@ -273,28 +318,65 @@ class Decoder(nn.Module):
             p.requires_grad_(True)
         return params
 
-    def prefill(self, inputs, caches, valid_from=None, rope_positions=None):
+    def prefill(self, inputs, caches, valid_from=None, rope_positions=None, shard=None):
         """inputs: token ids [B, S] or embeddings [B, S, d] → last-position
         logits [B, 1, V] and the filled caches."""
         hidden, caches, _ = self.forward_hidden(inputs, mode="prefill", caches=caches,
                                                 valid_from=valid_from,
-                                                rope_positions=rope_positions)
-        return self.logits_for(hidden[:, -1:, :]), caches
+                                                rope_positions=rope_positions, shard=shard)
+        with shard_context(shard):
+            return self.logits_for(hidden[:, -1:, :], active_shard(shard)), caches
 
-    def decode_step(self, inputs, t: int, caches, rope_positions=None):
+    def decode_step(self, inputs, t: int, caches, rope_positions=None, shard=None):
         """inputs: token ids [B, 1] or embeddings [B, 1, d] at absolute
         position ``t`` → logits [B, 1, V] and the caches."""
         hidden, caches, _ = self.forward_hidden(inputs, mode="decode", caches=caches, t=t,
-                                                rope_positions=rope_positions)
-        return self.logits_for(hidden), caches
+                                                rope_positions=rope_positions, shard=shard)
+        with shard_context(shard):
+            return self.logits_for(hidden, active_shard(shard)), caches
 
 
-def _train_block(block: Block, x, cfg: ModelConfig, rope_pos, first: list):
+def _layer_cache_axes(kind: str):
+    """Logical axes of one layer's cache, leaf for leaf (the reference's
+    ``_layer_cache_axes``): the KV cache's sequence dim stays whole
+    (``seq_kv``), its KV heads on ``model`` where they divide."""
+    if kind == "rec":
+        return griffin.RecCache(conv=("batch", "conv", "lru"), h=("batch", "lru"))
+    if kind == "ssd":
+        return ssm.SSMCache(conv=("batch", "conv", "inner"), h=("batch", "heads", None, None))
+    return attention.KVCache(k=("batch", "seq_kv", "kv", "head_dim"),
+                             v=("batch", "seq_kv", "kv", "head_dim"), pos=("batch", None))
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """Logical-axes tree matching ``Decoder.init_caches``: one cache per
+    layer (the reference's stacked caches without their ``layers`` entry)."""
+    return [_layer_cache_axes(kind)
+            for kind in cfg.layer_pattern * cfg.n_periods + cfg.tail_pattern]
+
+
+def active_shard(shard):
+    """The partitioner when it has a mesh, else None (the reference's
+    ``shard = partitioner if partitioner and partitioner.mesh``)."""
+    return shard if shard is not None and shard.mesh is not None else None
+
+
+def shard_context(shard):
+    """The context a partitioned forward runs in: plain tensors meeting
+    DTensors count as replicated (``replicate_plain``)."""
+    return replicate_plain() if active_shard(shard) is not None else contextlib.nullcontext()
+
+
+def _train_block(block: Block, x, cfg: ModelConfig, rope_pos, first: list, shard=None):
     """One train-mode layer inside ``torch.utils.checkpoint``: ``first``
     holds True for the forward's run and False once it ran, so the
-    backward's recompute does not count the layer's MoE drops again."""
+    backward's recompute does not count the layer's MoE drops again (the
+    recompute runs in the backward, so it enters the partitioned context
+    itself)."""
     count, first[0] = first[0], False
-    x, _, aux = block(x, cfg, rope_pos, "train", None, None, None, count_drops=count)
+    with shard_context(shard):
+        x, _, aux = block(x, cfg, rope_pos, "train", None, None, None, count_drops=count,
+                          shard=shard)
     return x, aux
 
 
@@ -303,16 +385,22 @@ def _train_block(block: Block, x, cfg: ModelConfig, rope_pos, first: list):
 # ---------------------------------------------------------------------------
 
 
-def _chunk_nll(model: Decoder, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _chunk_nll(model: Decoder, hidden: torch.Tensor, labels: torch.Tensor,
+               shard=None) -> torch.Tensor:
     """Summed negative log-likelihood of one chunk: fp32 logits (with the
     final softcap), log-sum-exp minus the gold logit."""
-    logits = model.logits_for(hidden)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (torch.logsumexp(logits, -1) - gold).sum()
+    with shard_context(shard):
+        logits = model.logits_for(hidden, shard)
+        if shard is None:
+            gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        else:  # the gold logit picked on each vocabulary shard and summed
+            vocab = torch.arange(logits.shape[-1], device=labels.device)
+            gold = torch.where(vocab == labels.long()[..., None], logits, 0.0).sum(-1)
+        return (torch.logsumexp(logits, -1) - gold).sum()
 
 
 def lm_loss(model: Decoder, hidden: torch.Tensor, labels: torch.Tensor, *,
-            seq_chunk: int = 512) -> torch.Tensor:
+            seq_chunk: int = 512, shard=None) -> torch.Tensor:
     """The reference's ``lm_loss``: cross-entropy over the sequence in
     chunks of ``min(seq_chunk, S)`` positions, the remainder unchunked,
     summed in float32 and divided by ``B·S``, so ``[B, S, V]`` logits are
@@ -324,22 +412,27 @@ def lm_loss(model: Decoder, hidden: torch.Tensor, labels: torch.Tensor, *,
     if S % chunk:
         bounds.append((S - S % chunk, S))
     remat = torch.is_grad_enabled() and hidden.requires_grad
+    shard = active_shard(shard)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for lo, hi in bounds:
-        h, y = hidden[:, lo:hi], labels[:, lo:hi]
-        nll = (checkpoint(_chunk_nll, model, h, y, use_reentrant=False) if remat
-               else _chunk_nll(model, h, y))
-        total = total + nll
-    return total / (B * S)
+    with shard_context(shard):
+        for lo, hi in bounds:
+            h, y = hidden[:, lo:hi], labels[:, lo:hi]
+            nll = (checkpoint(_chunk_nll, model, h, y, shard, use_reentrant=False) if remat
+                   else _chunk_nll(model, h, y, shard))
+            total = total + nll
+        return total / (B * S)
 
 
-def train_loss_fn(model: Decoder, batch: dict, aux_weight: float = 0.01):
+def train_loss_fn(model: Decoder, batch: dict, aux_weight: float = 0.01, shard=None):
     """The reference's ``train_loss_fn``: the train-mode forward of
     ``batch["inputs"]`` (token ids, or embeddings for an ``embeds`` config;
     ``batch["positions"]`` for M-RoPE), :func:`lm_loss` against
     ``batch["labels"]`` plus ``aux_weight`` times the summed MoE
     load-balance term.  Returns ``(loss, {"xent", "moe_aux"})``."""
     hidden, _, aux = model.forward_hidden(batch["inputs"], mode="train",
-                                          rope_positions=batch.get("positions"))
-    loss = lm_loss(model, hidden, batch["labels"])
-    return loss + aux_weight * aux, {"xent": loss, "moe_aux": aux}
+                                          rope_positions=batch.get("positions"), shard=shard)
+    loss = lm_loss(model, hidden, batch["labels"], shard=shard)
+    with shard_context(shard):
+        if active_shard(shard) is not None:  # the sums of the shards' parts, on every rank
+            loss, aux = (shard.replicate(t) for t in (loss, aux))
+        return loss + aux_weight * aux, {"xent": loss, "moe_aux": aux}

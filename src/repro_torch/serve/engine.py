@@ -11,6 +11,15 @@ the reference's).  Each ``generate`` call leaves a :class:`GenerateStats`
 behind: host-clock seconds of the prefill and of every decode step (each
 ends in the host read of the sampled tokens, which waits for the card),
 the prefill's last-position logits and each step's top-2 logits.
+
+``partitioner`` (a ``repro_torch.dist.partition.Partitioner`` over a
+mesh) serves the model sharded, as the reference's ``ServeEngine(...,
+partitioner=)`` does: the model's parameters are placed by the
+partitioner (``train.step.shard_model``), each batch's caches by
+``cache_shardings`` and its tokens on the batch axes, and prefill and
+decode run with ``shard`` (K7 on each rank's heads or query rows, the
+expert-parallel MoE in the prefill); the logits are gathered whole before
+sampling.
 """
 
 from __future__ import annotations
@@ -20,10 +29,13 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.partition import distribute
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Decoder
+from repro_torch.train.step import cache_shardings, shard_caches, shard_model
 
 
 @dataclasses.dataclass
@@ -57,7 +69,8 @@ def left_pad(prompts: list[list[int]], slots: int) -> tuple[np.ndarray, np.ndarr
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, model: Decoder, scfg: ServeConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, model: Decoder, scfg: ServeConfig, *, device=None,
+                 partitioner=None):
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(f"the model lives on {model.device}, the engine runs on {dev}")
@@ -66,6 +79,23 @@ class ServeEngine:
         self.scfg = scfg
         self.device = model.device
         self.stats = GenerateStats()
+        self.shard = partitioner if (partitioner and partitioner.mesh is not None) else None
+        if self.shard is not None:
+            shard_model(model, self.shard)
+
+    def _caches(self, B: int):
+        caches = self.model.init_caches(B, self.scfg.max_len)
+        if self.shard is None:
+            return caches
+        return shard_caches(caches, cache_shardings(self.shard, self.cfg, caches))
+
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(toks).to(self.device)
+        return t if self.shard is None else distribute(t, self.shard.batch_spec(t.shape))
+
+    @staticmethod
+    def _whole(logits: torch.Tensor) -> torch.Tensor:
+        return logits.full_tensor() if isinstance(logits, DTensor) else logits
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
         last = logits[:, -1, :]
@@ -75,9 +105,14 @@ class ServeEngine:
         probs = torch.softmax(last / self.scfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
-    @torch.inference_mode()
     def generate(self, prompts: list[list[int]], max_new: int, seed: int = 0):
-        """Greedy/temperature generation for a list of prompts."""
+        """Greedy/temperature generation for a list of prompts (in inference
+        mode; under ``no_grad`` when sharded: DTensors take no inference
+        tensors)."""
+        with torch.no_grad() if self.shard is not None else torch.inference_mode():
+            return self._generate(prompts, max_new, seed)
+
+    def _generate(self, prompts: list[list[int]], max_new: int, seed: int):
         scfg = self.scfg
         B = scfg.batch_slots
         if len(prompts) > B:
@@ -87,11 +122,11 @@ class ServeEngine:
         self.stats = stats = GenerateStats()
         gen = None if scfg.greedy else torch.Generator(device=self.device).manual_seed(seed)
         t0 = time.perf_counter()
-        caches = self.model.init_caches(B, scfg.max_len)
+        caches = self._caches(B)
         logits, caches = self.model.prefill(
-            torch.from_numpy(toks).to(self.device), caches,
-            torch.from_numpy(valid_from).to(self.device),
-        )
+            self._tokens(toks), caches, torch.from_numpy(valid_from).to(self.device),
+            shard=self.shard)
+        logits = self._whole(logits)
         stats.prefill_logits = logits[:, -1, :]
         out = [[] for _ in range(B)]
         done = np.zeros(B, bool)
@@ -109,8 +144,8 @@ class ServeEngine:
             if done[: len(prompts)].all() or t >= scfg.max_len - 1:
                 break
             t0 = time.perf_counter()
-            logits, caches = self.model.decode_step(tok[:, None], t, caches)
-            tok = self._sample(logits, gen)
+            logits, caches = self.model.decode_step(tok[:, None], t, caches, shard=self.shard)
+            tok = self._sample(self._whole(logits), gen)
             host = tok.tolist()
             stats.decode_s.append(time.perf_counter() - t0)
         return out[: len(prompts)]

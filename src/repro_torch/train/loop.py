@@ -11,8 +11,9 @@ The port of the reference's ``repro.train.loop``.  Beyond calling the step:
 The step's loss is read to the host once per step, as in the reference
 (the NaN guard and ``history`` need it).  A restart drops the failed
 state before it builds the fresh one and restores into it (in place), so
-a full-width state is never held twice.  The reference's restore onto
-another mesh waits for the partitioner.
+a full-width state is never held twice.  ``state_shardings`` (the
+partitioner's ``train.step.state_shardings``) restores the checkpoint
+onto this run's mesh, whatever mesh (or none) saved it.
 """
 
 from __future__ import annotations
@@ -46,12 +47,14 @@ class Trainer:
         init_state_fn: Callable,  # () -> state
         batch_iter_fn: Callable,  # (start_step) -> iterator of (step, batch)
         cfg: TrainerConfig,
+        state_shardings=None,
         fault_hook: Callable | None = None,  # test hook: (step) -> None, may raise
     ):
         self.step_fn = step_fn
         self.init_state_fn = init_state_fn
         self.batch_iter_fn = batch_iter_fn
         self.cfg = cfg
+        self.state_shardings = state_shardings
         self.fault_hook = fault_hook
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep, async_save=cfg.async_ckpt)
         self.history: list[dict] = []
@@ -61,7 +64,7 @@ class Trainer:
         state = self.init_state_fn()
         latest = self.ckpt.latest()
         if latest is not None:
-            state = self.ckpt.restore(state, step=latest)
+            state = self.ckpt.restore(state, self.state_shardings, step=latest)
             start = int(state["step"])
             log.info("restored checkpoint at step %d", start)
             return state, start

@@ -18,7 +18,12 @@ tensors passed in (at full width the state holds 13 bytes a parameter
 that a second copy would double).  The schedule and the bias corrections
 are float32 0-dim tensors computed on the device from ``step``, as the
 reference computes them in float32: no host read per step.
-``state_axes`` waits for the partitioner.
+``state_axes(params_axes, stacks=None)`` gives the logical axes of every
+state leaf from the parameters' (``Decoder.param_axes()``), for the
+partitioner's ``tree_shardings``: AdamW's three trees take the
+parameters' axes; Adafactor's ``vr`` drops a leaf's last axis and ``vc``
+its second-to-last, a period-stacked leaf taking the reference's leading
+``layers`` entry.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ def warmup_cosine(peak_lr: float, warmup: int, total: int) -> Callable:
 class Optimizer:
     init: Callable  # (params, stacks=None) -> opt_state
     apply: Callable  # (grads, opt_state, params, stacks=None) -> (params, opt_state)
+    state_axes: Callable  # (params_axes, stacks=None) -> the opt state's logical axes
 
 
 def _step_of(params: dict) -> torch.Tensor:
@@ -94,7 +100,11 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         state["step"] = step
         return params, state
 
-    return Optimizer(init, apply)
+    def state_axes(params_axes: dict, stacks: dict | None = None) -> dict:
+        return {"step": (), "m": dict(params_axes), "v": dict(params_axes),
+                "master": dict(params_axes)}
+
+    return Optimizer(init, apply, state_axes)
 
 
 def _factored(shape) -> bool:
@@ -171,7 +181,17 @@ def adafactor(lr_fn: Callable, decay: float = 0.99, eps: float = 1e-30, clip_rms
         state["step"] = step
         return params, state
 
-    return Optimizer(init, apply)
+    def state_axes(params_axes: dict, stacks: dict | None = None) -> dict:
+        def leaf(ax):
+            if not _factored(ax):
+                return {"v": ax}
+            return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+
+        return {"step": (), "v": {
+            key: leaf((("layers",) if stacked else ()) + tuple(params_axes[names[0]]))
+            for key, names, stacked in _units(params_axes, stacks)}}
+
+    return Optimizer(init, apply, state_axes)
 
 
 def get_optimizer(name: str, lr_fn: Callable) -> Optimizer:

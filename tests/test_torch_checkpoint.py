@@ -2,9 +2,9 @@
 checkpoint cases — roundtrip, a crash mid-save skipped, corruption caught
 by the checksum, a structure mismatch refused, keep-k with async saves —
 and against the reference's layout: the same directory and file names,
-manifest keys, codec and per-leaf sha256 of the same bytes.  The
-reference's elastic restore onto another mesh is not ported (it waits for
-the partitioner).
+manifest keys, codec and per-leaf sha256 of the same bytes.  The elastic
+restore onto another mesh (``shardings=``) is held on a 4-rank gloo group
+in ``tests/test_torch_partition_serve.py``.
 """
 
 from __future__ import annotations

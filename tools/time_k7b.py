@@ -1,4 +1,5 @@
-"""Time K7b, the attention's backward, of one or more checkouts on one card.
+"""Time K7 and K7b, the attention's forward and backward, of one or more
+checkouts on one card.
 
     python3 tools/time_k7b.py TREE [TREE ...]
 
@@ -10,7 +11,12 @@ directory).  For each TREE in the order given, a fresh process with
 gemma2-9b's full-width layer (chip_smoke.py's ``K7B_TIMED``: B 1, S 4096,
 16/8 heads of 256, bf16, seeded inputs) with the logit cap 50 and without
 it, and the backward of ``scaled_dot_product_attention`` on the cap-free
-shape.  Times are medians of CUDA events behind a spin kernel, as
+shape.  It also times K7 (``_blockwise_forward``) on gemma2-9b's costliest
+prefill chunk of chip_smoke.py's phase 11 (B 4, S 5000, 16/8 heads of 256,
+bf16, cap 50, the prompts 7, 1024, 4097 and 5000 tokens long, left-padded:
+``valid_from`` 4993, 3976, 903, 0), on the global layer (no window) and on
+the local one (window 4096).  Times are medians of CUDA events behind a
+spin kernel, as
 chip_smoke.py takes them.  Where the tree's wrapper takes ``events``, the
 three passes are also timed apart.  Name a tree twice (parent, change,
 change, parent) to see the spread between runs.  Prints one JSON line per
@@ -57,6 +63,12 @@ def median_ms(fn, reps=10, warmup=2):
 
 
 rec = {}
+gq, gk, gv = (torch.randn(4, 5000, h, hd, generator=gen, device=dev, dtype=torch.bfloat16)
+              for h in (H, KV, KV))
+vf = torch.tensor([4993, 3976, 903, 0], dtype=torch.int32, device=dev)
+for name, window in (("k7_global_ms", None), ("k7_local_ms", 4096)):
+    rec[name] = median_ms(lambda: fa._blockwise_forward(gq, gk, gv, window, 50.0, vf))
+del gq, gk, gv
 for name, cap in (("cap50", 50.0), ("cap_free", None)):
     out, lse = fa._blockwise_forward(q, k, v, None, cap, lse=True)
     rec[f"{name}_ms"] = median_ms(
