@@ -253,6 +253,25 @@ checks, on the card:
      loss the unpartitioned next loss; (d) K7 and K7b at query offsets
      (``K7_OFFSET_S``): chunks against the full launch and the plain
      versions;
+  22. the dry-run (``repro_torch.launch.dryrun``, ``dryrun_lib``,
+     ``op_analysis``): (a) ``python -m repro_torch.launch.dryrun`` as a
+     subprocess over its fake group of 256 ranks (the 16 x 16 mesh), fake
+     tensors on the card's device type, one cell per shape kind and model
+     family (``DRYRUN_CELLS``) and the FCA cell at production scale: every
+     applicable cell "ok", long_500k "skipped" on an attention-only arch,
+     the records printed and kept in ``build/dryrun/phase22.jsonl``; (b)
+     the prediction against the card: phase 20's configuration and phase
+     11's prefill traced on a 1 x 1 mesh over a one-rank NCCL group, then
+     one more real step of each (built anew, after a warm step) under
+     ``op_analysis``: per-device FLOPs equal (K7 and K7b through their
+     formulas), no collective, the train state's bytes within
+     ``DRYRUN_STATE_TOL`` of the growth of ``memory_allocated`` when it is
+     built, the predicted peak within ``DRYRUN_PEAK_TOL`` of
+     ``max_memory_allocated`` (the ratio printed); (c) the three FCA
+     examples (``EXAMPLE_ARGS``) in this process: their printed lines,
+     times masked, equal to the reference examples' (``EXAMPLES_EXPECTED``),
+     K1, K3 and K4 (quickstart), K1-K4 (mining), K1, K3, K4 and K5 (the
+     query service) launched;
   7. times (run last) — each kernel on every chunk phases 4, 5, 8 and 9
      gave it (CUDA events behind a spin kernel, so that they bracket device
      work alone; median of 25 after warm-up): the sum over the run, by the
@@ -267,16 +286,17 @@ checks, on the card:
      AND-allreduce, the support sum, the LOW gather), on its costliest
      chunk and summed (``parent_between_ms``, ``run_parent_between_ms``).
      The kernels line's ``launches`` also counts phase 12's kernel runs,
-     phase 14's warm async runs, phase 15's load runs and phase 16's sweep
-     and recorded runs, whose chunks are not replayed here; K7's counts
-     phase 10's prefills, phase 11's and phase 17's kernel runs, phases
-     19's and 20's train steps and phase 21's (a)-(c).  K7b's record (``attention_backward``):
+     phase 14's warm async runs, phase 15's load runs, phase 16's sweep
+     and recorded runs and phase 22's examples, whose chunks are not
+     replayed here; K7's counts phase 10's prefills, phase 11's and phase
+     17's kernel runs, phases 19's and 20's train steps, phase 21's (a)-(c)
+     and phase 22's real steps.  K7b's record (``attention_backward``):
      its time at gemma2-9b's full-width layer (``K7B_TIMED``, the cap)
      beside autograd through the plain version and its bound (10 hd
      operations per valid pair at the bf16 tensor-core rate), its three
      passes apart (``dot_ms``, ``dkdv_ms``, ``dq_ms``: CUDA events around
      each launch), and SDPA's backward on the cap-free shape as
-     ``library_ms``; its launches those of phases 19, 20 and 21.
+     ``library_ms``; its launches those of phases 19, 20, 21 and 22.
 
 TF32 is switched off for matmuls and cuDNN (float32 products in full
 float32).  Any failed check raises and the script exits non-zero.  The second-to-last
@@ -874,6 +894,128 @@ TRAIN_FULL_FAULT_STEP = 3
 # in bf16 rounding inside the attention (K7_TOL, K7B_TOL) carried through
 # 12 bf16 layers' backward
 TRAIN_GRAD_MIN_COS = 0.999
+
+# The dry-run (phase 22).  (a) The production grid: ``python -m
+# repro_torch.launch.dryrun`` in a subprocess over its fake group of 256
+# ranks (the 16 x 16 mesh), the fake tensors on the card's device type:
+# DRYRUN_CELLS, one cell per shape kind and model family (the whole grid
+# takes longer than the phase may; it is run and recorded apart), and the
+# FCA cell.  Every applicable cell must be "ok"; long_500k on an
+# attention-only arch stays "skipped".  (b) The prediction against the
+# card: phase 20's configuration (TRAIN_FULL_*: gemma2-9b, 12 layers, 4096
+# x 1, AdamW) and phase 11's (gemma2-9b at full depth, a prefill of its
+# four prompts left-padded to the longest, caches as long) traced on a
+# 1 x 1 mesh over the one-rank NCCL group through ``dryrun_lib.run_cell``,
+# then one more real step of each under ``op_analysis``: per-device FLOPs
+# equal (K7 and K7b through their formulas), no collective on one rank,
+# the train state's bytes within DRYRUN_STATE_TOL of the growth of
+# ``memory_allocated`` when it is built, the predicted peak (arguments plus
+# temporaries) within DRYRUN_PEAK_TOL of ``max_memory_allocated`` over the
+# step (the ratio recorded).
+DRYRUN_CELLS = (("gemma2-9b", "train_4k"), ("gemma2-9b", "prefill_32k"),
+                ("gemma2-9b", "decode_32k"), ("gemma2-9b", "long_500k"),
+                ("mamba2-370m", "long_500k"), ("recurrentgemma-2b", "prefill_32k"),
+                ("arctic-480b", "train_4k"), ("qwen2-vl-72b", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 240
+DRYRUN_STATE_TOL = 0.01
+DRYRUN_PEAK_TOL = 0.20
+
+# The FCA examples (phase 22c): examples/quickstart_torch.py,
+# fca_mining_torch.py and fca_query_service_torch.py run in this process
+# through ``backend="kernel"`` with EXAMPLE_ARGS; each one's printed lines,
+# wall times and rates masked (``example_lines``), must equal the reference
+# example's at the same arguments (EXAMPLES_EXPECTED: the JAX package's
+# examples under the jax binding, their engines at backend="jnp", derived
+# once on the CPU by ``PYTHONPATH=src JAX_PLATFORMS=cpu python
+# tests/_torch_reference.py examples``), and each kernel of its path
+# (EXAMPLE_KERNELS) must launch.  fca_mining runs mushroom at scale 0.01:
+# at its default 0.03 (119,298 concepts) the centralized NextClosure it
+# checks against takes minutes on the host.
+EXAMPLE_ARGS = {
+    "quickstart_torch": {},
+    "fca_mining_torch": {"dataset": "mushroom", "scale": 0.01, "parts": (1, 2, 4, 8)},
+    "fca_query_service_torch": {"dataset": "mushroom", "scale": 0.01, "parts": 4,
+                                "reduce_impl": "auto", "queries": 256, "updates": 6},
+}
+EXAMPLE_KERNELS = {
+    "quickstart_torch": ("closure", "map_closure", "filter_step"),
+    "fca_mining_torch": ("closure", "fused_step", "map_closure", "filter_step"),
+    "fca_query_service_torch": ("closure", "map_closure", "filter_step", "contains_topk"),
+}
+
+EXAMPLES_EXPECTED = {
+    'quickstart_torch': [
+        'context: 6 objects × 7 attributes, density 0.57',
+        '',
+        'NextClosure: 21 concepts (lectic order)',
+        'CloseByOne:  21 concepts in 4 levels',
+        'MRGanter  : 21 concepts in 21 MapReduce rounds — matches NextClosure: True',
+        'MRGanter+ : 21 concepts in  5 MapReduce rounds — matches NextClosure: True',
+        'MRCbo     : 21 concepts in  5 MapReduce rounds — matches NextClosure: True',
+        '',
+        'concept lattice (intent ← covered intents):',
+        '  ⟨{123456}, {}⟩  ←  []',
+        '  ⟨{1356}, {f}⟩  ←  [{}]',
+        '  ⟨{245}, {e}⟩  ←  [{}]',
+        '  ⟨{1345}, {d}⟩  ←  [{}]',
+        '  ⟨{1346}, {b}⟩  ←  [{}]',
+        '  ⟨{125}, {a}⟩  ←  [{}]',
+        '  ⟨{135}, {d,f}⟩  ←  [{f}, {d}]',
+        '  ⟨{45}, {d,e}⟩  ←  [{e}, {d}]',
+        '  ⟨{236}, {c,g}⟩  ←  [{}]',
+        '  ⟨{136}, {b,f}⟩  ←  [{f}, {b}]',
+        '  ⟨{134}, {b,d}⟩  ←  [{d}, {b}]',
+        '  ⟨{25}, {a,e}⟩  ←  [{e}, {a}]',
+        '  ⟨{13}, {b,d,f}⟩  ←  [{d,f}, {b,f}, {b,d}]',
+        '  ⟨{4}, {b,d,e}⟩  ←  [{d,e}, {b,d}]',
+        '  ⟨{15}, {a,d,f}⟩  ←  [{a}, {d,f}]',
+        '  ⟨{36}, {b,c,f,g}⟩  ←  [{c,g}, {b,f}]',
+        '  ⟨{5}, {a,d,e,f}⟩  ←  [{d,e}, {a,e}, {a,d,f}]',
+        '  ⟨{2}, {a,c,e,g}⟩  ←  [{c,g}, {a,e}]',
+        '  ⟨{1}, {a,b,d,f}⟩  ←  [{b,d,f}, {a,d,f}]',
+        '  ⟨{3}, {b,c,d,f,g}⟩  ←  [{b,d,f}, {b,c,f,g}]',
+        '  ⟨{}, {a,b,c,d,e,f,g}⟩  ←  [{b,d,e}, {a,d,e,f}, {a,c,e,g}, {a,b,d,f}, {b,c,d,f,g}]',
+    ],
+    'fca_mining_torch': [
+        'mushroom: 81 objects × 125 attrs @ 0.174 density (scale=0.01, synthetic)',
+        'NextClosure (centralized): 4440 concepts in <s>',
+        'MRGanter+ parts=1 reduce=allgather:  7 rounds, <s>, comm=   0.00 MB, match=True',
+        'MRGanter+ parts=1 reduce=rsag     :  7 rounds, <s>, comm=   0.00 MB, match=True',
+        'MRGanter+ parts=2 reduce=allgather:  7 rounds, <s>, comm=   6.79 MB, match=True',
+        'MRGanter+ parts=2 reduce=rsag     :  7 rounds, <s>, comm=   6.79 MB, match=True',
+        'MRGanter+ parts=4 reduce=allgather:  7 rounds, <s>, comm=  40.72 MB, match=True',
+        'MRGanter+ parts=4 reduce=rsag     :  7 rounds, <s>, comm=  20.36 MB, match=True',
+        'MRGanter+ parts=8 reduce=allgather:  7 rounds, <s>, comm= 190.05 MB, match=True',
+        'MRGanter+ parts=8 reduce=rsag     :  7 rounds, <s>, comm=  47.51 MB, match=True',
+    ],
+    'fca_query_service_torch': [
+        'mushroom: 81 objects × 125 attrs @ 0.174 density',
+        'mined 4440 concepts in 7 rounds ( <s>)',
+        "store built in <s>: {'plan': {'mode': 'simulated', 'n_parts': 4, 'axes': "
+        "['objpart'], 'cand_parts': 1, 'cand_axes': [], 'mesh_shape': None, 'reduce_impl': "
+        "'auto', 'block_n': 256, 'max_batch': 8192, 'auto_hop_bytes': 4096, "
+        "'hop_calibrated': False}, 'objects': 81, 'attrs': 125, 'version': 0, "
+        "'concepts': 4440, 'cap': 8192, 'max_bucket': 65}",
+        "closure×256: <rate> q/s, hit rate 1.00, 5 collective rounds (schedule: {'allgather': 5})",
+        'top-5 support of query 0: [2, 1, 1, 0, -1]; children counts sample: [6, 30, 14, 24, 6]',
+        'streamed 6 objects: 4440 → 5136 concepts, staged in <s> (|P|=27)',
+        'grown lattice == batch NextClosure remine: True',
+    ],
+}
+
+
+def example_lines(text: str) -> list:
+    """An example's printed lines with its wall times and rates masked, and
+    without the port plan's ``describe()`` entry ``backend`` (the process
+    group's, None on a simulated plan), which the reference's lacks."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        line = re.sub(r"\b\d+\.\d+s\b", "<s>", re.sub(r"[\d,]+ q/s", "<rate> q/s", line))
+        # a time's field width is its magnitude's: one space before each
+        out.append(re.sub(r" *<s>", " <s>", line).replace("'backend': None, ", ""))
+    return out
 
 
 def emit(record: dict) -> None:
@@ -5232,6 +5374,250 @@ def add_runs(launches: dict, chunks: dict, more_launches: dict, more_chunks: dic
         chunks[name] = chunks.get(name, []) + more
 
 
+def run_dryrun_grid() -> dict:
+    """Phase 22a: ``python -m repro_torch.launch.dryrun`` over DRYRUN_CELLS
+    and the FCA cell, in a subprocess (the dry-run's fake group of 256
+    ranks is that process's default group); its records, also written to
+    ``build/dryrun/phase22.jsonl``.  Every applicable cell "ok", long_500k
+    "skipped" on an attention-only arch."""
+    import os
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.models.config import shape_applicable
+
+    out = ROOT / "build" / "dryrun" / "phase22.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--fca", "--out", str(out)]
+    for arch, shape in DRYRUN_CELLS:
+        cmd += ["--cell", f"{arch}:{shape}"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    seconds = time.perf_counter() - t0
+    records = [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+    for rec in records:
+        emit({"phase": "dryrun_cell", **rec})
+    failures = []
+    if r.returncode != 0:
+        failures.append(f"dryrun exit {r.returncode}: {r.stderr[-3000:]}")
+    if len(records) != len(DRYRUN_CELLS) + 1:
+        failures.append(f"{len(records)} records for {len(DRYRUN_CELLS) + 1} cells")
+    for (arch, shape), rec in zip(DRYRUN_CELLS, records):
+        ok, _ = shape_applicable(get_config(arch), get_shape(shape))
+        if rec.get("status") != ("ok" if ok else "skipped"):
+            failures.append(f"{arch} {shape}: {rec.get('status')} {rec.get('error', '')[:500]}")
+    if records and records[-1].get("status") != "ok":
+        failures.append(f"fca cell: {records[-1]}")
+    report = {"seconds": seconds, "cells": len(records), "file": str(out.relative_to(ROOT)),
+              "summary": r.stderr.strip().splitlines()[-1:] if r.stderr else [],
+              "failures": failures}
+    emit({"phase": "dryrun_grid", **report})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report
+
+
+def dryrun_prediction(name: str, rec: dict, totals, peak: int, before: int) -> dict:
+    """A record of phase 22b: the dry-run's prediction against one real
+    step's ``op_analysis`` totals and ``max_memory_allocated`` (``peak``;
+    ``before``: allocated when the step began)."""
+    mem = rec["memory_analysis"]
+    predicted = mem["argument_bytes"] + mem["temp_bytes"]
+    return {"name": name, "flops_predicted": rec["flops_per_device"],
+            "flops_measured": totals.flops, "flops_by_op": dict(totals.flops_by_op),
+            "collective_counts": dict(totals.coll_counts),
+            "hbm_bytes_predicted": rec["hbm_bytes_per_device"],
+            "hbm_bytes_measured": totals.hbm_bytes,
+            "ops_predicted": rec["n_ops"], "ops_measured": totals.n_ops,
+            "argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+            "peak_predicted": predicted, "peak_measured": peak,
+            "allocated_before": before, "temp_measured": peak - before,
+            "peak_ratio": predicted / peak, "trace_s": rec.get("trace_s")}
+
+
+def check_prediction(p: dict, failures: list) -> None:
+    if p["flops_predicted"] != p["flops_measured"]:
+        failures.append(f"{p['name']}: FLOPs predicted {p['flops_predicted']} against "
+                        f"{p['flops_measured']} measured")
+    if p["collective_counts"]:
+        failures.append(f"{p['name']}: collectives on one rank {p['collective_counts']}")
+    if not abs(p["peak_ratio"] - 1.0) <= DRYRUN_PEAK_TOL:
+        failures.append(f"{p['name']}: predicted peak {p['peak_predicted']} against "
+                        f"{p['peak_measured']} (ratio {p['peak_ratio']:.4f})")
+
+
+def run_dryrun_prediction(device) -> tuple[dict, dict]:
+    """Phase 22b: the dry-run's records of phase 20's train step and phase
+    11's prefill (``dryrun_lib.run_cell`` on the 1 x 1 mesh over a one-rank
+    NCCL group, fake tensors on the card's device type) against one real
+    step of each, built anew at the same configuration, under
+    ``op_analysis``: FLOPs equal, no collective, the train state's bytes
+    within DRYRUN_STATE_TOL of the growth of ``memory_allocated`` when it is
+    built, the peak within DRYRUN_PEAK_TOL.  Returns the report and the
+    K7 / K7b launches of the real steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import make_batch_iterator
+    from repro_torch.launch import dryrun_lib, op_analysis
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.serve.engine import left_pad
+    from repro_torch.train.optim import get_optimizer, warmup_cosine
+    from repro_torch.train.step import batch_to, init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    failures = []
+    report = {}
+    launches = {"blockwise_attention": 0, "attention_backward": 0}
+    try:
+        mesh = partition_mesh(device)
+        # phase 20's train step
+        cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH), n_layers=TRAIN_FULL_DEPTH)
+        seq, bsz = TRAIN_FULL_SHAPE
+        shape = ShapeConfig("train_4k_b1", "train", seq, bsz)
+        rec = dryrun_lib.run_cell(TRAIN_FULL_ARCH, shape.name, mesh, "1x1", cfg=cfg,
+                                  shape=shape)
+        emit({"phase": "dryrun_train_record", **rec})
+        if rec["status"] != "ok":
+            raise AssertionError(f"train cell: {rec}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        model = Decoder(cfg, device=device, seed=LM_SEED)
+        opt = get_optimizer("adamw", warmup_cosine(3e-4, 100, TRAIN_FULL_STEPS))
+        state = init_state(model, opt)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - m0
+        step = make_train_step(model, opt)
+        it = make_batch_iterator(cfg, shape, seed=0)
+        state, _ = step(state, batch_to(next(it)[1], device))  # warm: workspaces, kernels
+        batch = batch_to(next(it)[1], device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        n0 = train_launches()
+        (state, metrics), totals = op_analysis.analyze(step, state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        n1 = train_launches()
+        for k in launches:
+            launches[k] += n1[k] - n0[k]
+        train = dryrun_prediction("train", rec, totals, peak, before)
+        train.update(state_bytes_predicted=rec["state_bytes_per_device"],
+                     state_bytes_measured=grown,
+                     state_ratio=rec["state_bytes_per_device"] / grown,
+                     loss=float(metrics["loss"]))
+        check_prediction(train, failures)
+        if not abs(train["state_ratio"] - 1.0) <= DRYRUN_STATE_TOL:
+            failures.append(f"train: state {rec['state_bytes_per_device']} B predicted "
+                            f"against {grown} B allocated")
+        if n1["blockwise_attention"] - n0["blockwise_attention"] != 2 * TRAIN_FULL_DEPTH \
+                or n1["attention_backward"] - n0["attention_backward"] != TRAIN_FULL_DEPTH:
+            failures.append(f"train: K7 / K7b launches {n0} -> {n1}")
+        report["train"] = train
+        del model, opt, state, batch, it, metrics, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # phase 11's prefill: its four prompts left-padded to the longest
+        cfg = get_config(LM_FULL_ARCH)
+        rng = np.random.default_rng(LM_SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in LM_FULL_PROMPTS]
+        toks, valid_from = left_pad(prompts, len(prompts))
+        shape = ShapeConfig("prefill_full", "prefill", toks.shape[1], len(prompts))
+        rec = dryrun_lib.run_cell(LM_FULL_ARCH, shape.name, mesh, "1x1", cfg=cfg, shape=shape)
+        emit({"phase": "dryrun_prefill_record", **rec})
+        if rec["status"] != "ok":
+            raise AssertionError(f"prefill cell: {rec}")
+        model = Decoder(cfg, device=device, seed=LM_SEED)
+        tokens = torch.from_numpy(toks).to(device)
+        vf = torch.from_numpy(valid_from).to(device)
+        with torch.inference_mode():
+            model.prefill(tokens, model.init_caches(*toks.shape), vf)  # warm
+            caches = model.init_caches(*toks.shape)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            k0 = fa_launches()
+            (logits, caches), totals = op_analysis.analyze(model.prefill, tokens, caches, vf)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            k1 = fa_launches()
+        launches["blockwise_attention"] += k1 - k0
+        prefill = dryrun_prediction("prefill", rec, totals, peak, before)
+        prefill["logits_finite"] = bool(torch.isfinite(logits).all())
+        check_prediction(prefill, failures)
+        if not prefill["logits_finite"] or k1 - k0 != cfg.n_layers:
+            failures.append(f"prefill: finite {prefill['logits_finite']}, K7 {k1 - k0}")
+        report["prefill"] = prefill
+        del model, caches, logits, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        close_partition_group()
+    report["seconds"] = time.perf_counter() - t_phase
+    report["failures"] = failures
+    emit({"phase": "dryrun_prediction", **report})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report, launches
+
+
+def fa_launches() -> int:
+    from repro_torch.kernels import flash_attention as fa
+
+    return fa.blockwise_attention.launches
+
+
+def run_examples(device) -> tuple[dict, dict]:
+    """Phase 22c: the three FCA examples in this process on the card
+    (EXAMPLE_ARGS), their printed lines (``example_lines``) equal to the
+    reference examples' (EXAMPLES_EXPECTED), each kernel of EXAMPLE_KERNELS
+    launched.  Returns the report and the launches by kernel."""
+    import importlib.util
+    import io
+
+    from repro_torch import kernels
+
+    report, failures, total = {}, [], {}
+    for stem, kwargs in EXAMPLE_ARGS.items():
+        spec = importlib.util.spec_from_file_location(stem, ROOT / "examples" / f"{stem}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kernels.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(device=str(device), **kwargs)
+        seconds = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)
+        launches = {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+        lines = example_lines(buf.getvalue())
+        same = lines == EXAMPLES_EXPECTED[stem]
+        missing = [k for k in EXAMPLE_KERNELS[stem] if not launches.get(k)]
+        report[stem] = {"seconds": seconds, "lines_equal": same, "launches": launches,
+                        "missing_kernels": missing}
+        if not same:
+            diff = [(a, b) for a, b in zip(lines, EXAMPLES_EXPECTED[stem]) if a != b]
+            failures.append(f"{stem}: lines differ from the reference's "
+                            f"({len(lines)} against {len(EXAMPLES_EXPECTED[stem])}): {diff[:3]}")
+        if missing:
+            failures.append(f"{stem}: {missing} not launched ({launches})")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    report["failures"] = failures
+    emit({"phase": "examples", **report})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return report, total
+
+
 def main() -> int:
     import torch
 
@@ -5387,20 +5773,31 @@ def main() -> int:
     finally:
         close_partition_group()
     emit({"phase": "partition_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    run_dryrun_grid()
+    _, dryrun_launches = run_dryrun_prediction(device)
+    _, example_launches = run_examples(device)
+    for name, n in example_launches.items():  # the examples' launches, their chunks untimed
+        if name not in ("blockwise_attention", "attention_backward", "flash_attention"):
+            launches[name] = launches.get(name, 0) + n
+    emit({"phase": "dryrun_seconds", "seconds": time.perf_counter() - t0,
+          "launches": {**example_launches, **dryrun_launches}})
     # K7's launches: phase 10's prefills, phase 11's and phase 17's kernel
     # runs, phases 19's and 20's train steps (the forward and the
     # backward's recompute) and phase 21's prefills and train steps
     k7["launches_by_phase"] = {"10": reduced_k7, "11": k7["launches"], "17": families_k7,
                                "19": reduced_train["blockwise_attention"],
                                "20": full_train["blockwise_attention"],
-                               "21": partition["blockwise_attention"]}
+                               "21": partition["blockwise_attention"],
+                               "22": dryrun_launches["blockwise_attention"]}
     k7["launches"] = sum(k7["launches_by_phase"].values())
     k7b = time_attention_backward(
         device, reduced_train["attention_backward"] + full_train["attention_backward"]
-        + partition["attention_backward"], k7b_records)
+        + partition["attention_backward"] + dryrun_launches["attention_backward"], k7b_records)
     k7b["launches_by_phase"] = {"19": reduced_train["attention_backward"],
                                 "20": full_train["attention_backward"],
-                                "21": partition["attention_backward"]}
+                                "21": partition["attention_backward"],
+                                "22": dryrun_launches["attention_backward"]}
     emit({"kernels": time_kernels(device, launches, chunks) + [k7, k7b]})
 
     print(nvidia_smi("name,power.limit"), flush=True)

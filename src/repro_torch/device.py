@@ -20,15 +20,22 @@ ALL_ONES = -1  # 0xFFFFFFFF viewed as int32 — the AND identity
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller says so.
 
-    Raises instead of falling back to the CPU when CUDA is missing.
+    Raises instead of falling back to the CPU when CUDA is missing, except
+    under a ``FakeTensorMode`` (the dry-run's), whose CUDA tensors hold no
+    memory and need no card.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and not fake_mode_active():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is on: tensors made now are fake."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
 
 
 def device_bits(arr: np.ndarray, device) -> torch.Tensor:

@@ -136,6 +136,79 @@ def even(x: torch.Tensor) -> torch.Tensor:
     return x if want == tuple(x.placements) else x.redistribute(mesh, want)
 
 
+def _reshape_groups(src: tuple, dst: tuple) -> list:
+    """The runs of dims a reshape maps onto each other: ``(src dims, dst
+    dims)`` pairs whose sizes' products agree, trailing 1s joined to the
+    last run."""
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        a, b, pa, pb = [i], [j], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while pa != pb:
+            if pa < pb:
+                a.append(i)
+                pa *= src[i]
+                i += 1
+            else:
+                b.append(j)
+                pb *= dst[j]
+                j += 1
+        groups.append((a, b))
+    if groups:
+        groups[-1][0].extend(range(i, len(src)))
+        groups[-1][1].extend(range(j, len(dst)))
+    return groups
+
+
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(shape)``; a DTensor is reshaped on each rank's local
+    tensor, with no rule of DTensor's own (those differ between torch
+    releases, and refuse a shard that does not divide the new dims).  A
+    dim sharded on a mesh dim keeps its shard when it is the outermost of
+    the dims it merges into, or splits into, and its shards divide the
+    first new dim; it is gathered first otherwise.  Partial and replicated
+    mesh dims are kept."""
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
+        shape = tuple(shape[0])
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    src = tuple(x.shape)
+    known = math.prod(d for d in shape if d != -1)
+    dst = tuple(math.prod(src) // known if d == -1 else d for d in shape)
+    mesh = x.device_mesh
+    where = {d: (a, b) for a, b in _reshape_groups(src, dst) for d in a}
+    new, gather = [], []
+    for i, p in enumerate(x.placements):
+        if type(p) is not Shard:  # Replicate, Partial, or a strided shard
+            if isinstance(p, Shard):
+                gather.append(i)
+            new.append(p)
+            continue
+        d = p.dim % len(src)
+        a, b = where[d]
+        a1 = [k for k in a if src[k] != 1]
+        b1 = [k for k in b if dst[k] != 1]
+        n = math.prod(mesh.size(m) for m, q in enumerate(x.placements)
+                      if isinstance(q, Shard) and q.dim % len(src) == d)
+        if a1 and a1[0] == d and b1 and src[d] % n == 0 and dst[b1[0]] % n == 0:
+            new.append(Shard(b1[0]))
+        else:
+            gather.append(i)
+            new.append(p)
+    if gather:
+        return reshape(x.redistribute(mesh, [Replicate() if i in gather else p
+                                             for i, p in enumerate(x.placements)]), dst)
+    local = list(dst)
+    for i, p in enumerate(new):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    stride = [1] * len(dst)
+    for k in range(len(dst) - 2, -1, -1):
+        stride[k] = stride[k + 1] * dst[k + 1]
+    return DTensor.from_local(x.to_local().reshape(local), mesh, new, run_check=False,
+                              shape=torch.Size(dst), stride=tuple(stride))
+
+
 def _is_axes(x) -> bool:
     return isinstance(x, tuple) and all(isinstance(a, str) or a is None for a in x)
 

@@ -20,6 +20,8 @@ through ``attention_plain`` (``attention_backward_plain``); a train-mode
 ``flash_attention._BlockwiseAttentionFn``.
 Each wrapper counts its launches in a plain ``launches`` attribute; K1, K2
 and K3 also count those that took their tensor-core body in ``tc_launches``.
+K7's and K7b's launches are the custom operators ``repro_torch::k7_fwd``
+and ``repro_torch::k7b_bwd``, with fake implementations and flop formulas.
 """
 
 from repro_torch.kernels import closure as _k1

@@ -35,6 +35,13 @@ For CUDA tensors each wrapper launches the kernel or raises; for CPU
 tensors it runs the plain version, :func:`attention_plain` — the
 reference's online-softmax scan over key blocks, written in torch.  Each
 wrapper counts its kernel launches in a plain ``launches`` attribute.
+The launches are PyTorch operators of their own, ``repro_torch::k7_fwd``
+and ``repro_torch::k7b_bwd`` (``torch.library.custom_op``): on fake CUDA
+tensors (the dry-run's ``FakeTensorMode``) their fake implementations give
+the outputs' shapes and dtypes with no build and no launch, and count
+nothing; ``torch.utils.flop_counter`` and ``repro_torch.launch.op_analysis``
+read their flop formulas — K7 4 · hd, K7b 10 · hd per (query, key) pair of
+B · H · S · T, every pair, as the plain version computes them.
 
 K7b, the backward (``csrc/attention.cu``, :func:`attention_backward`;
 bfloat16 through two warp-specialised ``wgmma`` passes behind TMA rings,
@@ -56,6 +63,7 @@ import functools
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -210,20 +218,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None, logit_cap=None
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_cap=logit_cap)
-    B, H, S, _ = q.shape
-    KV, T = k.shape[1], k.shape[2]
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if S == 0 or B == 0:
-        return out
-    q, k, v = _aligned(q, k, v)
-    _launch(q, k, v, out, None, B=B, H=H, KV=KV, S=S, T=T,
-            q_st=(q.stride(0), q.stride(1), q.stride(2)),
-            kv_st=(k.stride(0), k.stride(1), k.stride(2)),
-            v_st=(v.stride(0), v.stride(1), v.stride(2)),
-            o_st=(out.stride(0), out.stride(1), out.stride(2)),
-            causal=causal, window=window, logit_cap=logit_cap)
-    flash_attention.launches += 1
-    return out
+    return torch.ops.repro_torch.k7_fwd(q, k, v, None, window, logit_cap, 0, causal, True,
+                                        False)[0]
 
 
 flash_attention.launches = 0
@@ -283,23 +279,79 @@ def _blockwise_forward(q, k, v, window, logit_cap, valid_from=None, lse: bool = 
                        q_off: int = 0):
     """K7 on CUDA tensors in the model layout → (out, lse [B, H, S] float32
     when ``lse``, else None)."""
-    B, S, H, _ = q.shape
-    KV, T = k.shape[2], k.shape[1]
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse_out = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
-    if S == 0 or B == 0:
-        return out, lse_out
-    q, k, v = _aligned(q, k, v)
     if valid_from is not None:
         valid_from = valid_from.to(torch.int32).contiguous()
-    _launch(q, k, v, out, valid_from, B=B, H=H, KV=KV, S=S, T=T,
-            q_st=(q.stride(0), q.stride(2), q.stride(1)),
-            kv_st=(k.stride(0), k.stride(2), k.stride(1)),
-            v_st=(v.stride(0), v.stride(2), v.stride(1)),
-            o_st=(out.stride(0), out.stride(2), out.stride(1)),
-            causal=True, window=window, logit_cap=logit_cap, lse=lse_out, q_off=q_off)
-    blockwise_attention.launches += 1
+    out, lse_out = torch.ops.repro_torch.k7_fwd(q, k, v, valid_from, window, logit_cap,
+                                                int(q_off), True, False, lse)
+    return out, (lse_out if lse else None)
+
+
+def _k7_launch(q, k, v, valid_from, window, logit_cap, q_off, causal, heads_major, want_lse):
+    """One K7 launch; ``heads_major``: q [B, H, S, hd] and k/v [B, KV, T,
+    hd] (``flash_attention``'s layout), else the model layout.  Counts the
+    launch on its wrapper."""
+    if heads_major:
+        B, H, S, _ = q.shape
+        KV, T = k.shape[1], k.shape[2]
+        dims = (1, 2)  # (heads, positions)
+    else:
+        B, S, H, _ = q.shape
+        KV, T = k.shape[2], k.shape[1]
+        dims = (2, 1)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_out = torch.empty((B, H, S) if want_lse else (0,), dtype=torch.float32, device=q.device)
+    if S == 0 or B == 0:
+        return out, lse_out
+
+    def st(x):
+        return (x.stride(0), x.stride(dims[0]), x.stride(dims[1]))
+
+    q, k, v = _aligned(q, k, v)
+    _launch(q, k, v, out, valid_from, B=B, H=H, KV=KV, S=S, T=T, q_st=st(q), kv_st=st(k),
+            v_st=st(v), o_st=st(out), causal=causal, window=window, logit_cap=logit_cap,
+            lse=lse_out if want_lse else None, q_off=q_off)
+    if heads_major:
+        flash_attention.launches += 1
+    else:
+        blockwise_attention.launches += 1
     return out, lse_out
+
+
+_K7_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor? valid_from, int? window, "
+              "float? logit_cap, int q_off, bool causal, bool heads_major, bool want_lse) "
+              "-> (Tensor, Tensor)")
+_K7B_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, "
+               "int? window, float? logit_cap, int q_off) -> (Tensor, Tensor, Tensor)")
+
+# K7 and K7b as operators of their own: a fake tensor (the dry-run's) gets
+# their outputs' shapes from the fake implementations with no launch and
+# no build, a dispatch mode sees one op per launch, and the flop counter
+# reads their formulas.
+_k7_op = torch.library.custom_op("repro_torch::k7_fwd", _k7_launch, mutates_args=(),
+                                 device_types="cuda", schema=_K7_SCHEMA)
+
+
+@_k7_op.register_fake
+def _k7_fake(q, k, v, valid_from, window, logit_cap, q_off, causal, heads_major, want_lse):
+    B, H, S = (q.shape[0], q.shape[1], q.shape[2]) if heads_major else \
+        (q.shape[0], q.shape[2], q.shape[1])
+    return (q.new_empty(q.shape),
+            q.new_empty((B, H, S) if want_lse else (0,), dtype=torch.float32))
+
+
+def _pairs(q_shape, k_shape, heads_major: bool) -> int:
+    """B · H · S · T, every (query, key) pair of a launch."""
+    if heads_major:
+        return q_shape[0] * q_shape[1] * q_shape[2] * k_shape[2]
+    return q_shape[0] * q_shape[2] * q_shape[1] * k_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.k7_fwd)
+def _k7_flops(q_shape, k_shape, v_shape, valid_from, window, logit_cap, q_off, causal,
+              heads_major, want_lse, out_shape=None, **kwargs) -> int:
+    """4 · hd a (query, key) pair: S = q·kᵀ and P·V over every pair, as the
+    plain version and the reference's blockwise products compute them."""
+    return 4 * q_shape[3] * _pairs(q_shape, k_shape, heads_major)
 
 
 blockwise_attention.launches = 0
@@ -368,6 +420,15 @@ def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None,
             q_pos=torch.arange(q_off, q_off + S, device=q.device))
     if lse is None or tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 [{B}, {H}, {S}]")
+    if events is not None:
+        return _k7b_launch(q, k, v, out, lse, dout, window, logit_cap, q_off, events)
+    return torch.ops.repro_torch.k7b_bwd(q, k, v, out, lse, dout, window, logit_cap, q_off)
+
+
+def _k7b_launch(q, k, v, out, lse, dout, window, logit_cap, q_off, events=None):
+    """K7b's three passes on CUDA tensors (see :func:`attention_backward`)."""
+    B, S, H, hd = q.shape
+    KV, T = k.shape[2], k.shape[1]
     q, k, v, out, dout = _aligned(*(x.contiguous() for x in (q, k, v, out, dout.to(q.dtype))))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -396,6 +457,23 @@ def attention_backward(q, k, v, out, lse, dout, *, window=None, logit_cap=None,
                 events[i + 1].record(stream)
     attention_backward.launches += 1
     return dq, dk, dv
+
+
+_k7b_op = torch.library.custom_op("repro_torch::k7b_bwd", _k7b_launch, mutates_args=(),
+                                  device_types="cuda", schema=_K7B_SCHEMA)
+
+
+@_k7b_op.register_fake
+def _k7b_fake(q, k, v, out, lse, dout, window, logit_cap, q_off):
+    return (q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape))
+
+
+@register_flop_formula(torch.ops.repro_torch.k7b_bwd)
+def _k7b_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape, window,
+               logit_cap, q_off, out_shape=None, **kwargs) -> int:
+    """10 · hd a (query, key) pair: its passes recompute S (2 hd), then dP
+    (2 hd), dV, dK and dQ (2 hd each)."""
+    return 10 * q_shape[3] * _pairs(q_shape, k_shape, False)
 
 
 attention_backward.launches = 0

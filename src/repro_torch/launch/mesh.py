@@ -55,11 +55,13 @@ def _device_type() -> str:
 
 
 def make_local_mesh(data: int | None = None, model: int = 1, pod: int = 1,
-                    cand: int = 1) -> GroupMesh:
+                    cand: int = 1, *, device_type: str | None = None) -> GroupMesh:
     """The mesh over the ranks of the default group: ``cand`` candidate
     blocks × ``pod`` × ``data`` object shards × ``model`` (``data``
     defaults to what the world size leaves).  Needs an initialized
-    ``torch.distributed`` group (NCCL: a CUDA ``DeviceMesh``; gloo: CPU)."""
+    ``torch.distributed`` group (NCCL: a CUDA ``DeviceMesh``; gloo: CPU;
+    ``device_type`` overrides that, as the dry-run does over its fake
+    group, whose tensors are fake CUDA tensors)."""
     if not dist.is_initialized():
         raise RuntimeError("make_local_mesh needs an initialized torch.distributed group")
     world = dist.get_world_size()
@@ -99,7 +101,7 @@ def make_local_mesh(data: int | None = None, model: int = 1, pod: int = 1,
                 if (o, m) == (o_me, m_me):
                     cand_group = g
     mesh_dims = dims + [("model", model)]
-    device_mesh = DeviceMesh(_device_type(),
+    device_mesh = DeviceMesh(device_type or _device_type(),
                              torch.arange(world).reshape([s for _, s in mesh_dims]),
                              mesh_dim_names=tuple(a for a, _ in mesh_dims))
     return GroupMesh(
@@ -113,7 +115,8 @@ def make_local_mesh(data: int | None = None, model: int = 1, pod: int = 1,
     )
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> GroupMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str | None = None) -> GroupMesh:
     """16 × 16 data × model over 256 ranks, or 2 × 16 × 16 pod × data ×
     model over 512; raises ``ValueError`` on a group of another size."""
     if not dist.is_initialized():
@@ -122,5 +125,6 @@ def make_production_mesh(*, multi_pod: bool = False) -> GroupMesh:
     if dist.get_world_size() != math.prod(shape):
         raise ValueError(f"the production mesh {' x '.join(map(str, shape))} needs "
                          f"{math.prod(shape)} ranks; the group has {dist.get_world_size()}")
-    return make_local_mesh(data=16, model=16, pod=2 if multi_pod else 1)
+    return make_local_mesh(data=16, model=16, pod=2 if multi_pod else 1,
+                           device_type=device_type)
 

@@ -22,8 +22,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist.partition import Partitioner, reshape
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -71,13 +72,14 @@ class Attention(nn.Module):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matrix product."""
     d, heads, hd = w.shape
-    return layers.linear(x, w.reshape(d, heads * hd)).unflatten(-1, (heads, hd))
+    y = layers.linear(x, reshape(w, d, heads * hd))
+    return reshape(y, *y.shape[:-1], heads, hd)
 
 
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matrix product."""
     H, hd, d = wo.shape
-    return layers.linear(o.flatten(-2), wo.reshape(H * hd, d))
+    return layers.linear(reshape(o, *o.shape[:-2], H * hd), reshape(wo, H * hd, d))
 
 
 def _project_qkv(p: Attention, x, cfg: ModelConfig, rope_positions):
@@ -203,7 +205,7 @@ def pad_rows(v: torch.Tensor, H: int) -> torch.Tensor:
     block = min(1024, S)
     keys = -(-S // block) * block
     mean = v.float().sum(1) / keys  # [B, KV, hd], each KV head's G query heads alike
-    return mean[:, :, None].expand(B, KV, H // KV, hd).reshape(B, H, hd)
+    return reshape(mean[:, :, None].expand(B, KV, H // KV, hd), B, H, hd)
 
 
 def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
@@ -236,10 +238,22 @@ def attn_prefill(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
 
 def attn_decode(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
                 cache: KVCache, t: int):
-    """One-token decode.  x [B, 1, d]; t — absolute position (a plain int)."""
+    """One-token decode.  x [B, 1, d]; t — absolute position (a plain int).
+    On DTensor caches each rank runs it on its local tensors
+    (:func:`_decode_per_rank`)."""
     q, k, v = _project_qkv(p, x, cfg, rope_positions)
-    L = cache.k.shape[1]
     window = _window_for(cfg, kind)
+    if isinstance(cache.k, DTensor):
+        out = _decode_per_rank(q, k, v, cache, t, window, cfg.attn_logit_softcap)
+    else:
+        out = _decode_attend(q, k, v, cache, t, window, cfg.attn_logit_softcap)
+    return _out(out, p.wo), cache
+
+
+def _decode_attend(q, k, v, cache: KVCache, t: int, window, cap):
+    """Write the token's k, v and position into the cache (in place), then
+    its attention over the cache → [B, 1, H, hd]."""
+    L = cache.k.shape[1]
     slot = t % L
     cache.k[:, slot] = k[:, 0]
     cache.v[:, slot] = v[:, 0]
@@ -252,10 +266,29 @@ def attn_decode(p: Attention, x, cfg: ModelConfig, kind: str, rope_positions,
     # [L, KV, hd] cache in place: einsum("bkgh,btkh->bkgt") with fp32 output
     s = torch.stack([layers.bmm_f32(qg[b], cache.k[b].permute(1, 2, 0))
                      for b in range(B)]) / math.sqrt(hd)
-    s = layers.softcap(s, cfg.attn_logit_softcap)
+    s = layers.softcap(s, cap)
     valid = _mask(t, cache.pos[:, None, None, :], window)
     s = torch.where(valid, s, NEG_INF)
     prob = torch.softmax(s, dim=-1).to(cache.v.dtype)
     # einsum("bkgt,btkh->bkgh") in V's dtype
     out = torch.stack([torch.bmm(prob[b], cache.v[b].transpose(0, 1)) for b in range(B)])
-    return _out(out.reshape(B, 1, H, hd), p.wo), cache
+    return out.reshape(B, 1, H, hd)
+
+
+def _decode_per_rank(q, k, v, cache: KVCache, t: int, window, cap):
+    """:func:`_decode_attend` on each rank's local tensors, at the cache's
+    own placements (so that its in-place writes land in the cache): its
+    batch rows, and its KV heads with their query heads where the cache's
+    KV heads are sharded; on every other mesh dim the token's q, k and v
+    are whole."""
+    mesh = cache.k.device_mesh
+    kv_pl = list(cache.k.placements)
+    q_pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in kv_pl]
+    pos_pl = list(cache.pos.placements)
+
+    def body(ql, kl, vl, ck, cv, cp):
+        return _decode_attend(ql, kl, vl, KVCache(ck, cv, cp), t, window, cap)
+
+    part = Partitioner(mesh)
+    return part.local(body, q_pl, (q_pl, q_pl, q_pl, kv_pl, kv_pl, pos_pl))(
+        q, k, v, cache.k, cache.v, cache.pos)

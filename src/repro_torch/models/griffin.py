@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -108,11 +109,24 @@ def conv_state(raw: torch.Tensor, K: int) -> torch.Tensor:
     return F.pad(state, (0, 0, pad, 0)) if pad > 0 else state.clone()
 
 
+def _affine(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b``.  On DTensors whose channels are sharded alike (x's
+    and both of w's dims on ``model``) the product is a partial sum, which
+    is reduce-scattered over its channels, as ``b``'s are, before the bias
+    meets it (DTensor's own plan for that sum turns ``b`` into a partial
+    sum, a redistribution some torch releases refuse)."""
+    y = layers.linear(x, w)
+    if isinstance(y, DTensor) and any(isinstance(p, Partial) for p in y.placements):
+        y = y.redistribute(y.device_mesh, [Shard(y.dim() - 1) if isinstance(p, Partial)
+                                           else p for p in y.placements])
+    return y + b
+
+
 def _gates(p: Recurrent, x: torch.Tensor):
     """x [..., w] fp32 → (a, gated input), the RG-LRU equations."""
     f32 = torch.float32
-    r = torch.sigmoid(layers.linear(x, p.w_a.to(f32)) + p.b_a.to(f32))
-    i = torch.sigmoid(layers.linear(x, p.w_x.to(f32)) + p.b_x.to(f32))
+    r = torch.sigmoid(_affine(x, p.w_a.to(f32), p.b_a.to(f32)))
+    i = torch.sigmoid(_affine(x, p.w_x.to(f32), p.b_x.to(f32)))
     log_a = -_C * F.softplus(p.lam.to(f32)) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (i * x)

@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.dist.partition import Partitioner, even
 
@@ -147,29 +147,58 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return local_product(lambda x, y: torch.mm(x, y, out_dtype=torch.float32), a, b)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward makes the gradient contiguous."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        # a DTensor's global strides are always contiguous, so its
-        # ``contiguous()`` is a no-op: clone the local layout
-        return g.clone(memory_format=torch.contiguous_format)
-
-
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for x [..., K] and w [K, N], as one [rows, K] × [K, N]
-    product — what ``matmul`` folds it to.  On a DTensor the gradient of the
-    result is made contiguous first: its backward views it [rows, N], which
-    a DTensor's local gradient (of another layout) does not allow."""
-    x = even(x)
-    y = (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
-    if isinstance(y, DTensor) and torch.is_grad_enabled() and y.requires_grad:
-        y = _ContiguousGrad.apply(y)
+    product — what ``matmul`` folds it to.  On DTensors the product runs on
+    each rank's local tensors (:func:`_local_linear`), with no view or
+    product rule of DTensor's own."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return _local_linear(x, w)
+    return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _local_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` on DTensors, per mesh dim: rows of x sharded there
+    stay sharded (w whole there); the contraction split in both x and w
+    gives partial sums (Megatron's row-parallel product); else x is whole
+    there and the output takes w's column shard, if any (a split of w's
+    contraction alone, FSDP's, is gathered; a partial x is summed)."""
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    part = Partitioner(mesh)
+    x, w = even(part.as_dtensor(x)), part.as_dtensor(w)
+    nd = x.dim()
+    xs, ws, out = [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        dx = px.dim % nd if type(px) is Shard else None
+        dw = pw.dim % 2 if type(pw) is Shard else None
+        if dx is not None and dx < nd - 1:
+            xs.append(Shard(dx))
+            ws.append(Replicate())
+            out.append(Shard(dx))
+        elif dx == nd - 1 and dw == 0:
+            xs.append(Shard(dx))
+            ws.append(Shard(0))
+            out.append(Partial())
+        else:
+            xs.append(Replicate())
+            ws.append(Shard(1) if dw == 1 else Replicate())
+            out.append(Shard(nd - 1) if dw == 1 else Replicate())
+
+    def body(xl, wl):
+        return (xl.reshape(-1, xl.shape[-1]) @ wl).reshape(*xl.shape[:-1], wl.shape[-1])
+
+    return part.local(body, out, (xs, ws))(x, w)
+
+
+def summed(y: torch.Tensor) -> torch.Tensor:
+    """``y`` with its partial sums (a row-parallel product's, :func:`linear`)
+    summed: what an MLP returns, and what a sublayer's output is before it
+    joins the residual stream.  A partial sum would meet sharded operands
+    in the ops after it, and DTensor's plan for such an op can turn the
+    shard into a partial sum, which some torch releases refuse."""
+    if isinstance(y, DTensor) and any(isinstance(p, Partial) for p in y.placements):
+        return y.redistribute(y.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                              for p in y.placements])
     return y
 
 
@@ -244,6 +273,6 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "gelu":
-            return linear(_gelu(linear(x, self.up)), self.down)
+            return summed(linear(_gelu(linear(x, self.up)), self.down))
         act = F.silu if self.kind == "swiglu" else _gelu
-        return linear(act(linear(x, self.gate)) * linear(x, self.up), self.down)
+        return summed(linear(act(linear(x, self.gate)) * linear(x, self.up), self.down))

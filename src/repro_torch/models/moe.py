@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.dist.partition import even
+from repro_torch.dist.partition import even, reshape
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -209,7 +209,7 @@ def moe_fwd(p: MoE, x: torch.Tensor, cfg: ModelConfig, exact: bool = False, shar
     e = cfg.moe
     B, S, d = x.shape
     N, E, k = B * S, e.n_experts, e.top_k
-    xf = even(x).reshape(N, d)
+    xf = reshape(even(x), N, d)
     probs, top_w, top_i = _whole(shard, lambda r, xl: route(r, xl, k), 3, p.router, xf)
 
     if _expert_parallel(shard, cfg, exact):
@@ -218,7 +218,7 @@ def moe_fwd(p: MoE, x: torch.Tensor, cfg: ModelConfig, exact: bool = False, shar
         y, dropped = _moe_ep(p, xf, top_w, top_i, cfg, shard)
         if e.shared_expert:
             y = y + p.shared(xf)
-        return y.reshape(B, S, d), aux, dropped
+        return reshape(y, B, S, d), aux, dropped
 
     C = capacity(N, cfg, exact)
     order, counts, keep, row = _whole(shard, lambda ti: _sorted(ti, E, k, C), 4, top_i)
@@ -233,9 +233,9 @@ def moe_fwd(p: MoE, x: torch.Tensor, cfg: ModelConfig, exact: bool = False, shar
     buf = _whole(shard, scatter, 1, xf, order, row)
     if shard is not None:
         buf = shard(buf, "experts", None, None)
-    g = F.silu(torch.bmm(buf, p.w_gate))
-    h = g * torch.bmm(buf, p.w_up)
-    out = torch.bmm(h, p.w_down)
+    g = F.silu(layers.local_product(torch.bmm, buf, p.w_gate))
+    h = g * layers.local_product(torch.bmm, buf, p.w_up)
+    out = layers.local_product(torch.bmm, h, p.w_down)
     if shard is not None and shard.constrain_attention:
         out = shard(out, None, None, "moe_d")
 
@@ -251,4 +251,4 @@ def moe_fwd(p: MoE, x: torch.Tensor, cfg: ModelConfig, exact: bool = False, shar
         y = shard(y, None, "moe_d")
     if e.shared_expert:
         y = y + p.shared(xf)
-    return y.reshape(B, S, d), aux, (~keep).sum()
+    return reshape(y, B, S, d), aux, (~keep).sum()

@@ -22,6 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.dist.partition import Partitioner, reshape
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.griffin import causal_conv, conv_state
@@ -92,9 +95,35 @@ def _split_xbc(cfg: ModelConfig, xBC: torch.Tensor):
     s, d_in, H, _ = _dims(cfg)
     gn = s.n_groups * s.state_size
     x, Bm, Cm = torch.split(xBC, [d_in, gn, gn], dim=-1)
-    lead = x.shape[:-1]
-    return (x.reshape(*lead, H, s.head_dim), Bm.reshape(*lead, s.n_groups, s.state_size),
-            Cm.reshape(*lead, s.n_groups, s.state_size))
+    lead = tuple(x.shape[:-1])
+    return (reshape(x, *lead, H, s.head_dim), reshape(Bm, *lead, s.n_groups, s.state_size),
+            reshape(Cm, *lead, s.n_groups, s.state_size))
+
+
+def _per_rank(fn, x, G: int, args, dims, out_dims):
+    """``fn(*args)`` on DTensors, on each rank's local tensors: its batch
+    rows (the mesh dims ``x`` [B, ..., H, ...] is batch-sharded on) and,
+    on ``model`` where it divides H and one group serves every head, its
+    heads — every SSD step is independent across both.  ``dims[i]`` is
+    ``(batch dim, head dim)`` of ``args[i]`` (None: not there);
+    ``out_dims`` likewise for the outputs."""
+    mesh = x.device_mesh
+    H = x.shape[2]
+    split = []
+    for i, p in enumerate(x.placements):
+        if type(p) is Shard and p.dim == 0:
+            split.append(0)
+        elif mesh.mesh_dim_names[i] == "model" and G == 1 and H % mesh.size(i) == 0:
+            split.append(1)
+        else:
+            split.append(None)
+
+    def pl(d):
+        return [Replicate() if k is None or d[k] is None else Shard(d[k]) for k in split]
+
+    part = Partitioner(mesh)
+    return part.local(fn, tuple(pl(d) for d in out_dims), tuple(pl(d) for d in dims))(
+        *(part.as_dtensor(a) for a in args))
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -162,9 +191,15 @@ def ssd_block_full(p: SSD, xin: torch.Tensor, cfg: ModelConfig):
     x, Bm, Cm = _split_xbc(cfg, xBC)
     dt = F.softplus(dt_raw.float() + p.dt_bias)
     A = -torch.exp(p.A_log.float())
-    y, h = ssd_chunked(x, dt, A, Bm, Cm, min(s.chunk_size, xin.shape[1]))
+    chunk = min(s.chunk_size, xin.shape[1])
+    if isinstance(x, DTensor):
+        y, h = _per_rank(lambda *a: ssd_chunked(*a, chunk), x, s.n_groups, (x, dt, A, Bm, Cm),
+                         ((0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+                         ((0, 2), (0, 1)))
+    else:
+        y, h = ssd_chunked(x, dt, A, Bm, Cm, chunk)
     y = y + p.D.float()[:, None] * x.float()
-    y = _gate_norm(p, y.reshape(*xin.shape[:2], d_in), z, xin.dtype)
+    y = _gate_norm(p, reshape(y, *xin.shape[:2], d_in), z, xin.dtype)
     cache = SSMCache(conv=conv_state(xBC_raw, s.conv_width).to(xin.dtype), h=h)
     return layers.linear(y, p.out_proj), cache
 
@@ -177,6 +212,18 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> SSMCache
                       device=device))
 
 
+def _ssd_step(x, Bm, Cm, dt, A, D, h):
+    """One token's state update: x [B, 1, H, P], Bm / Cm [B, 1, G, N], dt
+    [B, H], A and D [H], h [B, H, P, N] → (y [B, H, P], new h)."""
+    r = x.shape[2] // Bm.shape[2]
+    x1 = x[:, 0].float()  # [B, H, P]
+    B1 = Bm[:, 0].float().repeat_interleave(r, dim=1)  # [B, H, N]
+    C1 = Cm[:, 0].float().repeat_interleave(r, dim=1)
+    g = torch.exp(dt * A)  # [B, H]
+    h = h * g[..., None, None] + torch.einsum("bh,bhn,bhp->bhpn", dt, B1, x1)
+    return torch.einsum("bhpn,bhn->bhp", h, C1) + D.float()[:, None] * x1, h
+
+
 def ssd_block_decode(p: SSD, xin: torch.Tensor, cfg: ModelConfig, cache: SSMCache):
     """One token.  xin [B, 1, d] → (y [B, 1, d], new SSMCache)."""
     s, d_in, H, _ = _dims(cfg)
@@ -186,12 +233,11 @@ def ssd_block_decode(p: SSD, xin: torch.Tensor, cfg: ModelConfig, cache: SSMCach
     x, Bm, Cm = _split_xbc(cfg, F.silu(conv_out)[:, None, :])
     dt = F.softplus(dt_raw.float() + p.dt_bias)[:, 0]  # [B, H]
     A = -torch.exp(p.A_log.float())
-    r = H // s.n_groups
-    x1 = x[:, 0].float()  # [B, H, P]
-    B1 = Bm[:, 0].float().repeat_interleave(r, dim=1)  # [B, H, N]
-    C1 = Cm[:, 0].float().repeat_interleave(r, dim=1)
-    g = torch.exp(dt * A)  # [B, H]
-    h = cache.h * g[..., None, None] + torch.einsum("bh,bhn,bhp->bhpn", dt, B1, x1)
-    y = torch.einsum("bhpn,bhn->bhp", h, C1) + p.D.float()[:, None] * x1
-    y = _gate_norm(p, y.reshape(xin.shape[0], 1, d_in), z, xin.dtype)
+    if isinstance(x, DTensor):
+        y, h = _per_rank(_ssd_step, x, s.n_groups, (x, Bm, Cm, dt, A, p.D, cache.h),
+                         ((0, 2), (0, None), (0, None), (0, 1), (None, 0), (None, 0), (0, 1)),
+                         ((0, 1), (0, 1)))
+    else:
+        y, h = _ssd_step(x, Bm, Cm, dt, A, p.D, cache.h)
+    y = _gate_norm(p, reshape(y, xin.shape[0], 1, d_in), z, xin.dtype)
     return layers.linear(y, p.out_proj), SSMCache(conv=window[:, 1:], h=h)

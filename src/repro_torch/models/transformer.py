@@ -39,10 +39,11 @@ import contextlib
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.partition import even, replicate_plain
+from repro_torch.dist.partition import Partitioner, even, replicate_plain, reshape
 from repro_torch.models import attention, griffin, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -111,6 +112,7 @@ class Block(nn.Module):
         paths."""
         y, cache = self._core(self.pre_norm(x), cfg, rope_pos, mode, cache, t, valid_from,
                               shard)
+        y = layers.summed(y)
         if cfg.post_norm:
             y = self.post_norm(y)
         x = x + y
@@ -128,6 +130,7 @@ class Block(nn.Module):
         if cfg.post_norm:
             y = self.post_mlp_norm(y)
         return x + y, cache, aux
+
 
 
 class Decoder(nn.Module):
@@ -192,16 +195,7 @@ class Decoder(nn.Module):
         """One cache per layer, of its kind: a ``KVCache`` (ring caches
         ``min(window, max_len)`` long on ``attn_local`` layers), a
         ``RecCache`` or an ``SSMCache``."""
-        out = []
-        for kind in self.kinds:
-            if kind == "rec":
-                out.append(griffin.init_rec_cache(self.cfg, batch, self.dtype, self.device))
-            elif kind == "ssd":
-                out.append(ssm.init_ssm_cache(self.cfg, batch, self.dtype, self.device))
-            else:
-                out.append(attention.init_cache(self.cfg, kind, batch, max_len, self.dtype,
-                                                self.device))
-        return out
+        return init_caches(self.cfg, batch, max_len, dtype=self.dtype, device=self.device)
 
     # -- forward ----------------------------------------------------------------
 
@@ -243,7 +237,7 @@ class Decoder(nn.Module):
         else:
             V = self.embed.shape[0]
             ids = torch.where(inputs < 0, inputs + V, inputs).clamp(0, V - 1)
-            x = self.embed[ids].to(self.dtype)
+            x = _lookup(self.embed, ids).to(self.dtype)
             if cfg.emb_scale:
                 x = x * self.emb_scale
         if shard is not None:
@@ -284,12 +278,12 @@ class Decoder(nn.Module):
         with a float32 output, so the vocabulary matrix is never copied to
         float32).  ``shard``: the vocabulary dim placed on ``model``."""
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        flat = even(hidden).reshape(-1, hidden.shape[-1])
+        flat = reshape(even(hidden), -1, hidden.shape[-1])
         if flat.dtype != torch.float32 and flat.is_cuda:
             logits = layers.mm_f32(flat, w)
         else:
-            logits = flat.float() @ w.float()
-        logits = logits.reshape(*hidden.shape[:-1], w.shape[-1])
+            logits = layers.local_product(torch.mm, flat.float(), w.float())
+        logits = reshape(logits, *hidden.shape[:-1], w.shape[-1])
         logits = layers.softcap(logits, self.cfg.final_logit_softcap)
         if shard is not None:
             logits = shard(logits, "batch", None, "vocab")
@@ -334,6 +328,61 @@ class Decoder(nn.Module):
                                                 rope_positions=rope_positions, shard=shard)
         with shard_context(shard):
             return self.logits_for(hidden, active_shard(shard)), caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
+                device=None) -> list:
+    """:meth:`Decoder.init_caches` with no model: one cache per layer of
+    ``cfg``, in ``dtype`` (default ``cfg.dtype``) on ``device`` (a meta
+    device gives shapes only)."""
+    dtype = DTYPES[cfg.dtype] if dtype is None else dtype
+    out = []
+    for kind in cfg.layer_pattern * cfg.n_periods + cfg.tail_pattern:
+        if kind == "rec":
+            out.append(griffin.init_rec_cache(cfg, batch, dtype, device))
+        elif kind == "ssd":
+            out.append(ssm.init_ssm_cache(cfg, batch, dtype, device))
+        else:
+            out.append(attention.init_cache(cfg, kind, batch, max_len, dtype, device))
+    return out
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  On a DTensor table each rank gathers from its own
+    rows (:meth:`Partitioner.local`, no gather rule of DTensor's own): where
+    the vocabulary is sharded, the ids in its range and zeros elsewhere, a
+    partial sum over those mesh dims (the vocabulary-parallel embedding);
+    the ids keep their batch shard, and a table sharded on its embedding
+    dim (FSDP) is gathered."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    part = Partitioner(mesh)
+    ids = part.as_dtensor(ids)
+    t_pl, i_pl, out = [], [], []
+    vocab_dims = []
+    for m, (pt, pi) in enumerate(zip(table.placements, ids.placements)):
+        if type(pt) is Shard and pt.dim == 0:
+            vocab_dims.append(m)
+            t_pl.append(Shard(0))
+            i_pl.append(Replicate())
+            out.append(Partial())
+        else:
+            batch = type(pi) is Shard and pi.dim == 0
+            t_pl.append(Replicate())
+            i_pl.append(Shard(0) if batch else Replicate())
+            out.append(Shard(0) if batch else Replicate())
+
+    def body(tl, il):
+        V = tl.shape[0]
+        idx = 0
+        for m in vocab_dims:
+            idx = idx * mesh.size(m) + mesh.get_local_rank(m)
+        lo = idx * V
+        rows = tl[(il - lo).clamp(0, V - 1)]
+        return torch.where(((il >= lo) & (il < lo + V))[..., None], rows, 0)
+
+    return part.local(body, out, (t_pl, i_pl))(table, ids)
 
 
 def _layer_cache_axes(kind: str):

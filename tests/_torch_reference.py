@@ -483,6 +483,56 @@ def train_constants() -> dict:
     return out
 
 
+def run_reference_example(stem: str, backend: str = "jnp", **kwargs) -> list:
+    """The reference example ``examples/<stem>.py``'s ``main(**kwargs)``
+    under the jax binding, its printed lines normalized by chip_smoke.py's
+    ``example_lines`` (wall times and rates masked).  Its engines run the
+    ``backend`` given (the counts do not depend on it; ``jnp`` spares the
+    Pallas kernels' interpret mode)."""
+    import contextlib
+    import functools
+    import importlib.util
+    import io
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+
+    spec = importlib.util.spec_from_file_location(f"ref_example_{stem}",
+                                                  root / "examples" / f"{stem}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "axis_frame", lambda name: jax.lax.axis_size(name),
+                   raising=False)
+        if hasattr(mod, "ClosureEngine"):
+            mp.setattr(mod, "ClosureEngine", functools.partial(mod.ClosureEngine,
+                                                               backend=backend))
+        with contextlib.redirect_stdout(buf):
+            mod.main(**kwargs)
+    jax.clear_caches()
+    return cs.example_lines(buf.getvalue())
+
+
+def examples_constants() -> dict:
+    """The reference examples' printed lines at chip_smoke.py's phase 22c
+    parameters (``EXAMPLE_ARGS``), normalized by its ``example_lines``.
+    Run it as ``PYTHONPATH=src JAX_PLATFORMS=cpu python
+    tests/_torch_reference.py examples`` and copy the printed JSON into
+    chip_smoke.py's ``EXAMPLES_EXPECTED``."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    return {stem: run_reference_example(stem[: -len("_torch")], **kw)
+            for stem, kw in cs.EXAMPLE_ARGS.items()}
+
+
 if __name__ == "__main__":
     import json
     import sys
@@ -497,5 +547,7 @@ if __name__ == "__main__":
         print(json.dumps(async_constants(), indent=1))
     elif sys.argv[1:] == ["load"]:
         print(json.dumps(load_constants(), indent=1))
+    elif sys.argv[1:] == ["examples"]:
+        print(json.dumps(examples_constants(), indent=1, ensure_ascii=False))
     else:
         print(json.dumps(smoke_constants(), indent=1))
